@@ -1,0 +1,345 @@
+// Hand-written Hopper (sm_90a) kernels for the attempt-1 filter stage.
+//
+// They replace the three Pallas TPU kernels on the main path, all in
+// lane_tracker_tpu/kernels/filter_stage2.py:
+//   lt_tophat          <- tophat_pallas2         (white tophat, OpenCV ellipse SE)
+//   lt_cross_threshold <- the riders of tophat_riders_pallas2 (bilateral cross
+//                         threshold, optional noise keep-mask)
+//   lt_thr_merge_open  <- thr_merge_open_pallas2 (B threshold, merge with R and
+//                         keep, 5x5 elliptical open, packed row prefixes)
+// Everything is integer, so each entry is bit-exact with its plain PyTorch
+// twin in lane_tracker_tpu_torch/kernels/filter_stage.py.
+//
+// Plain C interface, loaded with ctypes: each entry launches on the stream it
+// is given, allocates nothing (the caller passes outputs and scratch) and
+// returns cudaGetLastError().  Images are (T, H, W) uint8, row-major,
+// contiguous.
+//
+// What bounds them on the H100: shared-memory reads, not HBM bytes.  Each
+// pass reads its u8 inputs from device memory once and writes once, while
+// a naive stencil would read every pixel up to k*k times from shared
+// memory.
+//   * Morphology: a k x k ellipse is up to k*k taps.  Each block stages a
+//     32x32 tile plus a k/2 halo in shared memory (255 outside the image
+//     for erode, 0 for dilate) and builds a pow2 pyramid of horizontal
+//     window min/max in place, so each SE row costs two shared reads: 2k
+//     reads per pixel instead of ~k*k (110 instead of ~2400 at k=55).
+//   * Cross threshold: the four k-pixel arms come from int32 exclusive
+//     prefix sums of a horizontal and a vertical strip through the tile
+//     (zero outside the image): four reads per pixel at any k.
+//   * Row prefixes: one warp per image row, shuffle scans of 32 columns.
+// Erode and dilate are two launches (the dilate needs the eroded halo);
+// fusing them, and fusing the riders into the tophat, is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTileW = 32;
+constexpr int kTileH = 32;
+constexpr int kMaxRuns = 64;
+constexpr int kSmemDefault = 48 * 1024;
+
+// One horizontal run [lo, hi] per SE row dy, passed by value.
+struct SeRuns {
+  int n;
+  int max_run;
+  int dy[kMaxRuns];
+  int lo[kMaxRuns];
+  int hi[kMaxRuns];
+};
+
+template <bool kMax>
+__device__ __forceinline__ uint8_t op(uint8_t a, uint8_t b) {
+  return kMax ? (a > b ? a : b) : (a < b ? a : b);
+}
+
+// Erode (kMax=false, fill 255) or dilate (kMax=true, fill 0) by the SE
+// runs.  With kSubtract the output is sub_src - result (the tophat
+// epilogue).  Grid: (ceil(W/32), ceil(H/32), T); block 32x8.
+template <bool kMax, bool kSubtract>
+__global__ void morph_kernel(const uint8_t* __restrict__ in,
+                             const uint8_t* __restrict__ sub_src,
+                             uint8_t* __restrict__ out, int H, int W,
+                             SeRuns runs, int r, int nlev) {
+  extern __shared__ uint8_t lev[];
+  const int rows = kTileH + 2 * r;
+  const int cols = kTileW + 2 * r;
+  const int plane = rows * cols;
+  const int x0 = blockIdx.x * kTileW;
+  const int y0 = blockIdx.y * kTileH;
+  const size_t frame = (size_t)blockIdx.z * H * W;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  const uint8_t fill = kMax ? 0 : 255;
+
+  for (int i = tid; i < plane; i += nthr) {
+    const int ly = i / cols;
+    const int lx = i - ly * cols;
+    const int gy = y0 - r + ly;
+    const int gx = x0 - r + lx;
+    lev[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                 ? in[frame + (size_t)gy * W + gx]
+                 : fill;
+  }
+  __syncthreads();
+  // Level j holds op over columns [c, c + 2^j) of its row.  Entries whose
+  // window runs off the tile are never read.
+  for (int j = 0; j + 1 < nlev; ++j) {
+    const uint8_t* a = lev + j * plane;
+    uint8_t* b = lev + (j + 1) * plane;
+    const int s = 1 << j;
+    for (int i = tid; i < plane; i += nthr) {
+      const int lx = i % cols;
+      b[i] = (lx + s < cols) ? op<kMax>(a[i], a[i + s]) : a[i];
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < kTileW * kTileH; i += nthr) {
+    const int ly = i / kTileW;
+    const int lx = i - ly * kTileW;
+    const int gy = y0 + ly;
+    const int gx = x0 + lx;
+    if (gy >= H || gx >= W) continue;
+    uint8_t acc = fill;
+    for (int q = 0; q < runs.n; ++q) {
+      const int lo = runs.lo[q];
+      const int hi = runs.hi[q];
+      const int k = 31 - __clz(hi - lo + 1);
+      const uint8_t* row =
+          lev + k * plane + (ly + r + runs.dy[q]) * cols + (lx + r);
+      acc = op<kMax>(acc, op<kMax>(row[lo], row[hi - (1 << k) + 1]));
+    }
+    const size_t o = frame + (size_t)gy * W + gx;
+    out[o] = kSubtract ? (uint8_t)(sub_src[o] - acc) : acc;
+  }
+}
+
+// Bilateral cross threshold, mode 'floor': hit iff both horizontal k-arm
+// sums < k*x - C*k or both vertical ones are; arms exclude the pixel and
+// read 0 outside the image.  noise_thresh >= 0 gives the keep-mask
+// (x < noise_thresh) | hit.  Non-null merge_r / keep give the merge
+// epilogue ((merge_r | hit) & keep).  Output 0/255.
+__global__ void cross_threshold_kernel(const uint8_t* __restrict__ in,
+                                       const uint8_t* __restrict__ merge_r,
+                                       const uint8_t* __restrict__ keep,
+                                       uint8_t* __restrict__ out, int H, int W,
+                                       int k, int C, int noise_thresh) {
+  extern __shared__ int strips[];
+  const int hw = kTileW + 2 * k + 1;  // odd: conflict-free row scans
+  const int vh = kTileH + 2 * k + 1;
+  int* hs = strips;                // kTileH rows x hw: row prefixes
+  int* vs = strips + kTileH * hw;  // vh rows x kTileW: column prefixes
+  const int x0 = blockIdx.x * kTileW;
+  const int y0 = blockIdx.y * kTileH;
+  const size_t frame = (size_t)blockIdx.z * H * W;
+  const uint8_t* src = in + frame;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+
+  // Slot 0 of each strip is the leading zero of the exclusive prefix;
+  // slot 1 + j holds the pixel k columns (rows) before the tile plus j.
+  for (int i = tid; i < kTileH * hw; i += nthr) {
+    const int ly = i / hw;
+    const int j = i - ly * hw;
+    const int gy = y0 + ly;
+    const int gx = x0 - k + j - 1;
+    hs[i] = (j > 0 && gy < H && gx >= 0 && gx < W) ? src[(size_t)gy * W + gx]
+                                                   : 0;
+  }
+  for (int i = tid; i < vh * kTileW; i += nthr) {
+    const int j = i / kTileW;
+    const int lx = i - j * kTileW;
+    const int gy = y0 - k + j - 1;
+    const int gx = x0 + lx;
+    vs[i] = (j > 0 && gy >= 0 && gy < H && gx < W) ? src[(size_t)gy * W + gx]
+                                                   : 0;
+  }
+  __syncthreads();
+  if (tid < kTileH) {
+    int* row = hs + tid * hw;
+    int s = 0;
+    for (int j = 0; j < hw; ++j) {
+      s += row[j];
+      row[j] = s;
+    }
+  } else if (tid >= 32 && tid < 32 + kTileW) {
+    const int lx = tid - 32;
+    int s = 0;
+    for (int j = 0; j < vh; ++j) {
+      s += vs[j * kTileW + lx];
+      vs[j * kTileW + lx] = s;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kTileW * kTileH; i += nthr) {
+    const int ly = i / kTileW;
+    const int lx = i - ly * kTileW;
+    const int gy = y0 + ly;
+    const int gx = x0 + lx;
+    if (gy >= H || gx >= W) continue;
+    const int* row = hs + ly * hw;
+    const int x = row[lx + k + 1] - row[lx + k];
+    const int left = row[lx + k] - row[lx];
+    const int right = row[lx + 2 * k + 1] - row[lx + k + 1];
+    const int up = vs[(ly + k) * kTileW + lx] - vs[ly * kTileW + lx];
+    const int down =
+        vs[(ly + 2 * k + 1) * kTileW + lx] - vs[(ly + k + 1) * kTileW + lx];
+    const int t = k * x - C * k;
+    bool hit = (left < t && right < t) || (up < t && down < t);
+    if (noise_thresh >= 0) hit = hit || x < noise_thresh;
+    const size_t o = frame + (size_t)gy * W + gx;
+    if (merge_r != nullptr) hit = hit || merge_r[o] != 0;
+    if (keep != nullptr) hit = hit && keep[o] != 0;
+    out[o] = hit ? 255 : 0;
+  }
+}
+
+// Packed exclusive row prefixes: pref[row][X] = (xsum << shift) | count
+// over the nonzero pixels with column < X, X = 0..W.  One warp per row.
+__global__ void row_prefix_kernel(const uint8_t* __restrict__ bin,
+                                  int32_t* __restrict__ pref, int n_rows,
+                                  int W, int shift) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const uint8_t* b = bin + (size_t)row * W;
+  int32_t* p = pref + (size_t)row * (W + 1);
+  if (lane == 0) p[0] = 0;
+  int carry = 0;
+  for (int base = 0; base < W; base += 32) {
+    const int x = base + lane;
+    int v = (x < W && b[x] != 0) ? ((x << shift) | 1) : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += n;
+    }
+    if (x < W) p[x + 1] = carry + v;
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+int load_runs(const int* table, int n, SeRuns* runs) {
+  if (n < 1 || n > kMaxRuns) return -1;
+  runs->n = n;
+  runs->max_run = 1;
+  for (int q = 0; q < n; ++q) {
+    runs->dy[q] = table[3 * q];
+    runs->lo[q] = table[3 * q + 1];
+    runs->hi[q] = table[3 * q + 2];
+    const int len = runs->hi[q] - runs->lo[q] + 1;
+    if (len < 1) return -1;
+    if (len > runs->max_run) runs->max_run = len;
+  }
+  return 0;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= (size_t)kSmemDefault) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <bool kMax, bool kSubtract>
+cudaError_t launch_morph(const uint8_t* in, const uint8_t* sub_src,
+                         uint8_t* out, const SeRuns& runs, int ksize, int T,
+                         int H, int W, cudaStream_t stream) {
+  const int r = ksize / 2;
+  int nlev = 1;
+  while ((1 << nlev) <= runs.max_run) ++nlev;
+  const size_t smem =
+      (size_t)nlev * (kTileH + 2 * r) * (kTileW + 2 * r);
+  cudaError_t err = allow_smem(morph_kernel<kMax, kSubtract>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, T);
+  morph_kernel<kMax, kSubtract><<<grid, dim3(32, 8), smem, stream>>>(
+      in, sub_src, out, H, W, runs, r, nlev);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_threshold(const uint8_t* in, const uint8_t* merge_r,
+                             const uint8_t* keep, uint8_t* out, int T, int H,
+                             int W, int k, int C, int noise_thresh,
+                             cudaStream_t stream) {
+  const size_t smem = sizeof(int) * ((size_t)kTileH * (kTileW + 2 * k + 1) +
+                                     (size_t)(kTileH + 2 * k + 1) * kTileW);
+  cudaError_t err = allow_smem(cross_threshold_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, T);
+  cross_threshold_kernel<<<grid, dim3(32, 8), smem, stream>>>(
+      in, merge_r, keep, out, H, W, k, C, noise_thresh);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// out = img - open(img) with the ellipse SE whose runs are in `runs`
+// (n rows of int32 (dy, lo, hi), a host array).  scratch holds the
+// eroded image.
+int lt_tophat(const void* img, void* out, void* scratch, const void* runs,
+              int n_runs, int ksize, int T, int H, int W, void* stream) {
+  SeRuns se;
+  if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
+      ksize < 1 || T < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* x = static_cast<const uint8_t*>(img);
+  uint8_t* e = static_cast<uint8_t*>(scratch);
+  cudaError_t err =
+      launch_morph<false, false>(x, nullptr, e, se, ksize, T, H, W, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_morph<true, true>(e, x, static_cast<uint8_t*>(out), se,
+                                       ksize, T, H, W, s);
+}
+
+// Bilateral cross threshold (optionally the noise keep-mask) of img.
+int lt_cross_threshold(const void* img, void* out, int T, int H, int W,
+                       int ksize, int C, int noise_thresh, void* stream) {
+  if (ksize < 1 || T < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_threshold(static_cast<const uint8_t*>(img), nullptr,
+                               nullptr, static_cast<uint8_t*>(out), T, H, W,
+                               ksize, C, noise_thresh,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// binary = open(((r_th | thr(b_feat, kb, Cb)) & keep) as 0/255, ellipse
+// open_k); pref = packed exclusive row prefixes of binary, (T, H, W+1).
+// keep may be null.  scratch0 / scratch1 hold the merged and the eroded
+// images.
+int lt_thr_merge_open(const void* r_th, const void* b_feat, const void* keep,
+                      void* out, void* pref, void* scratch0, void* scratch1,
+                      const void* runs, int n_runs, int open_k, int T, int H,
+                      int W, int kb, int Cb, int shift, void* stream) {
+  SeRuns se;
+  if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
+      open_k < 1 || kb < 1 || T < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* merged = static_cast<uint8_t*>(scratch0);
+  uint8_t* eroded = static_cast<uint8_t*>(scratch1);
+  uint8_t* bin = static_cast<uint8_t*>(out);
+  cudaError_t err = launch_threshold(
+      static_cast<const uint8_t*>(b_feat), static_cast<const uint8_t*>(r_th),
+      static_cast<const uint8_t*>(keep), merged, T, H, W, kb, Cb, -1, s);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_morph<false, false>(merged, nullptr, eroded, se, open_k, T, H,
+                                   W, s);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_morph<true, false>(eroded, nullptr, bin, se, open_k, T, H, W,
+                                  s);
+  if (err != cudaSuccess) return (int)err;
+  const int n_rows = T * H;
+  const int threads = 256;
+  const int blocks = (n_rows * 32 + threads - 1) / threads;
+  row_prefix_kernel<<<blocks, threads, 0, s>>>(
+      bin, static_cast<int32_t*>(pref), n_rows, W, shift);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

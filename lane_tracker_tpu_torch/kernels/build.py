@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels (nvcc -> .so -> ctypes).
+
+The sources under ``lane_tracker_tpu_torch/csrc/`` have a plain C
+interface and include no PyTorch header, so one ``nvcc`` call builds them
+in seconds.  The library is built at first use into ``build/lt_torch_kernels/``
+beside the package (a directory git ignores), named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
+SOURCES = ("filter_stage.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Every pointer and the stream are c_void_p, every int is c_int.
+SIGNATURES = {
+    "lt_tophat": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lt_cross_threshold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lt_thr_merge_open": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P),
+}
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [pathlib.Path(home) / "bin" / "nvcc"] if home else []
+    candidates.append(pathlib.Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"liblt_filter_stage_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=1)
+def build() -> tuple:
+    """Compile the sources if their library is missing.
+
+    Returns (path, seconds spent compiling, nvcc's messages); seconds is 0
+    when an up-to-date library already existed.
+    """
+    out = library_path()
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return out, seconds, log
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """The built kernel library with every entry's ctypes signature set."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,59 @@
+"""Cross-kernel adaptive threshold and ``cv2.inRange`` (plain torch).
+
+Port of lane_tracker_tpu/ops/threshold.py:26-128, 170-173: the bilateral
+adaptive threshold in mode 'floor' only (the only mode the tracker uses),
+and ``in_range`` for the noise mask.  The reference's bilateral
+threshold (lane_tracker.py:14-83) passes a pixel iff it beats the mean of
+BOTH the left and right arms, or BOTH the up and down arms, of a 1-px
+cross of radius ``ksize`` by margin C.  Arm sums come from int32 prefix
+sums along each axis (exact), with zeros outside the image.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _arm_sums(x: torch.Tensor, dim: int, k: int):
+    """(before, after): sums of the k pixels strictly before/after each
+    position along ``dim`` of an int32 tensor; out of range counts 0."""
+    n = x.shape[dim]
+    pad_shape = list(x.shape)
+    pad_shape[dim] = k
+    z = x.new_zeros(pad_shape)
+    lead = list(x.shape)
+    lead[dim] = 1
+    padded = torch.cat([x.new_zeros(lead), z, x, z], dim=dim)
+    cs = torch.cumsum(padded, dim=dim, dtype=torch.int32)  # cs[i] = sum p[<i]
+
+    def at(start):
+        return cs.narrow(dim, start, n)
+
+    # Pixel i sits at padded index i + k (+1 for the leading zero of cs).
+    before = at(k) - at(0)
+    after = at(2 * k + 1) - at(k + 1)
+    return before, after
+
+
+def cross_threshold(img: torch.Tensor, ksize: int, C: int,
+                    noise_thresh: int = -1) -> torch.Tensor:
+    """Bilateral cross threshold (mode 'floor') of a (..., H, W) uint8
+    image: 255 iff both horizontal arm sums are < k*x - C*k, or both
+    vertical ones are.  With ``noise_thresh >= 0`` returns the noise
+    keep-mask ``(x < noise_thresh) | hit`` instead (the reference's
+    ``~inRange(x, noise_thresh, 255) | thr(x)``)."""
+    k = int(ksize)
+    p = img.to(torch.int32)
+    left, right = _arm_sums(p, p.dim() - 1, k)
+    up, down = _arm_sums(p, p.dim() - 2, k)
+    t = k * p - int(C) * k
+    hit = ((left < t) & (right < t)) | ((up < t) & (down < t))
+    if noise_thresh >= 0:
+        hit = hit | (in_range(img, noise_thresh, 255) == 0)
+    return torch.where(hit, 255, 0).to(torch.uint8)
+
+
+def in_range(img: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``cv2.inRange`` for scalars: 255 where lo <= img <= hi else 0."""
+    hit = (img >= lo) & (img <= hi)
+    return torch.where(hit, 255, 0).to(torch.uint8)
