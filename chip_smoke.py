@@ -11,8 +11,9 @@ Phases (each raises at the first failure; nothing is skipped):
 2. Build: nvcc builds the port's CUDA kernels from csrc/.
 3. Frames: the four decoded stills (assets/stills_720p.npz).
 4. Kernel parity: the three filter-stage kernels against their plain
-   PyTorch twins on the card, on the corridor channels of 8 frames; every
-   output, prefixes included, must match exactly.
+   PyTorch twins on the card, on the corridor channels of the slice's 64
+   frames, the inputs the main path gives them; every output, prefixes
+   included, must match exactly.
 5. Slice: ``chunk_process`` (demo1, 'corridor', two_phase, overlay on) on
    64 frames from a fresh state; every kernel must have launched, the
    corridor certificate must hold on all frames, the validity trace must
@@ -35,7 +36,6 @@ import sys
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent
-T_PARITY = 8
 T_SLICE = 64
 T_CPU = 8
 N_TIMED_CHUNKS = 5
@@ -149,7 +149,7 @@ def main():
           f"{params.col_comp}, decisions {params.col_roi}")
 
     # ---- 4. Kernel parity ----
-    r, b = warp_channels(gchunk[:T_PARITY], gparams)
+    r, b = warp_channels(gchunk, gparams)
     errs = {}
     r_feat = fs.tophat_ellipse(r, f.tophat_r)
     errs["tophat_ellipse"] = [mismatches(r_feat,
@@ -160,8 +160,10 @@ def main():
     plain = fs.tophat_riders_plain(b, f.tophat_b, riders)
     errs["tophat_riders"] = [mismatches(g, w) for g, w in zip(outs, plain)]
     b_feat, r_th, keep = outs
-    got = fs.thr_merge_open(r_th, b_feat, f.ksize_b, f.C_b, keep)
-    want = fs.thr_merge_open_plain(r_th, b_feat, f.ksize_b, f.C_b, keep)
+    got = fs.thr_merge_open(r_th, b_feat, f.ksize_b, f.C_b, keep,
+                            open_k=f.open_k)
+    want = fs.thr_merge_open_plain(r_th, b_feat, f.ksize_b, f.C_b, keep,
+                                   open_k=f.open_k)
     errs["thr_merge_open"] = [mismatches(got[0], want[0]),
                               mismatches(got[1].packed, want[1].packed)]
     torch.cuda.synchronize()
@@ -240,21 +242,17 @@ def main():
           f"{N_TIMED_CHUNKS} chunks, state carried ({card})")
     check(bool(out.valid.all()), "timed chunks lost tracking")
 
-    r64, b64 = warp_channels(gchunk, gparams)
-    rf64 = fs.tophat_ellipse(r64, f.tophat_r)
-    riders64 = [(rf64, f.ksize_r, f.C_r, -1),
-                (b64, f.ksize_noise, f.C_noise, f.noise_thresh)]
-    bf64, rth64, keep64 = fs.tophat_riders(b64, f.tophat_b, riders64)
     calls = {
-        "tophat_ellipse": (lambda: fs.tophat_ellipse(r64, f.tophat_r),
-                           lambda: fs.tophat_ellipse_plain(r64, f.tophat_r)),
+        "tophat_ellipse": (lambda: fs.tophat_ellipse(r, f.tophat_r),
+                           lambda: fs.tophat_ellipse_plain(r, f.tophat_r)),
         "tophat_riders": (
-            lambda: fs.tophat_riders(b64, f.tophat_b, riders64),
-            lambda: fs.tophat_riders_plain(b64, f.tophat_b, riders64)),
+            lambda: fs.tophat_riders(b, f.tophat_b, riders),
+            lambda: fs.tophat_riders_plain(b, f.tophat_b, riders)),
         "thr_merge_open": (
-            lambda: fs.thr_merge_open(rth64, bf64, f.ksize_b, f.C_b, keep64),
-            lambda: fs.thr_merge_open_plain(rth64, bf64, f.ksize_b, f.C_b,
-                                            keep64)),
+            lambda: fs.thr_merge_open(r_th, b_feat, f.ksize_b, f.C_b, keep,
+                                      open_k=f.open_k),
+            lambda: fs.thr_merge_open_plain(r_th, b_feat, f.ksize_b, f.C_b,
+                                            keep, open_k=f.open_k)),
     }
     kernels = []
     for name, (kernel, twin) in calls.items():
@@ -264,7 +262,7 @@ def main():
         k2 = cuda_ms(kernel, 10)
         p2 = cuda_ms(twin, 3)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"[timing] {name} at {tuple(r64.shape)}: kernel {ms:.3f} ms, "
+        print(f"[timing] {name} at {tuple(r.shape)}: kernel {ms:.3f} ms, "
               f"plain twin {plain_ms:.3f} ms ({card})")
         kernels.append({
             "name": name, "route": "cuda", "source": fs.SOURCE,

@@ -10,6 +10,10 @@ Only ``second_attempt="two_phase"`` is ported, and only its first phase:
 when some frame's first attempt fails, the reference reruns the chunk
 with the batched second attempt; here that raises ``NotImplementedError``
 (the second attempt is the next slice), on the CPU and the card alike.
+
+Each stage runs inside a ``torch.profiler.record_function`` range named
+``lt.<stage>`` (warp_lab, filter, embed_search, back_half, overlay);
+scripts/torch_chunk_breakdown.py reads them from a profile.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from lane_tracker_tpu_torch.tracker.config import TrackerConfig
 from lane_tracker_tpu_torch.tracker.state import TrackerState
@@ -79,12 +84,14 @@ def chunk_process(state: TrackerState, frames: torch.Tensor,
         raise NotImplementedError(
             f"second_attempt={second_attempt!r}: only 'two_phase' is ported")
     arts = front_artifacts_batch(frames, params, config)
-    if config.n_tries >= 2 or config.n_tries == -1:
-        state, (outs, metas) = two_phase_scan(state, arts, params, config)
-    else:
-        state, (outs, metas) = scan_back_half(state, arts, params, config)
+    with record_function("lt.back_half"):
+        if config.n_tries >= 2 or config.n_tries == -1:
+            state, (outs, metas) = two_phase_scan(state, arts, params, config)
+        else:
+            state, (outs, metas) = scan_back_half(state, arts, params, config)
     if with_overlay:
-        outs = outs._replace(overlay=render_frame(frames, metas, params,
-                                                  config))
+        with record_function("lt.overlay"):
+            outs = outs._replace(overlay=render_frame(frames, metas, params,
+                                                      config))
     return state, outs
 

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from lane_tracker_tpu_torch.calib.homography import perspective_grid
 from lane_tracker_tpu_torch.calib.undistort import undistort_grid
@@ -301,12 +302,15 @@ def front_artifacts_batch(frames: torch.Tensor, params: TrackerParams,
     the attempt-1 filter (three kernels), corridor embedding, and the
     blind sliding-window intervals, all batched over T."""
     W, H = params.warped_size
-    r_chan, b_chan = warp_channels(frames, params)
-    binary, pref = filter_stage(r_chan, b_chan, config.filter)
-    binary = _embed_cols(binary, params)
-    pref = _embed_prefixes(pref, params)
-    iv_sws = sliding_window_intervals(
-        sws_precompute(binary, config.search), config.search, H, W)
+    with record_function("lt.warp_lab"):
+        r_chan, b_chan = warp_channels(frames, params)
+    with record_function("lt.filter"):
+        binary, pref = filter_stage(r_chan, b_chan, config.filter)
+    with record_function("lt.embed_search"):
+        binary = _embed_cols(binary, params)
+        pref = _embed_prefixes(pref, params)
+        iv_sws = sliding_window_intervals(
+            sws_precompute(binary, config.search), config.search, H, W)
     return FrontArtifacts(pref=pref, iv_sws=iv_sws)
 
 

@@ -1,15 +1,20 @@
 """Where a chunk's time goes in the PyTorch port, on one NVIDIA GPU.
 
 Runs the port's main path (demo1, 'corridor', two_phase, overlay on) on a
-chunk of the four stills cycled to T frames and reports:
+chunk of the four stills cycled to T frames, state carried, and reports:
 
-* per-stage host-clock times, each stage closed by ``torch.cuda.synchronize``
-  (median of ``--reps`` runs, state carried): warp + LAB, the filter stage
-  (three kernels), embedding + sliding-window search, the per-frame back
-  half, and the overlay;
-* a ``torch.profiler`` trace of one whole ``chunk_process``: device busy
-  time (the sum of kernel times on the one stream), the idle share of the
-  wall time, the number of kernel launches, and the top kernels by time.
+* the chunk's time without the profiler: CUDA events around each of
+  ``--reps`` chunks;
+* a ``torch.profiler`` trace of ``--reps`` more chunks, read through the
+  ``lt.<stage>`` ranges that ``chunk_process`` and ``front_artifacts_batch``
+  open (warp_lab, filter, embed_search, back_half, overlay): per chunk, the
+  host time spent inside each range, and the device time and number of the
+  kernels launched from it.  Kernels are tied to the range their launch
+  call sits in through the trace's correlation ids, so the filter stage's
+  ctypes-launched CUDA kernels count as well as PyTorch's own;
+* from the same trace: device busy time (the sum of kernel, memcpy and
+  memset times on the one stream), the idle share against the profiled and
+  the unprofiled chunk time, and the top kernels by time.
 
 Usage (from the repository root):
 
@@ -20,6 +25,8 @@ Exits non-zero without CUDA.
 """
 
 import argparse
+import bisect
+import collections
 import copy
 import json
 import pathlib
@@ -29,6 +36,36 @@ import sys
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+STAGES = ("lt.warp_lab", "lt.filter", "lt.embed_search", "lt.back_half",
+          "lt.overlay")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def stage_table(events, reps):
+    """Per-chunk host ms, device ms and launches of each ``lt.`` range, from
+    the events of a chrome trace; device work launched outside every range
+    goes to ``(outside)``."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") in STAGES)
+    starts = [s for s, _, _ in spans]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in LAUNCH_CATS
+                   and "correlation" in e.get("args", {})}
+    table = {name: {"host_ms": 0.0, "device_ms": 0.0, "launches": 0.0}
+             for name in STAGES + ("(outside)",)}
+    for s, e, name in spans:
+        table[name]["host_ms"] += (e - s) / 1e3 / reps
+    for ev in events:
+        if ev.get("cat") not in DEVICE_CATS:
+            continue
+        ts = launched_at.get(ev.get("args", {}).get("correlation"))
+        i = -1 if ts is None else bisect.bisect_right(starts, ts) - 1
+        name = spans[i][2] if i >= 0 and ts < spans[i][1] else "(outside)"
+        table[name]["device_ms"] += ev["dur"] / 1e3 / reps
+        table[name]["launches"] += 1 / reps
+    return table
 
 
 def main():
@@ -39,30 +76,18 @@ def main():
 
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
     from lane_tracker_tpu_torch.calib.io import load_calibration_npz
-    from lane_tracker_tpu_torch.ops.filters import filter_stage
-    from lane_tracker_tpu_torch.ops.search import (
-        sliding_window_intervals,
-        sws_precompute,
-    )
-    from lane_tracker_tpu_torch.parallel.pipeline import (
-        chunk_process,
-        two_phase_scan,
-    )
+    from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
     from lane_tracker_tpu_torch.tracker.config import PRESETS
     from lane_tracker_tpu_torch.tracker.step import (
-        FrontArtifacts,
         TrackerParams,
-        _embed_cols,
-        _embed_prefixes,
         make_initial_state,
-        render_frame,
-        warp_channels,
     )
 
     card = subprocess.run(
@@ -77,78 +102,71 @@ def main():
     with np.load(REPO / "assets" / "stills_720p.npz") as z:
         stills = z["frames"]
     frames = torch.from_numpy(stills[np.arange(args.T) % len(stills)]).cuda()
-    W, H = params.warped_size
     state = make_initial_state(cfg, params.warped_size, "cuda")
     state, _ = chunk_process(state, frames, params, cfg)  # warm-up
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    stages = {k: [] for k in ("warp_lab", "filter", "embed_search",
-                              "back_half", "overlay", "chunk_process")}
+    chunk_ms = []
     for _ in range(args.reps):
-        (r, b), ms = timed(lambda: warp_channels(frames, params))
-        stages["warp_lab"].append(ms)
-        (binary, pref), ms = timed(lambda: filter_stage(r, b, cfg.filter))
-        stages["filter"].append(ms)
-
-        def embed_search():
-            bn = _embed_cols(binary, params)
-            iv = sliding_window_intervals(sws_precompute(bn, cfg.search),
-                                          cfg.search, H, W)
-            return _embed_prefixes(pref, params), iv
-
-        (pref_e, iv), ms = timed(embed_search)
-        stages["embed_search"].append(ms)
-        arts = FrontArtifacts(pref_e, iv)
-        (st, (outs, metas)), ms = timed(
-            lambda: two_phase_scan(state, arts, params, cfg))
-        stages["back_half"].append(ms)
-        _, ms = timed(lambda: render_frame(frames, metas, params, cfg))
-        stages["overlay"].append(ms)
-        (state, _), ms = timed(lambda: chunk_process(state, frames, params,
-                                                     cfg))
-        stages["chunk_process"].append(ms)
-    med = {k: statistics.median(v) for k, v in stages.items()}
-
-    from torch.profiler import ProfilerActivity, profile
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        state, _ = chunk_process(state, frames, params, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        chunk_ms.append(start.elapsed_time(end))
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = chunk_process(state, frames, params, cfg)
+        for _ in range(args.reps):
+            state, _ = chunk_process(state, frames, params, cfg)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.reps
+    trace = REPO / "build" / "torch_chunk_breakdown_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    stages = stage_table(events, args.reps)
+    missing = [s for s in STAGES if stages[s]["host_ms"] == 0.0]
+    if missing:
+        print(f"profile has no ranges {missing}", file=sys.stderr)
+        return 1
+    per_kernel = collections.defaultdict(lambda: [0, 0.0])
+    for ev in events:
+        if ev.get("cat") in DEVICE_CATS:
+            per_kernel[ev["name"]][0] += 1
+            per_kernel[ev["name"]][1] += ev["dur"] / 1e3
+    busy_ms = sum(v["device_ms"] for v in stages.values())
+    launches = sum(v["launches"] for v in stages.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    chunk_ms_median = statistics.median(chunk_ms)
     result = {
         "card": card,
         "T": args.T,
-        "stage_ms_median": med,
-        "stage_ms_all": stages,
+        "reps": args.reps,
+        "chunk_ms": chunk_ms,
+        "chunk_ms_median": chunk_ms_median,
         "profiled_chunk_wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "kernel_launches": launches,
-        "top_kernels": [{"name": e.key[:90], "count": e.count,
-                         "device_ms": e.self_device_time_total / 1e3}
-                        for e in top],
+        "stages_per_chunk": stages,
+        "device_busy_ms_per_chunk": busy_ms,
+        "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
+        "device_idle_share_unprofiled": 1.0 - busy_ms / chunk_ms_median,
+        "launches_per_chunk": launches,
+        "top_kernels": [{"name": name[:90], "count": n, "device_ms": ms}
+                        for name, (n, ms) in top],
     }
-    for k, v in med.items():
-        print(f"{k:14s} {v:9.2f} ms  ({card}, T={args.T})")
-    print(f"profiled chunk: wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms, idle share {result['device_idle_share']:.3f}, "
-          f"{launches} kernel launches")
+    print(f"chunk_process T={args.T}: {chunk_ms} ms, median "
+          f"{chunk_ms_median} ms ({card})")
+    print(f"profiled, per chunk: wall {wall_ms} ms, device busy {busy_ms} ms, "
+          f"idle share {result['device_idle_share_profiled']} (against the "
+          f"unprofiled median {result['device_idle_share_unprofiled']}), "
+          f"{launches} launches")
+    for k, v in stages.items():
+        print(f"  {k:16s} host {v['host_ms']:10.3f} ms  device "
+              f"{v['device_ms']:9.3f} ms  launches {v['launches']:9.1f}")
     for e in result["top_kernels"]:
         print(f"  {e['device_ms']:8.3f} ms  x{e['count']:5d}  {e['name']}")
     out = REPO / "chiprun_out" / "torch_chunk_breakdown.json"
