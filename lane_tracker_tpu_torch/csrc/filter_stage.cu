@@ -1,12 +1,19 @@
-// Hand-written Hopper (sm_90a) kernels for the attempt-1 filter stage.
+// Hand-written Hopper (sm_90a) kernels for the filter stage's morphology,
+// cross thresholds and merges.
 //
-// They replace the three Pallas TPU kernels on the main path, all in
+// They replace these Pallas TPU kernels, all in
 // lane_tracker_tpu/kernels/filter_stage2.py:
 //   lt_tophat          <- tophat_pallas2         (white tophat, OpenCV ellipse SE)
-//   lt_cross_threshold <- the riders of tophat_riders_pallas2 (bilateral cross
+//   lt_cross_threshold <- the riders of tophat_riders_pallas2, and
+//                         bilateral_threshold_pallas2 (bilateral cross
 //                         threshold, optional noise keep-mask)
-//   lt_thr_merge_open  <- thr_merge_open_pallas2 (B threshold, merge with R and
-//                         keep, 5x5 elliptical open, packed row prefixes)
+//   lt_thr_merge_open  <- thr_merge_open_pallas2 (B threshold, merge with R
+//                         and keep, 5x5 elliptical open, packed row prefixes)
+//   lt_merge_open      <- merge_open_pallas2     ((r | b) & keep, the same
+//                         open and prefixes; the second attempt's last stage)
+// The open + prefix tail is one host-side launcher (launch_open_prefix)
+// that both merge entries call.  The second attempt's adaptive mean
+// threshold is in adaptive_mean.cu.
 // Everything is integer, so each entry is bit-exact with its plain PyTorch
 // twin in lane_tracker_tpu_torch/kernels/filter_stage.py.
 //
@@ -28,18 +35,25 @@
 //     prefix sums of a horizontal and a vertical strip through the tile
 //     (zero outside the image): four reads per pixel at any k.
 //   * Row prefixes: one warp per image row, shuffle scans of 32 columns.
+//   * The merge of lt_merge_open is a grid-stride elementwise pass: HBM
+//     bound, three u8 reads and one write per pixel.
 // Erode and dilate are two launches (the dilate needs the eroded halo);
-// fusing them, and fusing the riders into the tophat, is later work.
+// fusing them, fusing the merge into the erode's staging, and fusing the
+// riders into the tophat, is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 32;
+using lt::allow_smem;
+using lt::kTileH;
+using lt::kTileW;
+using lt::tile_grid;
+
 constexpr int kMaxRuns = 64;
-constexpr int kSmemDefault = 48 * 1024;
 
 // One horizontal run [lo, hi] per SE row dy, passed by value.
 struct SeRuns {
@@ -220,6 +234,19 @@ __global__ void row_prefix_kernel(const uint8_t* __restrict__ bin,
   }
 }
 
+// merged = ((r | b) & keep) as 0/255, elementwise; keep may be null.
+__global__ void merge_kernel(const uint8_t* __restrict__ r,
+                             const uint8_t* __restrict__ b,
+                             const uint8_t* __restrict__ keep,
+                             uint8_t* __restrict__ merged, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    bool hit = r[i] != 0 || b[i] != 0;
+    if (keep != nullptr) hit = hit && keep[i] != 0;
+    merged[i] = hit ? 255 : 0;
+  }
+}
+
 int load_runs(const int* table, int n, SeRuns* runs) {
   if (n < 1 || n > kMaxRuns) return -1;
   runs->n = n;
@@ -235,14 +262,6 @@ int load_runs(const int* table, int n, SeRuns* runs) {
   return 0;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= (size_t)kSmemDefault) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <bool kMax, bool kSubtract>
 cudaError_t launch_morph(const uint8_t* in, const uint8_t* sub_src,
                          uint8_t* out, const SeRuns& runs, int ksize, int T,
@@ -254,8 +273,8 @@ cudaError_t launch_morph(const uint8_t* in, const uint8_t* sub_src,
       (size_t)nlev * (kTileH + 2 * r) * (kTileW + 2 * r);
   cudaError_t err = allow_smem(morph_kernel<kMax, kSubtract>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, T);
-  morph_kernel<kMax, kSubtract><<<grid, dim3(32, 8), smem, stream>>>(
+  morph_kernel<kMax, kSubtract><<<tile_grid(T, H, W), dim3(32, 8), smem,
+                                  stream>>>(
       in, sub_src, out, H, W, runs, r, nlev);
   return cudaGetLastError();
 }
@@ -268,9 +287,30 @@ cudaError_t launch_threshold(const uint8_t* in, const uint8_t* merge_r,
                                      (size_t)(kTileH + 2 * k + 1) * kTileW);
   cudaError_t err = allow_smem(cross_threshold_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, T);
-  cross_threshold_kernel<<<grid, dim3(32, 8), smem, stream>>>(
+  cross_threshold_kernel<<<tile_grid(T, H, W), dim3(32, 8), smem, stream>>>(
       in, merge_r, keep, out, H, W, k, C, noise_thresh);
+  return cudaGetLastError();
+}
+
+// The tail both merge entries share: binary = open(merged) with the
+// ellipse runs (erode into `eroded`, dilate into `bin`; the erode's 255
+// fill outside the image is the reference's pad of the merged input), then
+// the packed row prefixes of binary into pref.
+cudaError_t launch_open_prefix(const uint8_t* merged, uint8_t* eroded,
+                               uint8_t* bin, int32_t* pref, const SeRuns& se,
+                               int open_k, int T, int H, int W, int shift,
+                               cudaStream_t s) {
+  cudaError_t err =
+      launch_morph<false, false>(merged, nullptr, eroded, se, open_k, T, H, W,
+                                 s);
+  if (err != cudaSuccess) return err;
+  err = launch_morph<true, false>(eroded, nullptr, bin, se, open_k, T, H, W,
+                                  s);
+  if (err != cudaSuccess) return err;
+  const int n_rows = T * H;
+  const int threads = 256;
+  const int blocks = (n_rows * 32 + threads - 1) / threads;
+  row_prefix_kernel<<<blocks, threads, 0, s>>>(bin, pref, n_rows, W, shift);
   return cudaGetLastError();
 }
 
@@ -322,24 +362,42 @@ int lt_thr_merge_open(const void* r_th, const void* b_feat, const void* keep,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* merged = static_cast<uint8_t*>(scratch0);
-  uint8_t* eroded = static_cast<uint8_t*>(scratch1);
-  uint8_t* bin = static_cast<uint8_t*>(out);
   cudaError_t err = launch_threshold(
       static_cast<const uint8_t*>(b_feat), static_cast<const uint8_t*>(r_th),
       static_cast<const uint8_t*>(keep), merged, T, H, W, kb, Cb, -1, s);
   if (err != cudaSuccess) return (int)err;
-  err = launch_morph<false, false>(merged, nullptr, eroded, se, open_k, T, H,
-                                   W, s);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_morph<true, false>(eroded, nullptr, bin, se, open_k, T, H, W,
-                                  s);
-  if (err != cudaSuccess) return (int)err;
-  const int n_rows = T * H;
+  return (int)launch_open_prefix(merged, static_cast<uint8_t*>(scratch1),
+                                 static_cast<uint8_t*>(out),
+                                 static_cast<int32_t*>(pref), se, open_k, T,
+                                 H, W, shift, s);
+}
+
+// binary = open(((r_th | b_th) & keep) as 0/255, ellipse open_k); pref as
+// in lt_thr_merge_open.  keep may be null.  scratch0 / scratch1 hold the
+// merged and the eroded images.
+int lt_merge_open(const void* r_th, const void* b_th, const void* keep,
+                  void* out, void* pref, void* scratch0, void* scratch1,
+                  const void* runs, int n_runs, int open_k, int T, int H,
+                  int W, int shift, void* stream) {
+  SeRuns se;
+  if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
+      open_k < 1 || T < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* merged = static_cast<uint8_t*>(scratch0);
+  const size_t n = (size_t)T * H * W;
   const int threads = 256;
-  const int blocks = (n_rows * 32 + threads - 1) / threads;
-  row_prefix_kernel<<<blocks, threads, 0, s>>>(
-      bin, static_cast<int32_t*>(pref), n_rows, W, shift);
-  return (int)cudaGetLastError();
+  const size_t want = (n + threads - 1) / threads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  merge_kernel<<<blocks, threads, 0, s>>>(
+      static_cast<const uint8_t*>(r_th), static_cast<const uint8_t*>(b_th),
+      static_cast<const uint8_t*>(keep), merged, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_open_prefix(merged, static_cast<uint8_t*>(scratch1),
+                                 static_cast<uint8_t*>(out),
+                                 static_cast<int32_t*>(pref), se, open_k, T,
+                                 H, W, shift, s);
 }
 
 }  // extern "C"

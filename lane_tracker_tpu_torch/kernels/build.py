@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (nvcc -> .so -> ctypes).
 
 The sources under ``lane_tracker_tpu_torch/csrc/`` have a plain C
-interface and include no PyTorch header, so one ``nvcc`` call builds them
-in seconds.  The library is built at first use into ``build/lt_torch_kernels/``
-beside the package (a directory git ignores), named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing here runs at import time.
+interface and include no PyTorch header, so ``nvcc`` builds each in
+seconds: one ``nvcc -c`` per source, all started together, then one link
+into a shared library.  The library is built at first use into
+``build/lt_torch_kernels/`` beside the package (a directory git ignores),
+named by a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
-SOURCES = ("filter_stage.cu",)
+SOURCES = ("filter_stage.cu", "adaptive_mean.cu")
+HEADERS = ("common.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +38,9 @@ SIGNATURES = {
     "lt_cross_threshold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lt_thr_merge_open": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _P),
+    "lt_merge_open": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _P),
+    "lt_adaptive_mean": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -54,7 +59,7 @@ def find_nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"liblt_filter_stage_{h.hexdigest()[:16]}.so"
 
@@ -70,15 +75,30 @@ def build() -> tuple:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{pathlib.Path(src).stem}.o" for src in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        log = "".join(p.communicate()[0] for p in procs)
+        failed = [src for src, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
     os.replace(tmp, out)
     return out, seconds, log
 

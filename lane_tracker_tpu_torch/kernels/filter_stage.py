@@ -1,13 +1,13 @@
-"""The attempt-1 filter stage's three kernels: CUDA wrappers + plain twins.
+"""The filter stage's kernels: CUDA wrappers + plain twins.
 
 Each public function takes (T, H, W) uint8 tensors.  On CUDA tensors it
-launches the hand-written sm_90a kernel in csrc/filter_stage.cu (built at
-first use, kernels/build.py) on the current stream, or raises; on CPU
-tensors it runs the plain PyTorch twin defined beside it.  There is no
-fallback between the two: the device of the inputs decides.  Every CUDA
-launch adds one to ``LAUNCHES[<function name>]``; twins never count.
+launches a hand-written sm_90a kernel from csrc/ (built at first use,
+kernels/build.py) on the current stream, or raises; on CPU tensors it runs
+the plain PyTorch twin defined beside it.  There is no fallback between
+the two: the device of the inputs decides.  Every CUDA launch adds one to
+``LAUNCHES[<function name>]``; twins never count.
 
-Replaced TPU kernels (lane_tracker_tpu/kernels/filter_stage2.py):
+Replaced TPU kernels (lane_tracker_tpu/kernels/filter_stage2.py), attempt 1:
 
 * ``tophat_ellipse``  <- ``tophat_pallas2`` (white tophat x - open(x) with
   OpenCV's k x k ellipse; k=29 on warped R, k=55 on LAB-B).
@@ -19,10 +19,21 @@ Replaced TPU kernels (lane_tracker_tpu/kernels/filter_stage2.py):
 * ``thr_merge_open``  <- ``thr_merge_open_pallas2`` (B cross threshold,
   (R | B) & keep, 5x5 elliptical open, packed row prefixes).
 
+The second attempt's 'neighborhood' filter, and the bilateral filter's
+route for ``ksize_b + 1 > 64``:
+
+* ``adaptive_mean``   <- ``adaptive_mean_pallas2`` (``cv2.adaptiveThreshold``
+  MEAN_C / BINARY, replicate border, odd k; csrc/adaptive_mean.cu).
+* ``merge_open``      <- ``merge_open_pallas2`` ((r | b) & keep, 5x5
+  elliptical open, packed row prefixes; the open + prefix tail is the one
+  ``lt_thr_merge_open`` runs).
+* ``bilateral_threshold`` <- ``bilateral_threshold_pallas2`` (the standalone
+  cross threshold, optionally the noise keep-mask; the riders' kernel).
+
 Bounds on the H100 and what the design does about them are noted at the
-top of csrc/filter_stage.cu: the kernels are shared-memory bound, so the
+top of each source: the kernels are shared-memory bound, so the
 morphology reads two entries of a pow2 window pyramid per SE row and the
-threshold reads prefix sums.
+thresholds read prefix sums or an integral image.
 """
 
 from __future__ import annotations
@@ -45,14 +56,32 @@ from lane_tracker_tpu_torch.ops.morphology import (
 from lane_tracker_tpu_torch.ops.morphology import (
     tophat_ellipse as _tophat_plain,
 )
-from lane_tracker_tpu_torch.ops.threshold import cross_threshold
+from lane_tracker_tpu_torch.ops.threshold import (
+    adaptive_mean_threshold,
+    cross_threshold,
+)
 
-SOURCE = "lane_tracker_tpu_torch/csrc/filter_stage.cu"
-REPLACES = {
-    "tophat_ellipse": "lane_tracker_tpu/kernels/filter_stage2.py:469",
-    "tophat_riders": "lane_tracker_tpu/kernels/filter_stage2.py:975",
-    "thr_merge_open": "lane_tracker_tpu/kernels/filter_stage2.py:1497",
+_CSRC = "lane_tracker_tpu_torch/csrc/"
+SOURCE = {
+    "tophat_ellipse": _CSRC + "filter_stage.cu",
+    "tophat_riders": _CSRC + "filter_stage.cu",
+    "thr_merge_open": _CSRC + "filter_stage.cu",
+    "adaptive_mean": _CSRC + "adaptive_mean.cu",
+    "merge_open": _CSRC + "filter_stage.cu",
+    "bilateral_threshold": _CSRC + "filter_stage.cu",
 }
+_TPU = "lane_tracker_tpu/kernels/filter_stage2.py:"
+REPLACES = {
+    "tophat_ellipse": _TPU + "469",
+    "tophat_riders": _TPU + "975",
+    "thr_merge_open": _TPU + "1497",
+    "adaptive_mean": _TPU + "1725",
+    "merge_open": _TPU + "1258",
+    "bilateral_threshold": _TPU + "771",
+}
+# Shared memory of the adaptive-mean kernel's (32 + k)^2 int32 integral
+# image must fit the 227 KB a block can take on the H100.
+ADAPTIVE_MEAN_MAX_K = 209
 LAUNCHES = {name: 0 for name in REPLACES}
 
 
@@ -111,6 +140,15 @@ def _launch_tophat(img: torch.Tensor, ksize: int) -> torch.Tensor:
     return out
 
 
+def _open_prefix_buffers(like: torch.Tensor):
+    """(binary, packed prefixes, merged scratch, eroded scratch) for the
+    merge + open + prefix tail of a (T, H, W) uint8 batch."""
+    T, H, W = like.shape
+    pref = torch.empty((T, H, W + 1), dtype=torch.int32, device=like.device)
+    return (torch.empty_like(like), pref, torch.empty_like(like),
+            torch.empty_like(like))
+
+
 def _launch_threshold(img: torch.Tensor, k: int, C: int,
                       noise_thresh: int) -> torch.Tensor:
     T, H, W = img.shape
@@ -165,11 +203,8 @@ def tophat_riders(img: torch.Tensor, ksize: int, riders) -> tuple:
 
 def thr_merge_open_plain(r_th, b_feat, kb, Cb, keep=None, open_k=5):
     """Plain twin of ``thr_merge_open``."""
-    merged = (r_th > 0) | (cross_threshold(b_feat, kb, Cb) > 0)
-    if keep is not None:
-        merged = merged & (keep > 0)
-    binary = open_ellipse(torch.where(merged, 255, 0).to(torch.uint8), open_k)
-    return binary, build_row_prefixes(binary)
+    return merge_open_plain(r_th, cross_threshold(b_feat, kb, Cb), keep,
+                            open_k)
 
 
 def thr_merge_open(r_th: torch.Tensor, b_feat: torch.Tensor, kb: int,
@@ -182,10 +217,7 @@ def thr_merge_open(r_th: torch.Tensor, b_feat: torch.Tensor, kb: int,
     if not _on_cuda(*imgs):
         return thr_merge_open_plain(r_th, b_feat, kb, Cb, keep, open_k)
     T, H, W = r_th.shape
-    out = torch.empty_like(r_th)
-    pref = torch.empty((T, H, W + 1), dtype=torch.int32, device=r_th.device)
-    scratch0 = torch.empty_like(r_th)
-    scratch1 = torch.empty_like(r_th)
+    out, pref, scratch0, scratch1 = _open_prefix_buffers(r_th)
     runs = _runs_table(int(open_k))
     _check(load_library().lt_thr_merge_open(
         r_th.data_ptr(), b_feat.data_ptr(),
@@ -196,3 +228,82 @@ def thr_merge_open(r_th: torch.Tensor, b_feat: torch.Tensor, kb: int,
         "lt_thr_merge_open")
     LAUNCHES["thr_merge_open"] += 1
     return out, RowPrefixes(packed=pref)
+
+
+# ---- adaptive_mean -------------------------------------------------------
+
+
+def adaptive_mean_plain(img: torch.Tensor, ksize: int, C: int) -> torch.Tensor:
+    """Plain twin of ``adaptive_mean``."""
+    return adaptive_mean_threshold(img, ksize, C)
+
+
+def adaptive_mean(img: torch.Tensor, ksize: int, C: int) -> torch.Tensor:
+    """``cv2.adaptiveThreshold(img, 255, MEAN_C, BINARY, ksize, C)``: 255
+    where ``img - round(box mean) > -C``, replicate border; ksize odd."""
+    k = int(ksize)
+    if k % 2 != 1 or not 1 <= k <= ADAPTIVE_MEAN_MAX_K:
+        raise ValueError(f"adaptive mean threshold needs an odd ksize in "
+                         f"[1, {ADAPTIVE_MEAN_MAX_K}], got {ksize}")
+    if not _on_cuda(img):
+        return adaptive_mean_plain(img, k, C)
+    T, H, W = img.shape
+    out = torch.empty_like(img)
+    _check(load_library().lt_adaptive_mean(
+        img.data_ptr(), out.data_ptr(), T, H, W, k, int(C), _stream()),
+        "lt_adaptive_mean")
+    LAUNCHES["adaptive_mean"] += 1
+    return out
+
+
+# ---- merge_open ----------------------------------------------------------
+
+
+def merge_open_plain(r_th, b_th, keep=None, open_k=5):
+    """Plain twin of ``merge_open``."""
+    merged = (r_th > 0) | (b_th > 0)
+    if keep is not None:
+        merged = merged & (keep > 0)
+    binary = open_ellipse(torch.where(merged, 255, 0).to(torch.uint8), open_k)
+    return binary, build_row_prefixes(binary)
+
+
+def merge_open(r_th: torch.Tensor, b_th: torch.Tensor,
+               keep: torch.Tensor | None = None, open_k: int = 5):
+    """open_k ellipse opening of ``((r_th | b_th) & keep)`` as 0/255, plus
+    its packed exclusive row prefixes (T, H, W + 1) int32.  Returns
+    (binary, RowPrefixes)."""
+    imgs = (r_th, b_th) if keep is None else (r_th, b_th, keep)
+    if not _on_cuda(*imgs):
+        return merge_open_plain(r_th, b_th, keep, open_k)
+    T, H, W = r_th.shape
+    out, pref, scratch0, scratch1 = _open_prefix_buffers(r_th)
+    runs = _runs_table(int(open_k))
+    _check(load_library().lt_merge_open(
+        r_th.data_ptr(), b_th.data_ptr(),
+        None if keep is None else keep.data_ptr(),
+        out.data_ptr(), pref.data_ptr(), scratch0.data_ptr(),
+        scratch1.data_ptr(), runs.ctypes.data, len(runs), int(open_k),
+        T, H, W, _count_shift(W), _stream()), "lt_merge_open")
+    LAUNCHES["merge_open"] += 1
+    return out, RowPrefixes(packed=pref)
+
+
+# ---- bilateral_threshold -------------------------------------------------
+
+
+def bilateral_threshold_plain(img, ksize, C, noise_thresh=-1):
+    """Plain twin of ``bilateral_threshold``."""
+    return cross_threshold(img, ksize, C, noise_thresh)
+
+
+def bilateral_threshold(img: torch.Tensor, ksize: int, C: int,
+                        noise_thresh: int = -1) -> torch.Tensor:
+    """Bilateral cross threshold (mode 'floor') of img, or with
+    ``noise_thresh >= 0`` the noise keep-mask ``(img < noise_thresh) |
+    thr(img)``, as 0/255."""
+    if not _on_cuda(img):
+        return bilateral_threshold_plain(img, ksize, C, noise_thresh)
+    out = _launch_threshold(img, ksize, C, noise_thresh)
+    LAUNCHES["bilateral_threshold"] += 1
+    return out

@@ -58,7 +58,10 @@ class ResampleGrid(nn.Module):
     """A slot-remapped sampling grid as buffers (``.to(device)`` moves it).
 
     ``base`` is stored flattened as int64 (the index type of
-    ``index_select``); ``dst_shape`` keeps the destination (H, W).
+    ``index_select``); ``dst_shape`` keeps the destination (H, W).  Float
+    weights are held as float64 copies of their float32 values, the dtype
+    ``combine_taps`` computes its multiply-adds in, so no chunk converts
+    them again.
     """
 
     def __init__(self, base, w00, w01, w10, w11, src_size):
@@ -70,8 +73,10 @@ class ResampleGrid(nn.Module):
             "base", torch.from_numpy(base.reshape(-1).astype(np.int64)))
         for name, w in (("w00", w00), ("w01", w01), ("w10", w10),
                         ("w11", w11)):
-            self.register_buffer(
-                name, torch.tensor(np.asarray(w).reshape(-1)))
+            w = np.asarray(w).reshape(-1)
+            if w.dtype == np.float32:
+                w = w.astype(np.float64)
+            self.register_buffer(name, torch.tensor(w))
 
     @classmethod
     def from_remapped(cls, g: dict) -> "ResampleGrid":
@@ -80,7 +85,21 @@ class ResampleGrid(nn.Module):
 
     @property
     def is_float(self) -> bool:
-        return self.w00.dtype == torch.float32
+        return self.w00.dtype == torch.float64
+
+
+def _fma(p: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``p * w + c`` for uint8 taps ``p``, float64-held f32 weights ``w``
+    and an f32 partial sum ``c``, computed in float64 and rounded to f32.
+
+    The product (8 by 24 significant bits) is exact in float64.  The sum
+    is exact, so the result is one f32 rounding as in a true fma, whenever
+    the two addends' bits span at most 53 places; otherwise it rounds in
+    float64 first, and that double rounding can differ from a true fma in
+    the last f32 place.  Bit-exactness with the reference is checked on
+    the four stills (tests/test_torch_color_warp.py), not proven for
+    every grid."""
+    return (p.double() * w + c.double()).float()
 
 
 def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
@@ -88,13 +107,18 @@ def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
     arithmetic definition, resample.py:103-130).  Taps are (..., N, C)
     uint8; weights broadcast over the trailing channel axis.
 
-    Float grids: f32 products summed left to right, round-half-even, clip.
+    Float grids: the f32 sum of the four tap products in the fused
+    multiply-add chain XLA contracts the reference's sum into,
+    ``fma(p11, w11, fma(p10, w10, fma(p00, w00, p01 * w01)))``, then
+    round-half-even and clip; bit-exact with the reference on the CPU.
     Fixed grids: 2^15 int weights, ``(acc + 2^14) >> 15``, clip.
     """
     ws = [w[:, None] for w in (grid.w00, grid.w01, grid.w10, grid.w11)]
     if grid.is_float:
-        acc = (p00.float() * ws[0] + p01.float() * ws[1]
-               + p10.float() * ws[2] + p11.float() * ws[3])
+        # The f32 product p01 * w01: exact in float64, rounded once.
+        acc = (p01.double() * ws[1]).float()
+        for p, w in ((p00, ws[0]), (p10, ws[2]), (p11, ws[3])):
+            acc = _fma(p, w, acc)
         return torch.round(acc).clamp_(0, 255).to(torch.uint8)
     acc = (p00.int() * ws[0] + p01.int() * ws[1]
            + p10.int() * ws[2] + p11.int() * ws[3])

@@ -1,12 +1,13 @@
-"""Cross-kernel adaptive threshold and ``cv2.inRange`` (plain torch).
+"""Adaptive thresholds and ``cv2.inRange`` (plain torch).
 
-Port of lane_tracker_tpu/ops/threshold.py:26-128, 170-173: the bilateral
-adaptive threshold in mode 'floor' only (the only mode the tracker uses),
-and ``in_range`` for the noise mask.  The reference's bilateral
-threshold (lane_tracker.py:14-83) passes a pixel iff it beats the mean of
-BOTH the left and right arms, or BOTH the up and down arms, of a 1-px
-cross of radius ``ksize`` by margin C.  Arm sums come from int32 prefix
-sums along each axis (exact), with zeros outside the image.
+Port of lane_tracker_tpu/ops/threshold.py:26-173: the bilateral adaptive
+threshold in mode 'floor' only (the only mode the tracker uses), the
+adaptive mean threshold of the second attempt's 'neighborhood' filter, and
+``in_range`` for the noise mask.  The reference's bilateral threshold
+(lane_tracker.py:14-83) passes a pixel iff it beats the mean of BOTH the
+left and right arms, or BOTH the up and down arms, of a 1-px cross of
+radius ``ksize`` by margin C.  Arm sums come from int32 prefix sums along
+each axis (exact), with zeros outside the image.
 """
 
 from __future__ import annotations
@@ -50,6 +51,38 @@ def cross_threshold(img: torch.Tensor, ksize: int, C: int,
     hit = ((left < t) & (right < t)) | ((up < t) & (down < t))
     if noise_thresh >= 0:
         hit = hit | (in_range(img, noise_thresh, 255) == 0)
+    return torch.where(hit, 255, 0).to(torch.uint8)
+
+
+def _box_mean_replicate(img: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k box mean of a (..., H, W) uint8 image with replicate border,
+    rounded half to even as OpenCV's cvRound, in int32 integer math."""
+    r = (k - 1) // 2
+    H, W = img.shape[-2:]
+    rows = torch.arange(-r, H + r, device=img.device).clamp(0, H - 1)
+    cols = torch.arange(-r, W + r, device=img.device).clamp(0, W - 1)
+    padded = img.to(torch.int32)[..., rows, :][..., cols]
+    cs = torch.cumsum(torch.cumsum(padded, -2, dtype=torch.int32), -1,
+                      dtype=torch.int32)
+    # Integral image with a zero row and column prepended.
+    integ = torch.nn.functional.pad(cs, (1, 0, 1, 0))
+    s = (integ[..., k:k + H, k:k + W] - integ[..., 0:H, k:k + W]
+         - integ[..., k:k + H, 0:W] + integ[..., 0:H, 0:W])
+    area = k * k
+    q = torch.div(s, area, rounding_mode="floor")
+    twice = 2 * (s - q * area)
+    roundup = (twice > area) | ((twice == area) & (q % 2 == 1))
+    return q + roundup.to(torch.int32)
+
+
+def adaptive_mean_threshold(img: torch.Tensor, ksize: int,
+                            C: int) -> torch.Tensor:
+    """``cv2.adaptiveThreshold(img, 255, MEAN_C, BINARY, ksize, C)`` of a
+    (..., H, W) uint8 image: 255 where ``img - mean > -C`` (OpenCV's
+    idelta = ceil(C); every call site passes an int), with the k x k box
+    mean over a replicate border."""
+    mean = _box_mean_replicate(img, int(ksize))
+    hit = img.to(torch.int32) - mean > -int(C)
     return torch.where(hit, 255, 0).to(torch.uint8)
 
 

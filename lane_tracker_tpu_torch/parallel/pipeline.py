@@ -6,13 +6,21 @@ sliding-window precompute) once on the whole batch, then the back half as
 a Python loop over frames carrying the tracker state, then the overlays
 for all T frames at once.
 
-Only ``second_attempt="two_phase"`` is ported, and only its first phase:
-when some frame's first attempt fails, the reference reruns the chunk
-with the batched second attempt; here that raises ``NotImplementedError``
-(the second attempt is the next slice), on the CPU and the card alike.
+``second_attempt`` schedules the fallback attempt's 'neighborhood' filter
+(two adaptive-mean kernels and one merge-open kernel) as the reference
+does; all three modes give identical outputs:
+
+* 'cond' (the default): per frame, one host read of attempt 1's validity;
+  only a failing frame runs the filter, on its own channels.
+* 'hoist': the front half runs the filter for every frame, and each frame
+  selects between its two attempts.
+* 'two_phase': an attempt-1-only scan; only if some frame failed, the
+  filter runs once on the whole chunk and the chunk is rescanned from the
+  original state with both attempts.
 
 Each stage runs inside a ``torch.profiler.record_function`` range named
-``lt.<stage>`` (warp_lab, filter, embed_search, back_half, overlay);
+``lt.<stage>`` (warp_lab, filter, embed_search, second_attempt, back_half,
+overlay); two_phase's ranges are siblings, one ``lt.back_half`` per scan.
 scripts/torch_chunk_breakdown.py reads them from a profile.
 """
 
@@ -30,8 +38,12 @@ from lane_tracker_tpu_torch.tracker.step import (
     TrackerParams,
     back_half,
     front_artifacts_batch,
+    has_second_attempt,
     render_frame,
+    second_attempt_artifacts_batch,
 )
+
+MODES = ("cond", "hoist", "two_phase")
 
 
 def _stack(items: list):
@@ -41,15 +53,26 @@ def _stack(items: list):
                  for fs in zip(*items)))
 
 
+def _frame(arts: FrontArtifacts, t: int) -> FrontArtifacts:
+    """Frame t's artifacts, without the T axis."""
+
+    def at(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x[t]
+        return type(x)(*(f[t] for f in x))
+
+    return FrontArtifacts(*(at(x) for x in arts))
+
+
 def scan_back_half(state: TrackerState, arts: FrontArtifacts,
                    params: TrackerParams, config: TrackerConfig):
     """The back half over the chunk's frames in order.  Returns
     (state, (StepOutput stack, RenderMeta stack)) with a leading T axis."""
     outs, metas = [], []
     for t in range(arts.pref.packed.shape[0]):
-        iv_t = type(arts.iv_sws)(*(f[t] for f in arts.iv_sws))
-        pref_t = type(arts.pref)(arts.pref.packed[t])
-        state, out, meta = back_half(state, pref_t, iv_t, params, config)
+        state, out, meta = back_half(state, _frame(arts, t), params, config)
         outs.append(out)
         metas.append(meta)
     return state, (_stack(outs), _stack(metas))
@@ -57,41 +80,51 @@ def scan_back_half(state: TrackerState, arts: FrontArtifacts,
 
 def two_phase_scan(state: TrackerState, arts: FrontArtifacts,
                    params: TrackerParams, config: TrackerConfig):
-    """Phase 1 of the reference's two_phase schedule: scan attempt 1 only.
-    One host check per chunk decides whether phase 2 (the batched second
-    attempt and a rescan) is needed; it is not ported and raises."""
+    """The reference's two_phase schedule.  Phase 1 scans attempt 1 only;
+    one host check per chunk decides whether phase 2 runs: the batched
+    second-attempt front on the chunk's channels, then a rescan from the
+    ORIGINAL state with the full config and the hoisted artifacts."""
     cfg1 = dataclasses.replace(config, n_tries=1)
-    st1, (outs1, metas1) = scan_back_half(state, arts, params, cfg1)
-    if not bool(outs1.valid.all()):
-        bad = (~outs1.valid).nonzero().flatten().tolist()
-        raise NotImplementedError(
-            f"attempt 1 failed on frames {bad} of the chunk: the two_phase "
-            "fallback (the second-attempt slice: 'neighborhood' filter + "
-            "rescan) is not ported yet")
-    return st1, (outs1, metas1)
+    with record_function("lt.back_half"):
+        st1, (outs1, metas1) = scan_back_half(state, arts, params, cfg1)
+        all_valid = bool(outs1.valid.all())
+    if all_valid:
+        return st1, (outs1, metas1)
+    with record_function("lt.second_attempt"):
+        pref2, iv2 = second_attempt_artifacts_batch(arts.r_chan, arts.b_chan,
+                                                    params)
+    with record_function("lt.back_half"):
+        return scan_back_half(state, arts._replace(pref2=pref2, iv_sws2=iv2),
+                              params, config)
 
 
 def chunk_process(state: TrackerState, frames: torch.Tensor,
                   params: TrackerParams, config: TrackerConfig,
                   with_overlay: bool = True,
-                  second_attempt: str = "two_phase"):
+                  second_attempt: str | None = None):
     """Process a (T, Hc, Wc, 3) uint8 chunk on ``frames.device``.
+
+    ``second_attempt`` is 'cond', 'hoist' or 'two_phase' (module
+    docstring); None means 'cond'.  'cond' reads attempt 1's validity on
+    the host once per frame; 'hoist' and 'two_phase' never wait on the
+    device inside the per-frame loop (two_phase waits once per chunk).
 
     Returns (state, outputs): a StepOutput with a leading T axis;
     ``overlay`` is (T, Hc, Wc, 3) when ``with_overlay`` else None.
     """
-    if second_attempt != "two_phase":
-        raise NotImplementedError(
-            f"second_attempt={second_attempt!r}: only 'two_phase' is ported")
-    arts = front_artifacts_batch(frames, params, config)
-    with record_function("lt.back_half"):
-        if config.n_tries >= 2 or config.n_tries == -1:
-            state, (outs, metas) = two_phase_scan(state, arts, params, config)
-        else:
-            state, (outs, metas) = scan_back_half(state, arts, params, config)
+    mode = second_attempt or "cond"
+    if mode not in MODES:
+        raise ValueError(f"unknown second_attempt mode {mode!r}")
+    arts = front_artifacts_batch(frames, params, config,
+                                 hoist_second_attempt=(mode == "hoist"))
+    if mode == "two_phase" and has_second_attempt(config):
+        state, (outs, metas) = two_phase_scan(state, arts, params, config)
+    else:
+        with record_function("lt.back_half"):
+            state, (outs, metas) = scan_back_half(state, arts, params,
+                                                  config)
     if with_overlay:
         with record_function("lt.overlay"):
             outs = outs._replace(overlay=render_frame(frames, metas, params,
                                                       config))
     return state, outs
-

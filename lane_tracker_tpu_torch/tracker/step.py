@@ -1,7 +1,7 @@
 """The tracking step: calibration params, batched front half, back half.
 
 Port of lane_tracker_tpu/tracker/step.py for the 'fast' and 'corridor'
-pipelines with the attempt-1 filter:
+pipelines:
 
 * ``TrackerParams`` (step.py:77-305): an ``nn.Module`` whose resampling
   grids and overlay coordinates are buffers, so ``.to(device)`` moves them;
@@ -10,15 +10,19 @@ pipelines with the attempt-1 filter:
 * ``warp_channels`` (step.py:390-468): the exact two-stage resample
   (fixed-point undistort over the raw rows the warp needs, then the float
   bird's-eye warp) and LAB-B, with the frame batch as a tensor axis.
-* ``front_artifacts_batch`` (step.py:781-814), ``_embed_cols`` /
+* ``front_artifacts_batch`` (step.py:781-814) and
+  ``second_attempt_artifacts_batch`` (step.py:761-778), ``_embed_cols`` /
   ``_embed_prefixes`` (step.py:471-520), ``_run_attempt``
   (step.py:563-633) with the corridor certificate, ``back_half``
-  (step.py:905-1092) for attempt 1, and ``render_frame`` (step.py:869-892).
+  (step.py:905-1092) with the second attempt hoisted or per frame, and
+  ``render_frame`` (step.py:869-892).
 
 The reference's ``lax.cond`` between band and sliding-window search is
 "compute both, ``torch.where``", so the per-frame back half never waits on
-the device.  'compat', 'turbo', 'half' and the rowmm resampler are not
-ported and raise.
+the device.  Its per-frame ``lax.cond`` on the second attempt ('cond'
+mode) is a host read of attempt 1's validity: only a failing frame runs
+the 'neighborhood' filter.  'compat', 'turbo', 'half' and the rowmm
+resampler are not ported and raise.
 """
 
 from __future__ import annotations
@@ -58,7 +62,10 @@ from lane_tracker_tpu_torch.render.lane import (
     forward_bv_grid,
     lane_overlay_direct,
 )
-from lane_tracker_tpu_torch.tracker.config import TrackerConfig
+from lane_tracker_tpu_torch.tracker.config import (
+    SECOND_ATTEMPT,
+    TrackerConfig,
+)
 from lane_tracker_tpu_torch.tracker.state import TrackerState, init_state
 
 PIPELINES = ("fast", "corridor")
@@ -227,10 +234,15 @@ class AttemptResult(NamedTuple):
 
 
 class FrontArtifacts(NamedTuple):
-    """Batched per-frame products of the stateless front half."""
+    """Per-frame products of the stateless front half (a leading T axis
+    on every field for a chunk, none for one frame)."""
 
+    r_chan: torch.Tensor  # (T, H, W) u8 warped R, compute window
+    b_chan: torch.Tensor  # (T, H, W) u8 warped LAB-B, compute window
     pref: RowPrefixes  # (T, H, W+1) attempt-1 binary prefixes
     iv_sws: SearchIntervals  # attempt-1 blind-search intervals, (T, ...)
+    pref2: RowPrefixes | None = None  # hoisted attempt-2 binary prefixes
+    iv_sws2: SearchIntervals | None = None  # hoisted attempt-2 intervals
 
 
 class RenderMeta(NamedTuple):
@@ -296,22 +308,58 @@ def _embed_prefixes(pref: RowPrefixes, params: TrackerParams) -> RowPrefixes:
     return RowPrefixes(packed=out)
 
 
+def _sa_config() -> TrackerConfig:
+    """The hardcoded second-attempt parameter set (lane_tracker.py:
+    1081-1099); the reference scales it only for 'half', not ported."""
+    return SECOND_ATTEMPT
+
+
+def has_second_attempt(config: TrackerConfig) -> bool:
+    """n_tries >= 2, or -1 (unbounded), runs the second attempt."""
+    return config.n_tries >= 2 or config.n_tries == -1
+
+
+def _embed_search(binary: torch.Tensor, pref: RowPrefixes,
+                  params: TrackerParams, scfg):
+    """Corridor-embedded prefixes and blind sliding-window intervals of a
+    (T, H, W) compute-window binary and its prefixes."""
+    W, H = params.warped_size
+    binary = _embed_cols(binary, params)
+    iv = sliding_window_intervals(sws_precompute(binary, scfg), scfg, H, W)
+    return _embed_prefixes(pref, params), iv
+
+
+def second_attempt_artifacts_batch(r_chan: torch.Tensor, b_chan: torch.Tensor,
+                                   params: TrackerParams):
+    """Attempt-2 front products (state-free) of a (T, H, W) channel batch:
+    the hardcoded 'neighborhood' filter (lane_tracker.py:1081-1099), its
+    embedded prefixes and blind intervals.  Returns (pref2, iv_sws2)."""
+    sa = _sa_config()
+    binary2, pref2 = filter_stage(r_chan, b_chan, sa.filter)
+    return _embed_search(binary2, pref2, params, sa.search)
+
+
 def front_artifacts_batch(frames: torch.Tensor, params: TrackerParams,
-                          config: TrackerConfig) -> FrontArtifacts:
+                          config: TrackerConfig,
+                          hoist_second_attempt: bool = False
+                          ) -> FrontArtifacts:
     """Stateless front half for a (T, Hc, Wc, 3) uint8 chunk: warp, LAB,
     the attempt-1 filter (three kernels), corridor embedding, and the
-    blind sliding-window intervals, all batched over T."""
-    W, H = params.warped_size
+    blind sliding-window intervals, all batched over T.  With
+    ``hoist_second_attempt`` (and a config that has a second attempt) the
+    attempt-2 products are computed too, for every frame."""
     with record_function("lt.warp_lab"):
         r_chan, b_chan = warp_channels(frames, params)
     with record_function("lt.filter"):
         binary, pref = filter_stage(r_chan, b_chan, config.filter)
     with record_function("lt.embed_search"):
-        binary = _embed_cols(binary, params)
-        pref = _embed_prefixes(pref, params)
-        iv_sws = sliding_window_intervals(
-            sws_precompute(binary, config.search), config.search, H, W)
-    return FrontArtifacts(pref=pref, iv_sws=iv_sws)
+        pref, iv_sws = _embed_search(binary, pref, params, config.search)
+    pref2 = iv2 = None
+    if hoist_second_attempt and has_second_attempt(config):
+        with record_function("lt.second_attempt"):
+            pref2, iv2 = second_attempt_artifacts_batch(r_chan, b_chan, params)
+    return FrontArtifacts(r_chan=r_chan, b_chan=b_chan, pref=pref,
+                          iv_sws=iv_sws, pref2=pref2, iv_sws2=iv2)
 
 
 def _run_attempt(state: TrackerState, cfg: TrackerConfig, scfg, params,
@@ -364,22 +412,44 @@ def _run_attempt(state: TrackerState, cfg: TrackerConfig, scfg, params,
     )
 
 
-def back_half(state: TrackerState, pref: RowPrefixes, iv_sws: SearchIntervals,
+def back_half(state: TrackerState, art: FrontArtifacts,
               params: TrackerParams, config: TrackerConfig):
-    """Sequential back half of one frame, attempt 1 only: search, fit,
-    validate, state update.  Returns (new_state, StepOutput without the
-    overlay, RenderMeta)."""
-    if config.n_tries != 1:
-        raise NotImplementedError(
-            "the per-frame second attempt is not ported; run with "
-            "n_tries=1 (two_phase_scan does)")
+    """Sequential back half of one frame: search, fit, validate, the
+    second attempt where attempt 1 failed, state update.  ``art`` holds
+    one frame's artifacts (no T axis).  Returns (new_state, StepOutput
+    without the overlay, RenderMeta).
+
+    With ``art.pref2`` (hoisted) attempt 2 runs unconditionally and each
+    field is selected by attempt 1's validity; without it ('cond') one host
+    read of that validity decides, and only a failing frame runs the
+    'neighborhood' filter on its own (1, H, W) channels."""
     W, H = params.warped_size
     dev = state.last_left.device
     ploty_validity = ploty_grid(params.warped_size, 1.0, dev)
     ploty_render = ploty_grid(params.warped_size, config.search.partial, dev)
 
-    a = _run_attempt(state, config, config.search, params, ploty_validity,
-                     pref, iv_sws)
+    a1 = _run_attempt(state, config, config.search, params, ploty_validity,
+                      art.pref, art.iv_sws)
+    if has_second_attempt(config):
+        sa = _sa_config()
+        if art.pref2 is not None:
+            a2 = _run_attempt(state, config, sa.search, params,
+                              ploty_validity, art.pref2, art.iv_sws2)
+            a = AttemptResult(*(torch.where(a1.valid, x, y)
+                                for x, y in zip(a1, a2)))
+        elif bool(a1.valid):
+            a = a1
+        else:
+            with record_function("lt.second_attempt"):
+                pref2, iv2 = second_attempt_artifacts_batch(
+                    art.r_chan[None], art.b_chan[None], params)
+            a = _run_attempt(state, config, sa.search, params,
+                             ploty_validity, RowPrefixes(pref2.packed[0]),
+                             SearchIntervals(*(f[0] for f in iv2)))
+        n_attempts = torch.where(a1.valid, 1, 2).to(torch.int32)
+    else:
+        a = a1
+        n_attempts = torch.ones((), dtype=torch.int32, device=dev)
     valid = a.valid
 
     # ---- Rolling history (push on both paths; sentinel = invalid) ----
@@ -474,20 +544,22 @@ def back_half(state: TrackerState, pref: RowPrefixes, iv_sws: SearchIntervals,
         valid=valid,
         detected=a.detected,
         search_mode=a.search_mode,
-        n_attempts=torch.ones((), dtype=torch.int32, device=dev),
+        n_attempts=n_attempts,
         radius=avg_radius,
         ecc=ecc,
         left_coeffs=a.lc,
         right_coeffs=a.rc,
         n_points_left=a.n_left,
         n_points_right=a.n_right,
-        a1_detected=a.detected,
-        a1_valid=a.valid,
-        a1_left_coeffs=a.lc,
-        a1_right_coeffs=a.rc,
-        a1_n_left=a.n_left,
-        a1_n_right=a.n_right,
-        corridor_ok=a.roi_ok,
+        a1_detected=a1.detected,
+        a1_valid=a1.valid,
+        a1_left_coeffs=a1.lc,
+        a1_right_coeffs=a1.rc,
+        a1_n_left=a1.n_left,
+        a1_n_right=a1.n_right,
+        # a1 always ran; `a` is the selected attempt, whose roi_ok is a2's
+        # exactly when a2 was taken (a1 invalid).
+        corridor_ok=a1.roi_ok & a.roi_ok,
     )
     return new_state, out, meta
 

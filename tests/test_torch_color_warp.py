@@ -2,8 +2,12 @@
 
 Tolerances: exact equality for the cube-root table, for rgb2lab_b_fast
 over a sampled RGB grid and over every warped pixel of the four stills,
-and for the fixed-point undistort; the float warp is held to the
-reference's contract (<= 1 unit on < 0.05% of pixels).
+for the fixed-point undistort, and for the float warp of all three RGB
+channels and the tracker's warped R.  The tracker's LAB-B is held to the
+reference's warp contract (<= 1 unit on < 0.05% of pixels): JAX's tracker
+program contracts the G channel's tap sum in another order than its own
+``bilinear_gather`` does (1 value of LAB-B moves in 'corridor', 1 in
+'fast').
 """
 
 import numpy as np
@@ -117,14 +121,35 @@ def test_undistort_stage_bit_exact(stills):
 
 
 @pytest.mark.parametrize("pipeline", ["corridor", "fast"])
-def test_warp_channels_stills(stills, pipeline):
-    """Warped R and LAB-B of the four stills, held to the reference's
-    warp contract: at most 1 unit, on fewer than 0.05% of pixels.
+def test_warp_rgb_stills_bit_exact(stills, pipeline):
+    """The two-stage resample of all three RGB channels equals JAX's
+    ``bilinear_gather`` chain bit for bit: the port evaluates the float
+    combine as the fused multiply-add chain XLA contracts it into."""
+    jp, tp = _params(pipeline)
+    want = _jax_warped_rgb(stills, jp)
+    ry0, ry1 = tp.raw_roi
+    und = bilinear_gather_t(torch.from_numpy(stills[:, ry0:ry1]),
+                            tp.grid_und_roi)
+    got = bilinear_gather_t(und, tp.grid_warp_roi).numpy()
+    assert got.shape == want.shape
+    for c, name in enumerate("RGB"):
+        n_diff = int((got[..., c] != want[..., c]).sum())
+        print(f"{pipeline} {name}: {n_diff} of {want[..., c].size} differ")
+        assert n_diff == 0, name
 
-    The port sums the four f32 tap products left to right, as the
-    reference's source writes it; XLA's CPU backend contracts that sum
-    into a fused multiply-add chain, which moves a rint on a handful of
-    pixels (4 of 2,956,800 per channel on the corridor window)."""
+
+@pytest.mark.parametrize("pipeline", ["corridor", "fast"])
+def test_warp_channels_stills(stills, pipeline):
+    """Warped R and LAB-B of the four stills against the tracker's own
+    ``_warp_channels_batch``: R bit-exact; LAB-B held to the reference's
+    warp contract, at most 1 unit on fewer than 0.05% of pixels.
+
+    XLA contracts the G channel's tap sum (the second output of the
+    tracker's pair gather) in another order than the R and B channels'
+    (fma(p11, w11, fma(p10, w10, fma(p01, w01, p00 * w00)))), which moves
+    a rint on 1 G value per window, and through it 1 LAB-B value; the
+    port's LAB-B equals JAX's rgb2lab_b_fast of JAX's bilinear_gather RGB
+    (test above, and test_lab_b_on_warped_stills_bit_exact)."""
     jp, tp = _params(pipeline)
     jr, jb = jax.jit(lambda f, p: j_step._warp_channels_batch(f, p))(stills, jp)
     tr, tb = t_step.warp_channels(torch.from_numpy(stills), tp)
@@ -136,3 +161,4 @@ def test_warp_channels_stills(stills, pipeline):
         print(f"{pipeline} {name}: {n_diff} of {d.size} differ, max {d.max()}")
         assert d.max() <= 1, name
         assert n_diff < 0.0005 * d.size, (name, n_diff)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))

@@ -160,6 +160,9 @@ def test_wrappers_reject_bad_inputs(bad):
 
 
 def test_unported_filter_raises():
+    """'neighborhood' with mask_noise: no preset and no second attempt
+    uses it, and it is not ported."""
     x = torch.zeros((1, 40, 48), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="neighborhood"):
-        filter_stage(x, x, FilterConfig(filter_type="neighborhood"))
+    with pytest.raises(NotImplementedError, match="mask_noise"):
+        filter_stage(x, x, FilterConfig(filter_type="neighborhood",
+                                        mask_noise=True))

@@ -2,15 +2,14 @@
 
 A synthetic 128x96 calibration and the tiny config (as
 tests/test_parallel.py), pipeline 'corridor' with an explicit col_roi,
-T=6.  Both packages start from the same warm mid-stream state (the JAX
-state after a warm-up chunk, carried over with ``state_from_numpy``, and
-the JAX params with ``params_from_jax``): the blind first frame of a fresh
-state needs the second attempt here, which the port does not have yet.
+T=6.  Both packages start from a fresh state, the port with the JAX
+params (``params_from_jax``).  A chunk with a black frame takes the second
+attempt, in each of the ``second_attempt`` modes.
 
 Tolerances: decision fields identical (valid, detected, search_mode,
-n_points_*, corridor_ok, render_mode, n_attempts); coefficient curves
-within 0.01 px RMSE; overlays within 1 unit; integer state fields
-identical.  Also pinned: the unported second attempt raises.
+n_points_*, corridor_ok, render_mode, n_attempts, a1_*); coefficient
+curves within 0.01 px RMSE; overlays within 1 unit; integer state fields
+identical.  Also pinned: an unknown mode raises ``ValueError``.
 """
 
 import dataclasses
@@ -28,8 +27,10 @@ from lane_tracker_tpu.tracker.config import ValidityConfig
 
 from lane_tracker_tpu_torch.parallel.pipeline import chunk_process as t_chunk
 from lane_tracker_tpu_torch.tracker import config as t_cfg
-from lane_tracker_tpu_torch.tracker.step import params_from_jax
-from lane_tracker_tpu_torch.tracker.state import state_from_numpy
+from lane_tracker_tpu_torch.tracker.step import (
+    make_initial_state,
+    params_from_jax,
+)
 
 DECISIONS = ("valid", "detected", "search_mode", "n_points_left",
              "n_points_right", "corridor_ok", "render_mode", "n_attempts",
@@ -83,6 +84,13 @@ def lane_frames(n, H=96, W=128, seed=0):
     return frames
 
 
+def assert_states_match(j_state, t_state):
+    for f in INT_STATE:
+        np.testing.assert_array_equal(getattr(t_state, f).numpy(),
+                                      np.asarray(getattr(j_state, f)),
+                                      err_msg=f)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cam, warp = make_synthetic_calibration(img_size=(128, 96),
@@ -96,44 +104,48 @@ def tiny():
         warp.image_width_height, warp.warped_width_height, warp.mppv,
         warp.mpph, pipeline="corridor", col_roi=(16, 80),
         filter_backend="xla")
-    run = jax.jit(lambda s, f, p: j_chunk(s, f, p, cfg, True,
-                                          second_attempt="two_phase"))
-    # Warm-up chunk: the blind first frame takes the second attempt.
-    warm, _ = run(j_step.make_initial_state(cfg, jp.warped_size),
-                  lane_frames(6, seed=1), jp)
     tp = params_from_jax([np.asarray(x) for x in jax.tree_util.tree_leaves(jp)],
                          jp.tree_flatten()[1])
-    return cfg, jp, tp, run, warm
+    return cfg, jp, tp
+
+
+def _run_both(tiny, frames, mode):
+    """JAX and the port on one chunk from a fresh state, in one mode."""
+    cfg, jp, tp = tiny
+    j_state, jo = jax.jit(lambda s, f, p: j_chunk(
+        s, f, p, cfg, True, second_attempt=mode))(
+            j_step.make_initial_state(cfg, jp.warped_size), frames, jp)
+    t_state, to = t_chunk(make_initial_state(cfg, tp.warped_size),
+                          torch.from_numpy(frames), tp, port_config(cfg),
+                          second_attempt=mode)
+    return (j_state, jo), (t_state, to)
 
 
 def test_tiny_chunk_matches_jax(tiny):
-    cfg, jp, tp, run, warm = tiny
     frames = lane_frames(6, seed=2)
-    j_state, jo = run(warm, frames, jp)
-    assert np.asarray(jo.a1_valid).all(), "fixture must be attempt-1 valid"
+    (j_state, jo), (t_state, to) = _run_both(tiny, frames, "two_phase")
     assert (np.asarray(jo.search_mode) == 1).any()
-    t_state, to = t_chunk(state_from_numpy(type(warm)(*map(np.asarray, warm))),
-                          torch.from_numpy(frames), tp, port_config(cfg))
-    assert_outputs_match(jo, to, jp.warped_size[1])
-    for f in INT_STATE:
-        np.testing.assert_array_equal(getattr(t_state, f).numpy(),
-                                      np.asarray(getattr(j_state, f)),
-                                      err_msg=f)
+    assert_outputs_match(jo, to, tiny[1].warped_size[1])
+    assert_states_match(j_state, t_state)
 
 
-def test_black_frame_raises_not_implemented(tiny):
-    cfg, jp, tp, run, warm = tiny
+@pytest.mark.parametrize("mode", ["two_phase", "hoist", "cond", None])
+def test_black_frame_second_attempt_matches_jax(tiny, mode):
+    """Frame 3 is black: attempt 1 fails and the second attempt runs (and
+    fails too); the next frames recover.  Every mode equals JAX's."""
     frames = lane_frames(6, seed=2)
     frames[3] = 0
-    with pytest.raises(NotImplementedError, match="second-attempt"):
-        t_chunk(state_from_numpy(type(warm)(*map(np.asarray, warm))),
-                torch.from_numpy(frames), tp, port_config(cfg))
+    (j_state, jo), (t_state, to) = _run_both(tiny, frames, mode)
+    assert not np.asarray(jo.a1_valid)[3]
+    np.testing.assert_array_equal(
+        np.asarray(jo.n_attempts), np.where(np.asarray(jo.a1_valid), 1, 2))
+    assert_outputs_match(jo, to, tiny[1].warped_size[1])
+    assert_states_match(j_state, t_state)
 
 
-@pytest.mark.parametrize("mode", ["cond", "hoist", None])
-def test_other_second_attempt_modes_raise(tiny, mode):
-    cfg, jp, tp, run, warm = tiny
-    with pytest.raises(NotImplementedError, match="two_phase"):
-        t_chunk(state_from_numpy(type(warm)(*map(np.asarray, warm))),
+def test_unknown_second_attempt_mode_raises(tiny):
+    cfg, _, tp = tiny
+    with pytest.raises(ValueError, match="unknown second_attempt"):
+        t_chunk(make_initial_state(cfg, tp.warped_size),
                 torch.from_numpy(lane_frames(2)), tp, port_config(cfg),
-                second_attempt=mode)
+                second_attempt="both")
