@@ -33,17 +33,34 @@ Phases (each raises at the first failure; nothing is skipped):
    in 'fast' (bench.py's rule), says so, and gates that run.
 7. Filter route: ``filter_stage`` with ksize_b=65 launches the standalone
    threshold and merge_open and equals its plain chain.
-8. Timing (printed, not gated): frames/s of the stills and the fail16
+8. Fused channel stage (kernels/channel_fused.py): on the slice's corridor
+   channels, ``channel_stage`` on R, on LAB-B with the noise mask, and
+   ``channel_stage_pyr`` on R, with the counts set to 0 just before and
+   read just after (2 and 1 launches); each output must equal its plain
+   twin and the unfused kernels (tophat_ellipse then bilateral_threshold)
+   exactly.
+9. Banded warp (kernels/resample_mxu2.py): ``MxuWarp2`` built from
+   assets/calibration.npz at full geometry (1280x720 -> 1080x1100) warps
+   the (R, LAB-B) pairs of the 64 raw stills (one pass-2 launch); pass 2
+   must equal its twin exactly on the card and the warp the CPU path's on
+   the first 4 frames.  How many values differ from the exact two-stage
+   ``bilinear_gather`` warp (the design's fidelity loss) is printed, not
+   gated.
+10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
-   per-kernel times against the plain twins with CUDA events; and a
-   profile of one fail16 chunk per mode read through its ``lt.*`` ranges.
+   per-kernel times against the plain twins with CUDA events; the fused
+   stage at several tile heights against the unfused kernels (scripts/
+   mosaic_probe7.py's study on this card); the banded warp against the
+   two-stage warp; and a profile of one fail16 chunk per mode read
+   through its ``lt.*`` ranges.
 
-The line before the last is a JSON object describing each kernel; the
+The line before the last is a JSON object describing each kernel, with
+its bound: the larger of the bytes it must move over the HBM rate and the
+operations it does over the card's rate for their type (``bound``); the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
 
-import copy
 import dataclasses
 import importlib
 import json
@@ -65,6 +82,27 @@ DECISIONS = ("valid", "detected", "search_mode", "n_points_left",
 ATTEMPT1 = ("tophat_ellipse", "tophat_riders", "thr_merge_open")
 SECOND_ATTEMPT_LAUNCHES = {"adaptive_mean": 2, "merge_open": 1}
 TIMED_MODES = ("two_phase", "cond", "hoist")
+FUSED_LAUNCHES = {"channel_stage": 2, "channel_stage_pyr": 1}
+T_WARP_CPU = 4
+MXU_DST = (1080, 1100)  # the bird's-eye size, calibration.npz's warped size
+# The card's peak rates (H100 SXM data sheet, dense, at 700 W): HBM bytes/s,
+# f32 operations/s outside the tensor cores, and int32 at half that.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+I32_OPS_PER_S = F32_OPS_PER_S / 2
+# Integer operations per pixel of the kernels' stages, as the kernels do
+# them: a cross threshold's two prefix adds, four arm differences, k*x - C*k,
+# four compares, three logic ops and the select; the noise mask's compare
+# and or; a merge's or and and; a packed row prefix's pack and add; the
+# adaptive mean's two integral adds, three box adds, four for the compare
+# and the select.  Pass 2 of the banded warp: a product, an fma, rint and
+# two clamps in f32.
+THRESHOLD_OPS = 16
+NOISE_OPS = 2
+MERGE_OPS = 2
+PREFIX_OPS = 3
+ADAPTIVE_OPS = 10
+PASS2_FLOPS = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -96,6 +134,31 @@ def mismatches(a, b):
     """(number of differing elements, max abs difference) of two tensors."""
     d = (a.long() - b.long()).abs()
     return int((d != 0).sum()), int(d.max())
+
+
+def bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of ``nbytes`` over the HBM rate and ``ops`` over
+    ``ops_per_s``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def morph_ops(k):
+    """Integer operations per pixel of an erode or dilate with the k x k
+    ellipse as the kernels do it: one per pow2 pyramid level above the
+    first, and two per SE row (the op of the two level reads, and into the
+    accumulator)."""
+    from lane_tracker_tpu_torch.ops.morphology import ellipse_runs
+
+    runs = ellipse_runs(int(k))
+    max_run = max(hi - lo + 1 for _, (lo, hi) in runs)
+    return (max_run.bit_length() - 1) + 2 * len(runs)
+
+
+def tophat_ops(k):
+    return 2 * morph_ops(k) + 1
 
 
 def curve_rmse_px(mine, ref, H):
@@ -171,8 +234,12 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from lane_tracker_tpu_torch.calib.io import load_calibration_npz
+    from lane_tracker_tpu_torch.kernels import channel_fused as cf
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
+    from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
     from lane_tracker_tpu_torch.kernels.build import build
+    from lane_tracker_tpu_torch.kernels.resample import bilinear_gather
+    from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast
     from lane_tracker_tpu_torch.ops.filters import filter_stage
     from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
     from lane_tracker_tpu_torch.tracker.config import PRESETS, SECOND_ATTEMPT
@@ -212,14 +279,14 @@ def main():
             oracles[name] = {k: z[k] for k in ("valid", "left", "right")}
     cam, warp = load_calibration_npz(REPO / "assets" / "calibration.npz")
 
-    def build_params(pipeline):
+    def build_params(pipeline, **device):
         return TrackerParams.build(
             cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
             warp.image_width_height, warp.warped_width_height, warp.mppv,
-            warp.mpph, pipeline=pipeline)
+            warp.mpph, pipeline=pipeline, **device)
 
-    params = build_params("corridor")
-    gparams = copy.deepcopy(params).cuda()
+    params = build_params("corridor", device="cpu")
+    gparams = build_params("corridor")
     cfg = PRESETS["demo1"]
     f = cfg.filter
     f2 = SECOND_ATTEMPT.filter
@@ -337,8 +404,8 @@ def main():
         print(f"[{tag}] corridor certificate failed on "
               f"{int((~fok).sum())} frames; rerunning in the full-width "
               "'fast' pipeline (bench.py's rule) and gating that run")
-        fcpu_params = build_params("fast")
-        fparams = copy.deepcopy(fcpu_params).cuda()
+        fcpu_params = build_params("fast", device="cpu")
+        fparams = build_params("fast")
         _, fout = chunk_process(fresh("cuda"), gfail,
                                 fparams, cfg, second_attempt="two_phase")
     a1 = fout.a1_valid.cpu()
@@ -404,7 +471,101 @@ def main():
     check(all(n == 0 for n, _ in route_err),
           "the ksize_b=65 route disagrees with its plain chain")
 
-    # ---- 8. Timing (not gated) ----
+    # ---- 8. Fused channel stage ----
+    noise = (f.ksize_noise, f.C_noise, f.noise_thresh)
+    r_args = (f.tophat_r, f.ksize_r, f.C_r)
+    b_args = (f.tophat_b, f.ksize_b, f.C_b)
+    cf.reset_launches()
+    fused = {"channel_stage": [cf.channel_stage(r, *r_args),
+                               *cf.channel_stage(b, *b_args, noise=noise)],
+             "channel_stage_pyr": [cf.channel_stage_pyr(r, *r_args)]}
+    torch.cuda.synchronize()
+    fused_launches = dict(cf.LAUNCHES)
+    print(f"[fused] channel_stage R {r_args}, B {b_args} noise {noise}, "
+          f"channel_stage_pyr R at {tuple(r.shape)}: tiles of "
+          f"{cf.resolve_block(H, *r_args[:2])} (R), "
+          f"{cf.resolve_block(H, *b_args[:2], noise[0])} (B) and "
+          f"{cf.resolve_block(H, *r_args[:2], tallest=True)} (pyr) rows; "
+          f"launches {fused_launches}")
+    check(fused_launches == FUSED_LAUNCHES,
+          f"the fused path did not launch {FUSED_LAUNCHES}")
+    launches.update(fused_launches)
+    twins = {"channel_stage": [cf.channel_stage_plain(r, *r_args),
+                               *cf.channel_stage_plain(b, *b_args,
+                                                       noise=noise)],
+             "channel_stage_pyr": [cf.channel_stage_pyr_plain(r, *r_args)]}
+    unfused_r = fs.bilateral_threshold(fs.tophat_ellipse(r, f.tophat_r),
+                                       f.ksize_r, f.C_r)
+    unfused = {"channel_stage": [
+        unfused_r,
+        fs.bilateral_threshold(fs.tophat_ellipse(b, f.tophat_b), f.ksize_b,
+                               f.C_b),
+        fs.bilateral_threshold(b, *noise)],
+        "channel_stage_pyr": [unfused_r]}
+    for name, outs in fused.items():
+        vs_twin = [mismatches(g, w) for g, w in zip(outs, twins[name])]
+        vs_unfused = [mismatches(g, w) for g, w in zip(outs, unfused[name])]
+        print(f"[fused] {name}: mismatches against the twin "
+              f"{[n for n, _ in vs_twin]}, against the unfused kernels "
+              f"{[n for n, _ in vs_unfused]} (outputs in order)")
+        check(all(n == 0 for n, _ in vs_twin + vs_unfused),
+              f"{name} disagrees with its twin or the unfused kernels")
+        max_err[name] = max(m for _, m in vs_twin)
+
+    # ---- 9. Banded warp ----
+    t0 = time.perf_counter()
+    tables = rm.build_tables(cam.cam_matrix, cam.dist_coeffs, warp.M,
+                             warp.image_width_height, MXU_DST)
+    build_s = time.perf_counter() - t0
+    gwarp = rm.MxuWarp2(tables)
+    Ws, Hs, Wo, Ho, band = gwarp.geom
+    pairs = torch.stack([gchunk[..., 0], rgb2lab_b_fast(gchunk)], 1)
+    rm.reset_launches()
+    warped = gwarp(pairs)
+    torch.cuda.synchronize()
+    warp_launches = dict(rm.LAUNCHES)
+    print(f"[mxu] MxuWarp2 geom (Ws, Hs, Wo, Ho, band) {gwarp.geom}, host "
+          f"build {build_s:.1f} s; (R, LAB-B) pairs {tuple(pairs.shape)} -> "
+          f"{tuple(warped.shape)}; launches {warp_launches}")
+    check(warp_launches == {"banded_pass2": 1},
+          "the banded warp did not launch its pass-2 kernel once")
+    launches.update(warp_launches)
+    check(tuple(warped.shape) == (T_SLICE, 2, Ho, Wo)
+          and warped.dtype == torch.uint8, "banded warp shape/dtype")
+    t1 = gwarp.pass1(pairs)
+    p2 = rm.pass2(t1, gwarp.wpack, Wo)
+    p2_err = [mismatches(p2, rm.pass2_plain(t1, gwarp.wpack, Wo)),
+              mismatches(p2, warped)]
+    print(f"[mxu] pass 2 against its twin: {p2_err[0][0]} differ (max "
+          f"{p2_err[0][1]}); against the warp's own: {p2_err[1][0]}")
+    check(p2_err[0][0] == 0 and p2_err[1][0] == 0,
+          "pass 2 disagrees with its twin")
+    max_err["banded_pass2"] = p2_err[0][1]
+    t0 = time.perf_counter()
+    cpu_warped = rm.MxuWarp2(tables, device="cpu")(pairs[:T_WARP_CPU].cpu())
+    n_cpu, m_cpu = mismatches(warped[:T_WARP_CPU].cpu(), cpu_warped)
+    print(f"[mxu] CPU path T={T_WARP_CPU}: {time.perf_counter() - t0:.1f} "
+          f"s; card vs CPU: {n_cpu} values differ (max {m_cpu})")
+    check(n_cpu == 0, "the banded warp on the card differs from the CPU")
+    fast = build_params("fast")
+    ry0, ry1 = fast.raw_roi
+
+    def two_stage(p):
+        """The exact two-stage warp of (T, 2, Hs, Ws) pairs, as
+        (T, 2, Ho, Wo)."""
+        hw = p.permute(0, 2, 3, 1)[:, ry0:ry1].contiguous()
+        und = bilinear_gather(hw, fast.grid_und_roi)
+        return bilinear_gather(und, fast.grid_warp_roi).permute(0, 3, 1, 2)
+
+    exact = two_stage(pairs)
+    d = (warped.int() - exact.int()).abs()
+    print(f"[mxu] against the exact two-stage bilinear_gather warp (not "
+          f"gated): {int((d != 0).sum())} of {d.numel()} values differ, "
+          f"{int((d > 2).sum())} by more than 2, max {int(d.max())}, "
+          f"mean abs {float(d.float().mean()):.4f}")
+    del t1, p2, exact, d
+
+    # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):
         """ms per chunk over N_TIMED_CHUNKS, state carried, after one
         warm-up chunk from a fresh state; and the last chunk's outputs."""
@@ -454,7 +615,50 @@ def main():
         "bilateral_threshold": (
             lambda: fs.bilateral_threshold(*bt_args[0]),
             lambda: fs.bilateral_threshold_plain(*bt_args[0])),
+        # Phase 8's two calls (R; LAB-B with the noise mask), and its pyr
+        # call, at their default tiles.
+        "channel_stage": (
+            lambda: [cf.channel_stage(r, *r_args),
+                     cf.channel_stage(b, *b_args, noise=noise)],
+            lambda: [cf.channel_stage_plain(r, *r_args),
+                     cf.channel_stage_plain(b, *b_args, noise=noise)]),
+        "channel_stage_pyr": (
+            lambda: cf.channel_stage_pyr(r, *r_args),
+            lambda: cf.channel_stage_pyr_plain(r, *r_args)),
+        "banded_pass2": (
+            lambda: rm.pass2(t1, gwarp.wpack, Wo),
+            lambda: rm.pass2_plain(t1, gwarp.wpack, Wo)),
     }
+    # The least time of each timed call: (bytes, operations, their rate).
+    N = r.numel()
+    pref_bytes = 4 * N // r.shape[-1] * (r.shape[-1] + 1)
+    t1 = gwarp.pass1(pairs)
+    work = {
+        "tophat_ellipse": (2 * N, N * tophat_ops(f.tophat_r), I32_OPS_PER_S),
+        "tophat_riders": (5 * N, N * (tophat_ops(f.tophat_b)
+                                      + 2 * THRESHOLD_OPS + NOISE_OPS),
+                          I32_OPS_PER_S),
+        "thr_merge_open": (4 * N + pref_bytes,
+                           N * (THRESHOLD_OPS + MERGE_OPS
+                                + 2 * morph_ops(f.open_k) + PREFIX_OPS),
+                           I32_OPS_PER_S),
+        "adaptive_mean": (4 * N, 2 * N * ADAPTIVE_OPS, I32_OPS_PER_S),
+        "merge_open": (3 * N + pref_bytes,
+                       N * (MERGE_OPS + 2 * morph_ops(f2.open_k)
+                            + PREFIX_OPS), I32_OPS_PER_S),
+        "bilateral_threshold": (2 * N, N * THRESHOLD_OPS, I32_OPS_PER_S),
+        "channel_stage": (5 * N, N * (tophat_ops(f.tophat_r)
+                                      + tophat_ops(f.tophat_b)
+                                      + 3 * THRESHOLD_OPS + NOISE_OPS),
+                          I32_OPS_PER_S),
+        "channel_stage_pyr": (2 * N, N * (tophat_ops(f.tophat_r)
+                                          + THRESHOLD_OPS), I32_OPS_PER_S),
+        "banded_pass2": (4 * t1.numel() + 4 * gwarp.wpack.numel()
+                         + warped.numel(), warped.numel() * PASS2_FLOPS,
+                         F32_OPS_PER_S),
+    }
+    sources = {**fs.SOURCE, **cf.SOURCE, **rm.SOURCE}
+    replaces = {**fs.REPLACES, **cf.REPLACES, **rm.REPLACES}
     kernels = []
     for name, (kernel, twin) in calls.items():
         # plain, kernel, kernel, plain: the means of each pair.
@@ -463,13 +667,65 @@ def main():
         k2 = cuda_ms(kernel, 10)
         p2 = cuda_ms(twin, 3)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"[timing] {name} at {tuple(r.shape)}: kernel {ms:.3f} ms, "
-              f"plain twin {plain_ms:.3f} ms ({card})")
+        bound_ms, bound_by = bound(*work[name])
+        print(f"[timing] {name}: kernel {ms:.3f} ms, plain twin "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} G "
+              f"ops) ({card})")
+        # No single PyTorch call computes any of these functions (an
+        # elliptical tophat, a cross threshold, cv2's MEAN_C threshold, a
+        # merge + open + packed prefixes, pass 2's rounded two-tap lerp).
         kernels.append({
-            "name": name, "route": "cuda", "source": fs.SOURCE[name],
-            "replaces": fs.REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+
+    # scripts/mosaic_probe7.py's study on this card: the fused stage at
+    # several tile heights against the unfused kernels on the same inputs,
+    # in turns (unfused, each height, each height back, unfused).
+    study = (
+        ("R", r, r_args, None,
+         lambda: fs.bilateral_threshold(fs.tophat_ellipse(r, f.tophat_r),
+                                        f.ksize_r, f.C_r)),
+        ("B + noise", b, b_args, noise,
+         lambda: (fs.bilateral_threshold(fs.tophat_ellipse(b, f.tophat_b),
+                                         f.ksize_b, f.C_b),
+                  fs.bilateral_threshold(b, *noise))),
+    )
+    for tag_s, x, args, nz, unfused_fn in study:
+        kn = nz[0] if nz else 0
+        heights = []
+        for want_h in (32, 64, H // 3, H // 2, H):
+            got_h = cf.resolve_block(H, *args[:2], kn, want_h)
+            if got_h not in heights:
+                heights.append(got_h)
+        order = ["unfused", *heights, *heights[::-1], "unfused"]
+        times = {}
+        for h_ in order:
+            fn = unfused_fn if h_ == "unfused" else (
+                lambda h_=h_: cf.channel_stage(x, *args, noise=nz, block=h_))
+            times.setdefault(h_, []).append(cuda_ms(fn, 5))
+        for h_, ts in times.items():
+            what = "unfused kernels" if h_ == "unfused" else (
+                f"fused, tiles of {h_} x 32")
+            runs = ", ".join(f"{t:.3f}" for t in ts)
+            print(f"[study] {tag_s} at {tuple(x.shape)}: {what}: "
+                  f"{sum(ts) / len(ts):.3f} ms (runs {runs}) ({card})")
+        print(f"[study] {tag_s}: heights asked 32, 64, H/3, H/2, H "
+              f"(H = {H}), clamped to what fits: {heights}")
+
+    # The banded warp at T=64 against the two-stage warp of the same pairs.
+    warp_times = {}
+    for name_w in ("two-stage", "MxuWarp2", "MxuWarp2", "two-stage"):
+        fn = (lambda: gwarp(pairs)) if name_w == "MxuWarp2" else (
+            lambda: two_stage(pairs))
+        warp_times.setdefault(name_w, []).append(cuda_ms(fn, 3))
+    for name_w, ts in warp_times.items():
+        print(f"[timing] {name_w} warp of the {tuple(pairs.shape)} pairs: "
+              f"{sum(ts) / len(ts):.3f} ms ({card})")
+    del t1
 
     # One fail16 chunk per mode under the profiler, read through its lt.*
     # ranges with scripts/torch_chunk_breakdown.py's reader; that script's

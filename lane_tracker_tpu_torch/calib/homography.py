@@ -56,6 +56,22 @@ def quantize_grid(sx, sy, src_size):
     }
 
 
+def perspective_source_coords(M, dst_size):
+    """Float64 source coordinates ``M^-1 @ (x, y, 1)`` of every destination
+    pixel of ``cv2.warpPerspective(src, M, dst_size)``, shape (H, W)."""
+    W, H = int(dst_size[0]), int(dst_size[1])
+    Minv = np.linalg.inv(np.asarray(M, dtype=np.float64))
+    xs = np.arange(W, dtype=np.float64)
+    ys = np.arange(H, dtype=np.float64)
+    X, Y = np.meshgrid(xs, ys)
+    w = Minv[2, 0] * X + Minv[2, 1] * Y + Minv[2, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv_w = np.where(w != 0, 1.0 / w, 0.0)
+    sx = (Minv[0, 0] * X + Minv[0, 1] * Y + Minv[0, 2]) * inv_w
+    sy = (Minv[1, 0] * X + Minv[1, 1] * Y + Minv[1, 2]) * inv_w
+    return sx, sy
+
+
 def perspective_source_coords_f32(M, dst_size):
     """Float32 source coordinates of a perspective warp, as OpenCV >= 5
     computes them: f32 inverse matrix, f32 per-pixel projective divide."""

@@ -1,8 +1,9 @@
 """Camera undistortion sampling grids, Brown-Conrady model (numpy only).
 
 Copied from lane_tracker_tpu/calib/undistort.py (distort_points,
-undistort_source_coords, undistort_grid); tests/test_torch_host.py pins
-the grid equal to the original's.  The remap is built once on the host in
+undistort_source_coords, undistort_grid, fused_undistort_warp_coords);
+tests/test_torch_host.py pins the grid and the fused coordinates equal to
+the original's.  The remap is built once on the host in
 float64 and quantized with OpenCV's 1/32-px fixed-point scheme, so the
 device-side gather reproduces ``cv2.undistort`` exactly.
 """
@@ -11,7 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from lane_tracker_tpu_torch.calib.homography import quantize_grid
+from lane_tracker_tpu_torch.calib.homography import (
+    perspective_source_coords,
+    quantize_grid,
+)
 
 
 def distort_points(cam_matrix, dist_coeffs, x, y):
@@ -58,3 +62,12 @@ def undistort_grid(cam_matrix, dist_coeffs, size):
     """Fixed-point gather grid reproducing ``cv2.undistort`` exactly."""
     sx, sy = undistort_source_coords(cam_matrix, dist_coeffs, size)
     return quantize_grid(sx, sy, size)
+
+
+def fused_undistort_warp_coords(cam_matrix, dist_coeffs, M, src_size, dst_size):
+    """Float64 (sx, sy) into the RAW frame, shape (H, W) of the bird's-eye
+    view: each output pixel inverse-mapped through the homography, then
+    forward-distorted (undistort and warp composed into one grid, the
+    banded warp's pass-2 taps)."""
+    ux, uy = perspective_source_coords(M, dst_size)
+    return distort_points(cam_matrix, dist_coeffs, ux, uy)

@@ -49,25 +49,13 @@
 namespace {
 
 using lt::allow_smem;
+using lt::cross_hit;
 using lt::kTileH;
 using lt::kTileW;
+using lt::load_runs;
+using lt::op;
+using lt::SeRuns;
 using lt::tile_grid;
-
-constexpr int kMaxRuns = 64;
-
-// One horizontal run [lo, hi] per SE row dy, passed by value.
-struct SeRuns {
-  int n;
-  int max_run;
-  int dy[kMaxRuns];
-  int lo[kMaxRuns];
-  int hi[kMaxRuns];
-};
-
-template <bool kMax>
-__device__ __forceinline__ uint8_t op(uint8_t a, uint8_t b) {
-  return kMax ? (a > b ? a : b) : (a < b ? a : b);
-}
 
 // Erode (kMax=false, fill 255) or dilate (kMax=true, fill 0) by the SE
 // runs.  With kSubtract the output is sub_src - result (the tophat
@@ -193,15 +181,9 @@ __global__ void cross_threshold_kernel(const uint8_t* __restrict__ in,
     const int gy = y0 + ly;
     const int gx = x0 + lx;
     if (gy >= H || gx >= W) continue;
-    const int* row = hs + ly * hw;
-    const int x = row[lx + k + 1] - row[lx + k];
-    const int left = row[lx + k] - row[lx];
-    const int right = row[lx + 2 * k + 1] - row[lx + k + 1];
-    const int up = vs[(ly + k) * kTileW + lx] - vs[ly * kTileW + lx];
-    const int down =
-        vs[(ly + 2 * k + 1) * kTileW + lx] - vs[(ly + k + 1) * kTileW + lx];
-    const int t = k * x - C * k;
-    bool hit = (left < t && right < t) || (up < t && down < t);
+    const int* h = hs + ly * hw + lx;
+    const int x = h[k + 1] - h[k];
+    bool hit = cross_hit(h, vs + ly * kTileW + lx, kTileW, k, x, C);
     if (noise_thresh >= 0) hit = hit || x < noise_thresh;
     const size_t o = frame + (size_t)gy * W + gx;
     if (merge_r != nullptr) hit = hit || merge_r[o] != 0;
@@ -245,21 +227,6 @@ __global__ void merge_kernel(const uint8_t* __restrict__ r,
     if (keep != nullptr) hit = hit && keep[i] != 0;
     merged[i] = hit ? 255 : 0;
   }
-}
-
-int load_runs(const int* table, int n, SeRuns* runs) {
-  if (n < 1 || n > kMaxRuns) return -1;
-  runs->n = n;
-  runs->max_run = 1;
-  for (int q = 0; q < n; ++q) {
-    runs->dy[q] = table[3 * q];
-    runs->lo[q] = table[3 * q + 1];
-    runs->hi[q] = table[3 * q + 2];
-    const int len = runs->hi[q] - runs->lo[q] + 1;
-    if (len < 1) return -1;
-    if (len > runs->max_run) runs->max_run = len;
-  }
-  return 0;
 }
 
 template <bool kMax, bool kSubtract>

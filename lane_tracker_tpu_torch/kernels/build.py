@@ -23,7 +23,8 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
-SOURCES = ("filter_stage.cu", "adaptive_mean.cu")
+SOURCES = ("filter_stage.cu", "adaptive_mean.cu", "channel_stage.cu",
+           "resample_mxu2.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -41,6 +42,10 @@ SIGNATURES = {
     "lt_merge_open": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _P),
     "lt_adaptive_mean": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "lt_channel_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P),
+    "lt_channel_stage_max_block": (_I, _I, _I),
+    "lt_banded_pass2": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lane_tracker_tpu_torch.device import DEFAULT_DEVICE, entry_device
+
 
 class TrackerState(NamedTuple):
     last_detection: torch.Tensor  # () i32; init n_reset+1 forces sliding window
@@ -41,9 +43,11 @@ _DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32,
 
 
 def init_state(n_reset: int, n_average: int, n_samples: int,
-               device=None) -> TrackerState:
-    """Fresh state; ``n_samples`` = the warped height (render arrays are
-    padded to it)."""
+               device=DEFAULT_DEVICE) -> TrackerState:
+    """Fresh state on ``device`` (the card unless the caller passes
+    ``device="cpu"``); ``n_samples`` = the warped height (render arrays
+    are padded to it)."""
+    device = entry_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return TrackerState(
@@ -70,10 +74,12 @@ def init_state(n_reset: int, n_average: int, n_samples: int,
     )
 
 
-def state_from_numpy(np_state, device=None) -> TrackerState:
-    """A TrackerState from numpy values of the same fields: a mapping, or
+def state_from_numpy(np_state, device=DEFAULT_DEVICE) -> TrackerState:
+    """A TrackerState on ``device`` (the card unless the caller passes
+    ``device="cpu"``) from numpy values of the same fields: a mapping, or
     any NamedTuple such as the JAX package's state after ``np.asarray``
     of every leaf."""
+    device = entry_device(device)
     if not isinstance(np_state, dict):
         np_state = np_state._asdict()
     out = {}

@@ -36,6 +36,7 @@ from torch.profiler import record_function
 
 from lane_tracker_tpu_torch.calib.homography import perspective_grid
 from lane_tracker_tpu_torch.calib.undistort import undistort_grid
+from lane_tracker_tpu_torch.device import DEFAULT_DEVICE, entry_device
 from lane_tracker_tpu_torch.kernels.resample import (
     ResampleGrid,
     bilinear_gather,
@@ -132,10 +133,14 @@ class TrackerParams(nn.Module):
     @classmethod
     def build(cls, cam_matrix, dist_coeffs, M, Minv, img_size, warped_size,
               mppv, mpph, pipeline: str = "fast",
-              col_roi: tuple | None = None) -> "TrackerParams":
-        """Host-side build from a calibration (``Minv`` is accepted for the
-        reference's signature; only the 'compat' unwarp needs it)."""
+              col_roi: tuple | None = None,
+              device=DEFAULT_DEVICE) -> "TrackerParams":
+        """Host-side build from a calibration, with the buffers on
+        ``device`` (the card unless the caller passes ``device="cpu"``).
+        ``Minv`` is accepted for the reference's signature; only the
+        'compat' unwarp needs it."""
         del Minv
+        device = entry_device(device)
         img_size = tuple(int(v) for v in img_size)
         warped_size = tuple(int(v) for v in warped_size)
         fu, fv = forward_bv_grid(np.asarray(M), img_size, warped_size)
@@ -168,11 +173,13 @@ class TrackerParams(nn.Module):
             img_size=img_size, warped_size=warped_size, mppv=mppv, mpph=mpph,
             pipeline=pipeline, raw_roi=raw_roi, col_roi=col_roi,
             col_comp=col_comp,
-        )
+        ).to(device)
 
 
-def params_from_jax(leaves, aux) -> TrackerParams:
-    """The port's params from the JAX package's ``TrackerParams``.
+def params_from_jax(leaves, aux, device=DEFAULT_DEVICE) -> TrackerParams:
+    """The port's params from the JAX package's ``TrackerParams``, with
+    the buffers on ``device`` (the card unless the caller passes
+    ``device="cpu"``).
 
     ``leaves``: ``jax.tree_util.tree_leaves(params)`` as numpy arrays, in
     the reference's order (grid_und, grid_warp, grid_und_roi,
@@ -180,6 +187,7 @@ def params_from_jax(leaves, aux) -> TrackerParams:
     ``aux``: ``params.tree_flatten()[1]``.  Only 'fast' and 'corridor'
     params without the rowmm structures are accepted.
     """
+    device = entry_device(device)
     (img_size, warped_size, mppv, mpph, pipeline, raw_roi, _backend, col_roi,
      col_comp, res_scale) = aux
     if pipeline not in PIPELINES or res_scale != 1 or len(leaves) != 27:
@@ -195,7 +203,7 @@ def params_from_jax(leaves, aux) -> TrackerParams:
         img_size=img_size, warped_size=warped_size, mppv=mppv, mpph=mpph,
         pipeline=pipeline, raw_roi=raw_roi, col_roi=col_roi,
         col_comp=col_comp,
-    )
+    ).to(device)
 
 
 class StepOutput(NamedTuple):
@@ -579,6 +587,8 @@ def render_frame(frames: torch.Tensor, meta: RenderMeta,
 
 
 def make_initial_state(config: TrackerConfig, warped_size,
-                       device=None) -> TrackerState:
+                       device=DEFAULT_DEVICE) -> TrackerState:
+    """A fresh state on ``device`` (the card unless the caller passes
+    ``device="cpu"``)."""
     return init_state(config.n_reset, config.n_average, int(warped_size[1]),
                       device)

@@ -27,7 +27,6 @@ Exits non-zero without CUDA.
 import argparse
 import bisect
 import collections
-import copy
 import json
 import pathlib
 import statistics
@@ -94,15 +93,15 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     cam, warp = load_calibration_npz(REPO / "assets" / "calibration.npz")
-    params = copy.deepcopy(TrackerParams.build(
+    params = TrackerParams.build(
         cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
         warp.image_width_height, warp.warped_width_height, warp.mppv,
-        warp.mpph, pipeline="corridor")).cuda()
+        warp.mpph, pipeline="corridor")
     cfg = PRESETS["demo1"]
     with np.load(REPO / "assets" / "stills_720p.npz") as z:
         stills = z["frames"]
     frames = torch.from_numpy(stills[np.arange(args.T) % len(stills)]).cuda()
-    state = make_initial_state(cfg, params.warped_size, "cuda")
+    state = make_initial_state(cfg, params.warped_size)
     state, _ = chunk_process(state, frames, params, cfg)  # warm-up
 
     chunk_ms = []

@@ -83,7 +83,8 @@ def _params(pipeline):
             warp.image_width_height, warp.warped_width_height, warp.mppv,
             warp.mpph)
     return (j_step.TrackerParams.build(*args, pipeline=pipeline),
-            t_step.TrackerParams.build(*args, pipeline=pipeline))
+            t_step.TrackerParams.build(*args, pipeline=pipeline,
+                                       device="cpu"))
 
 
 def _jax_warped_rgb(stills, jp):

@@ -6,14 +6,15 @@ suite's jax-forcing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: exact equality (the kernels are integer), on the stills'
-corridor channels at the slice's shapes and on random images whose sizes
-are not multiples of the 32x32 tiles; the integer decision traces of the
-stills chunk and of the fail16 chunk (every 16th frame black, so the
-second attempt runs) on the card equal the CPU run's.
+Tolerance: exact equality (the filter kernels are integer; the banded
+warp's pass 2 takes its fma in the twin's order), on the stills' corridor
+channels at the slice's shapes and on random images whose sizes are not
+multiples of the tiles; the integer decision traces of the stills chunk
+and of the fail16 chunk (every 16th frame black, so the second attempt
+runs) on the card equal the CPU run's.  The fused channel stage also
+equals the unfused kernels, at tile heights from 1 row to the tallest.
 """
 
-import copy
 import pathlib
 
 import numpy as np
@@ -21,7 +22,9 @@ import pytest
 import torch
 
 from lane_tracker_tpu_torch.calib.io import load_calibration_npz
+from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
+from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
 from lane_tracker_tpu_torch.kernels.build import build
 from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
 from lane_tracker_tpu_torch.tracker.config import PRESETS, SECOND_ATTEMPT
@@ -52,14 +55,19 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def setup(cuda):
+    """(CPU params, card params, the stills cycled to 8 frames on the CPU);
+    the params are built twice, once with ``device="cpu"`` and once with
+    the entry point's default, the card."""
     cam, warp = load_calibration_npz(ASSETS / "calibration.npz")
-    params = TrackerParams.build(
-        cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
-        warp.image_width_height, warp.warped_width_height, warp.mppv,
-        warp.mpph, pipeline="corridor")
+    args = (cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+            warp.image_width_height, warp.warped_width_height, warp.mppv,
+            warp.mpph)
+    params = TrackerParams.build(*args, pipeline="corridor", device="cpu")
+    gparams = TrackerParams.build(*args, pipeline="corridor")
+    assert gparams.fwd_u.is_cuda
     with np.load(ASSETS / "stills_720p.npz") as z:
         frames = torch.from_numpy(z["frames"][np.arange(8) % 4])
-    return params, frames
+    return params, gparams, frames
 
 
 def _same(a, b):
@@ -112,8 +120,8 @@ def _check_second_attempt_kernels(r, b):
 
 
 def test_kernels_equal_twins_on_stills(setup):
-    params, frames = setup
-    r, b = warp_channels(frames.cuda(), copy.deepcopy(params).cuda())
+    _, gparams, frames = setup
+    r, b = warp_channels(frames.cuda(), gparams)
     assert tuple(r.shape) == (8, 1100, 672)
     _check_chain(r, b, F)
     _check_second_attempt_kernels(r, b)
@@ -128,14 +136,14 @@ def test_kernels_equal_twins_on_ragged_random(cuda, shape):
     _check_second_attempt_kernels(r.to(cuda), b.to(cuda))
 
 
-def _chunk_on_card_and_cpu(params, frames):
+def _chunk_on_card_and_cpu(params, gparams, frames):
     cfg = PRESETS["demo1"]
-    _, cpu = chunk_process(make_initial_state(cfg, params.warped_size),
+    _, cpu = chunk_process(make_initial_state(cfg, params.warped_size, "cpu"),
                            frames, params, cfg, second_attempt="two_phase")
     fs.reset_launches()
-    p = copy.deepcopy(params).cuda()
-    _, gpu = chunk_process(make_initial_state(cfg, p.warped_size, "cuda"),
-                           frames.cuda(), p, cfg, second_attempt="two_phase")
+    _, gpu = chunk_process(make_initial_state(cfg, gparams.warped_size),
+                           frames.cuda(), gparams, cfg,
+                           second_attempt="two_phase")
     for name in DECISIONS:
         _same(getattr(gpu, name).cpu(), getattr(cpu, name))
     torch.testing.assert_close(gpu.left_coeffs.cpu(), cpu.left_coeffs,
@@ -155,11 +163,105 @@ def test_chunk_on_card_equals_cpu(setup):
 def test_fail16_chunk_on_card_equals_cpu(setup):
     """Frame 0 is black: two_phase's fallback runs the neighborhood filter
     once on the chunk (two adaptive_mean launches, one merge_open)."""
-    params, frames = setup
+    params, gparams, frames = setup
     frames = frames.clone()
     frames[::16] = 0
-    gpu, launches = _chunk_on_card_and_cpu(params, frames)
+    gpu, launches = _chunk_on_card_and_cpu(params, gparams, frames)
     assert not gpu.a1_valid[:2].any()
     assert launches == {name: 0 for name in fs.REPLACES} | {
         name: 1 for name in ATTEMPT1} | {"adaptive_mean": 2,
                                          "merge_open": 1}
+
+
+CHANNELS = (  # (kt, kb, C, noise) of demo1's R and LAB-B channels
+    (F.tophat_r, F.ksize_r, F.C_r, None),
+    (F.tophat_b, F.ksize_b, F.C_b, (F.ksize_noise, F.C_noise,
+                                     F.noise_thresh)),
+)
+
+
+def _stripes(shape, seed):
+    """Random u8 channels in [100, 200) with bright vertical stripes, so
+    the tophat and both thresholds have hits and misses."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(100, 200, shape).astype(np.int32)
+    for t in range(shape[0]):
+        for _ in range(3):
+            c = int(rng.integers(0, shape[2]))
+            x[t, :, c:c + int(rng.integers(2, 9))] += int(rng.integers(30, 60))
+    return torch.from_numpy(np.clip(x, 0, 255).astype(np.uint8))
+
+
+def _check_channel_stage(img):
+    """Both channels through channel_stage (with the noise mask on B) and
+    channel_stage_pyr, at several tile heights: each equals its plain twin
+    and the unfused kernels."""
+    cf.reset_launches()
+    n = 0
+    for kt, kb, C, noise in CHANNELS:
+        want = cf.channel_stage_plain(img, kt, kb, C, noise=noise)
+        want = want if noise else (want,)
+        unfused = (fs.bilateral_threshold(fs.tophat_ellipse(img, kt), kb, C),)
+        if noise:
+            unfused += (fs.bilateral_threshold(img, *noise),)
+        for w, u in zip(want, unfused):
+            _same(u, w)
+        for block in (None, 1, 7, 33, 10 ** 6):
+            got = cf.channel_stage(img, kt, kb, C, noise=noise, block=block)
+            for g, w in zip(got if noise else (got,), want):
+                _same(g, w)
+            _same(cf.channel_stage_pyr(img, kt, kb, C, block=block), want[0])
+            n += 1
+    r_args = CHANNELS[0][:3]
+    _same(cf.channel_stage(img[0], *r_args),
+          cf.channel_stage_plain(img[0], *r_args))
+    assert cf.LAUNCHES == {"channel_stage": n + 1, "channel_stage_pyr": n}
+
+
+def test_channel_stage_equals_twin_and_unfused_on_stills(setup):
+    _, gparams, frames = setup
+    r, b = warp_channels(frames[:2].cuda(), gparams)
+    _check_channel_stage(r)
+    _check_channel_stage(b)
+
+
+@pytest.mark.parametrize("shape", [(2, 77, 101), (3, 33, 64), (1, 300, 5),
+                                   (1, 20, 30)])
+def test_channel_stage_equals_twin_on_ragged_random(cuda, shape):
+    _check_channel_stage(_stripes(shape, sum(shape)).to(cuda))
+
+
+@pytest.mark.parametrize("T,C,Ho,Ws,Wo", [(2, 2, 37, 150, 200),
+                                          (1, 1, 3, 2, 1),
+                                          (3, 2, 130, 700, 300)])
+def test_banded_pass2_equals_twin_on_random(cuda, T, C, Ho, Ws, Wo):
+    rng = np.random.default_rng(T * Ho + Ws)
+    n_tiles = -(-Wo // rm.LANE)
+    t1 = rng.uniform(-2.0, 258.0, (T, C, Ho, Ws)).astype(np.float32)
+    wpack = np.zeros((Ho, n_tiles, 4, rm.LANE), np.float32)
+    wpack[:, :, 0] = rng.integers(0, Ws - 1, (Ho, n_tiles, rm.LANE))
+    wpack[:, :, 1:3] = rng.uniform(0.0, 1.0, (Ho, n_tiles, 2, rm.LANE))
+    t1, wpack = torch.from_numpy(t1), torch.from_numpy(wpack)
+    rm.reset_launches()
+    got = rm.pass2(t1.to(cuda), wpack.to(cuda), Wo)
+    assert rm.LAUNCHES["banded_pass2"] == 1
+    _same(got.cpu(), rm.pass2_plain(t1, wpack, Wo))
+    _same(got, rm.pass2_plain(t1.to(cuda), wpack.to(cuda), Wo))
+
+
+def test_mxu_warp_on_card_equals_cpu(setup):
+    """MxuWarp2 at a reduced bird's-eye size, built with the default
+    device and with device="cpu", on the stills' (R, B) pairs."""
+    _, _, frames = setup
+    cam, warp = load_calibration_npz(ASSETS / "calibration.npz")
+    tables = rm.build_tables(cam.cam_matrix, cam.dist_coeffs, warp.M,
+                             warp.image_width_height, (256, 96))
+    pairs = frames[:2, ..., [0, 2]].permute(0, 3, 1, 2).contiguous()
+    want = rm.MxuWarp2(tables, device="cpu")(pairs)
+    gwarp = rm.MxuWarp2(tables)
+    assert gwarp.wpack.is_cuda
+    rm.reset_launches()
+    got = gwarp(pairs.cuda())
+    assert rm.LAUNCHES["banded_pass2"] == 1
+    assert tuple(got.shape) == (2, 2, 96, 256)
+    _same(got.cpu(), want)

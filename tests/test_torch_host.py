@@ -3,7 +3,9 @@
 lane_tracker_tpu_torch cannot import lane_tracker_tpu (its __init__ loads
 jax), so the pure-numpy helpers are copies; these tests pin every copy,
 the built TrackerParams, the state conversion and the committed decoded
-stills to the originals.  Tolerance: exact equality everywhere.
+stills to the originals.  Tolerance: exact equality everywhere.  The
+port's entry points default to the card: tests here pass ``device="cpu"``,
+and one test shows the default raising where CUDA is absent.
 """
 
 import dataclasses
@@ -36,6 +38,7 @@ import lane_tracker_tpu_torch.calib.undistort as t_und
 import lane_tracker_tpu_torch.tracker.config as t_cfg
 from lane_tracker_tpu_torch.calib.io import load_calibration_npz as t_load
 from lane_tracker_tpu_torch.kernels.resample import slot_remap
+from lane_tracker_tpu_torch.kernels.resample_mxu2 import MxuWarp2
 from lane_tracker_tpu_torch.ops.morphology import ellipse_runs as t_runs
 from lane_tracker_tpu_torch.render.lane import forward_bv_grid as t_fwd
 from lane_tracker_tpu_torch.tracker import step as t_step
@@ -82,6 +85,24 @@ def test_grid_builder_copies(which):
     _assert_grid_dicts_equal(
         j_hom.perspective_grid(warp.M, img, wsz, mode="float"),
         t_hom.perspective_grid(warp.M, img, wsz))
+
+
+@pytest.mark.parametrize("which", ["real", "synthetic"])
+def test_fused_warp_coords_copy(which):
+    """The banded warp's pass-2 coordinates (calib/undistort.py and the
+    float64 perspective inverse map it calls)."""
+    cam, warp = list(_calibrations())[0 if which == "real" else 1]
+    img, wsz = warp.image_width_height, warp.warped_width_height
+    for j, t in zip(j_hom.perspective_source_coords(warp.M, wsz),
+                    t_hom.perspective_source_coords(warp.M, wsz)):
+        np.testing.assert_array_equal(t, j)
+    for j, t in zip(
+            j_und.fused_undistort_warp_coords(cam.cam_matrix, cam.dist_coeffs,
+                                              warp.M, img, wsz),
+            t_und.fused_undistort_warp_coords(cam.cam_matrix, cam.dist_coeffs,
+                                              warp.M, img, wsz)):
+        assert t.dtype == j.dtype == np.float64
+        np.testing.assert_array_equal(t, j)
 
 
 def test_slot_remap_copy():
@@ -139,7 +160,8 @@ def _build_both(pipeline, col_roi=None, which="real"):
             warp.image_width_height, warp.warped_width_height, warp.mppv,
             warp.mpph)
     jp = j_step.TrackerParams.build(*args, pipeline=pipeline, col_roi=col_roi)
-    tp = t_step.TrackerParams.build(*args, pipeline=pipeline, col_roi=col_roi)
+    tp = t_step.TrackerParams.build(*args, pipeline=pipeline, col_roi=col_roi,
+                                    device="cpu")
     return jp, tp
 
 
@@ -177,7 +199,7 @@ def test_params_build_equals_jax(pipeline, col_roi, which):
 def test_params_from_jax_equals_build(pipeline):
     jp, tp = _build_both(pipeline)
     leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jp)]
-    fp = t_step.params_from_jax(leaves, jp.tree_flatten()[1])
+    fp = t_step.params_from_jax(leaves, jp.tree_flatten()[1], device="cpu")
     a, b = dict(fp.named_buffers()), dict(tp.named_buffers())
     assert set(a) == set(b)
     for k in a:
@@ -197,17 +219,59 @@ def test_unported_pipelines_raise(pipeline):
         t_step.TrackerParams.build(
             cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
             warp.image_width_height, warp.warped_width_height, warp.mppv,
-            warp.mpph, pipeline=pipeline)
+            warp.mpph, pipeline=pipeline, device="cpu")
 
 
 def test_state_from_numpy_equals_init_state():
     js = j_init_state(4, 2, 1100)
-    ts = state_from_numpy(type(js)(*(np.asarray(x) for x in js)))
-    want = init_state(4, 2, 1100)
+    ts = state_from_numpy(type(js)(*(np.asarray(x) for x in js)),
+                          device="cpu")
+    want = init_state(4, 2, 1100, device="cpu")
     assert ts._fields == want._fields == js._fields
     for a, b in zip(ts, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("entry", ["TrackerParams.build", "params_from_jax",
+                                   "make_initial_state", "init_state",
+                                   "state_from_numpy", "MxuWarp2.build"])
+def test_entry_points_default_to_cuda(monkeypatch, entry):
+    """With no ``device`` an entry point puts its tensors on the card, so
+    without CUDA it raises; ``device="cpu"`` runs on the CPU."""
+    cam, warp = list(_calibrations())[1]
+    args = (cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+            warp.image_width_height, warp.warped_width_height, warp.mppv,
+            warp.mpph)
+    js = j_init_state(4, 2, 128)
+    j_state_np = type(js)(*map(np.asarray, js))
+    calls = {
+        "TrackerParams.build": lambda **kw: t_step.TrackerParams.build(
+            *args, pipeline="fast", **kw),
+        "params_from_jax": lambda **kw: t_step.params_from_jax(
+            *_jax_leaves_aux(args), **kw),
+        "make_initial_state": lambda **kw: t_step.make_initial_state(
+            t_cfg.PRESETS["demo1"], warp.warped_width_height, **kw),
+        "init_state": lambda **kw: init_state(4, 2, 128, **kw),
+        "state_from_numpy": lambda **kw: state_from_numpy(
+            j_state_np, **kw),
+        "MxuWarp2.build": lambda **kw: MxuWarp2.build(
+            cam.cam_matrix, cam.dist_coeffs, warp.M,
+            warp.image_width_height, (96, 16), **kw),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    tensors = (list(out.buffers()) if isinstance(out, torch.nn.Module)
+               else list(out))
+    assert tensors and all(x.device.type == "cpu" for x in tensors)
+
+
+def _jax_leaves_aux(args):
+    jp = j_step.TrackerParams.build(*args, pipeline="fast")
+    return ([np.asarray(x) for x in jax.tree_util.tree_leaves(jp)],
+            jp.tree_flatten()[1])
 
 
 def test_stills_npz_equals_pil_decode():

@@ -142,7 +142,8 @@ def test_second_attempt_artifacts_equal_jax_full_corridor(channels):
             warp.mpph)
     jp = j_step.TrackerParams.build(*args, pipeline="corridor",
                                     filter_backend="xla")
-    tp = t_step.TrackerParams.build(*args, pipeline="corridor")
+    tp = t_step.TrackerParams.build(*args, pipeline="corridor",
+                                    device="cpu")
     want_pref, want_iv = jax.jit(
         lambda r, b, p: j_step.second_attempt_artifacts_batch(r, b, p))(
             r, b, jp)

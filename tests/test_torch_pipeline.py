@@ -2,8 +2,9 @@
 
 A synthetic 128x96 calibration and the tiny config (as
 tests/test_parallel.py), pipeline 'corridor' with an explicit col_roi,
-T=6.  Both packages start from a fresh state, the port with the JAX
-params (``params_from_jax``).  A chunk with a black frame takes the second
+T=6.  Both packages start from a fresh state, the port's made on the CPU
+(``device="cpu"``; the port's entry points default to the card) and run
+with the JAX params (``params_from_jax``).  A chunk with a black frame takes the second
 attempt, in each of the ``second_attempt`` modes.
 
 Tolerances: decision fields identical (valid, detected, search_mode,
@@ -105,7 +106,7 @@ def tiny():
         warp.mpph, pipeline="corridor", col_roi=(16, 80),
         filter_backend="xla")
     tp = params_from_jax([np.asarray(x) for x in jax.tree_util.tree_leaves(jp)],
-                         jp.tree_flatten()[1])
+                         jp.tree_flatten()[1], device="cpu")
     return cfg, jp, tp
 
 
@@ -115,7 +116,7 @@ def _run_both(tiny, frames, mode):
     j_state, jo = jax.jit(lambda s, f, p: j_chunk(
         s, f, p, cfg, True, second_attempt=mode))(
             j_step.make_initial_state(cfg, jp.warped_size), frames, jp)
-    t_state, to = t_chunk(make_initial_state(cfg, tp.warped_size),
+    t_state, to = t_chunk(make_initial_state(cfg, tp.warped_size, "cpu"),
                           torch.from_numpy(frames), tp, port_config(cfg),
                           second_attempt=mode)
     return (j_state, jo), (t_state, to)
@@ -146,6 +147,6 @@ def test_black_frame_second_attempt_matches_jax(tiny, mode):
 def test_unknown_second_attempt_mode_raises(tiny):
     cfg, _, tp = tiny
     with pytest.raises(ValueError, match="unknown second_attempt"):
-        t_chunk(make_initial_state(cfg, tp.warped_size),
+        t_chunk(make_initial_state(cfg, tp.warped_size, "cpu"),
                 torch.from_numpy(lane_frames(2)), tp, port_config(cfg),
                 second_attempt="both")

@@ -2,8 +2,10 @@
 
 demo1, pipeline 'corridor' on the 1280x720 calibration, the four stills
 cycled to T=8, second_attempt='two_phase'; JAX runs its XLA filter chain.
-A second chunk starts both packages from the JAX package's mid-stream
-state (``state_from_numpy``) and params (``params_from_jax``).  The fail16
+The port's params and states are made on the CPU (``device="cpu"``; its
+entry points default to the card).  A second chunk starts both packages
+from the JAX package's mid-stream state (``state_from_numpy``) and params
+(``params_from_jax``).  The fail16
 chunk is the same cycle with every 16th frame black (bench.py's
 BENCH_FAIL_EVERY=16) from a fresh state: frames 0 and 1 fail attempt 1,
 and the chunk takes two_phase's fallback.
@@ -56,15 +58,17 @@ def full():
     args = _calib_args()
     jp = j_step.TrackerParams.build(*args, pipeline="corridor",
                                     filter_backend="xla")
-    tp = t_step.TrackerParams.build(*args, pipeline="corridor")
+    tp = t_step.TrackerParams.build(*args, pipeline="corridor",
+                                    device="cpu")
     cfg = PRESETS["demo1"]
     run = jax.jit(lambda s, f, p: j_chunk(s, f, p, cfg, True,
                                           second_attempt="two_phase"))
     j_state, jo = run(j_step.make_initial_state(cfg, jp.warped_size), frames,
                       jp)
-    t_state, to = t_chunk(t_step.make_initial_state(cfg, tp.warped_size),
-                          torch.from_numpy(frames), tp, port_config(cfg),
-                          second_attempt="two_phase")
+    t_state, to = t_chunk(
+        t_step.make_initial_state(cfg, tp.warped_size, "cpu"),
+        torch.from_numpy(frames), tp, port_config(cfg),
+        second_attempt="two_phase")
     return frames, cfg, jp, run, (j_state, jo), (t_state, to)
 
 
@@ -103,9 +107,10 @@ def fail16(full):
     frames, cfg, jp, run, _, _ = full
     frames = frames.copy()
     frames[::16] = 0
-    tp = t_step.TrackerParams.build(*_calib_args(), pipeline="corridor")
+    tp = t_step.TrackerParams.build(*_calib_args(), pipeline="corridor",
+                                    device="cpu")
     jo = run(j_step.make_initial_state(cfg, jp.warped_size), frames, jp)
-    to = t_chunk(t_step.make_initial_state(cfg, tp.warped_size),
+    to = t_chunk(t_step.make_initial_state(cfg, tp.warped_size, "cpu"),
                  torch.from_numpy(frames), tp, port_config(cfg),
                  second_attempt="two_phase")
     return jp, jo, to
@@ -136,9 +141,9 @@ def test_mid_stream_chunk_from_jax_state_and_params(full):
     assert np.asarray(jo2.a1_valid).all()
     tp = t_step.params_from_jax(
         [np.asarray(x) for x in jax.tree_util.tree_leaves(jp)],
-        jp.tree_flatten()[1])
+        jp.tree_flatten()[1], device="cpu")
     t_state2, to2 = t_chunk(
-        state_from_numpy(type(j_state)(*map(np.asarray, j_state))),
+        state_from_numpy(type(j_state)(*map(np.asarray, j_state)), "cpu"),
         torch.from_numpy(frames2), tp, port_config(cfg),
         second_attempt="two_phase")
     assert_outputs_match(jo2, to2, jp.warped_size[1])

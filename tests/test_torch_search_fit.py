@@ -48,7 +48,8 @@ def binaries():
         stills = z["frames"]
     jp = j_step.TrackerParams.build(*_args(), pipeline="corridor",
                                     filter_backend="xla")
-    tp = t_step.TrackerParams.build(*_args(), pipeline="corridor")
+    tp = t_step.TrackerParams.build(*_args(), pipeline="corridor",
+                                    device="cpu")
     f = CFG.filter
 
     @jax.jit
