@@ -46,13 +46,28 @@ Phases (each raises at the first failure; nothing is skipped):
    the first 4 frames.  How many values differ from the exact two-stage
    ``bilinear_gather`` warp (the design's fidelity loss) is printed, not
    gated.
+11. Morphology probes (lane_tracker_tpu_torch/probes/mosaic.py; runs
+   before phase 10): ``mosaic.run`` at the probes' full sizes, with the
+   counts set to 0 just before and read just after.  Every one of the 64
+   runnable shift-chain variants (1104x1280, K=64) must equal its plain
+   twin with one launch of its kernel (63 of ``lt_shift_chain``, and
+   ``bf16_morph_chain8`` through ``lt_shift_chain_2d``), and
+   ``i16_sublane_slice_add_s17`` must be rejected; ``tophat_staged`` (bf16
+   k=29 and 55, f32 k=29, probe 5's rows) and probe 4's ``tophat_ellipse``
+   rows on (32, 1100, 1080) must equal the plain tophat; ``dual_tophat`` on
+   the T=128 warped R and LAB-B must equal two ``tophat_ellipse`` calls and
+   the twins, and a profile must show it in 2 kernel launches against their
+   4.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
-   per-kernel times against the plain twins with CUDA events; the fused
-   stage at several tile heights against the unfused kernels (scripts/
-   mosaic_probe7.py's study on this card); the banded warp against the
-   two-stage warp; and a profile of one fail16 chunk per mode read
-   through its ``lt.*`` ranges.
+   per-kernel times against the plain twins with CUDA events; the probes'
+   rows, each timed once (us per pass of each shift chain, ms per frame of
+   each tophat row), with their bounds and the shared-memory traffic of
+   each chain's design per pass, summed into the probe kernels' entries of
+   the kernels line; the fused stage at several tile heights
+   against the unfused kernels (scripts/mosaic_probe7.py's study on this
+   card); the banded warp against the two-stage warp; and a profile of one
+   fail16 chunk per mode read through its ``lt.*`` ranges.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move over the HBM rate and the
@@ -65,6 +80,7 @@ import dataclasses
 import importlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -90,19 +106,32 @@ MXU_DST = (1080, 1100)  # the bird's-eye size, calibration.npz's warped size
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 I32_OPS_PER_S = F32_OPS_PER_S / 2
+# Operations/s by the type they run in, for every bound: int32 at the int32
+# rate, f32 at the f32 rate, and the narrow types as packed SIMD (bf16x2
+# __hmin2 / __hadd2; two int16 or four 8-bit lanes a word with __vmins2 /
+# __vadd2 / __vminu4), at the 32-bit rate times the lanes a word holds: the
+# least time the card could take.  So a uint8 tophat's min/max and subtract
+# run at the uint8 rate, a threshold's sums of pixels at the int32 rate.
+OPS_PER_S = {"int32": I32_OPS_PER_S, "int16": 2 * I32_OPS_PER_S,
+             "uint8": 4 * I32_OPS_PER_S, "int8": 4 * I32_OPS_PER_S,
+             "float32": F32_OPS_PER_S, "bfloat16": 2 * F32_OPS_PER_S}
 # Integer operations per pixel of the kernels' stages, as the kernels do
 # them: a cross threshold's two prefix adds, four arm differences, k*x - C*k,
-# four compares, three logic ops and the select; the noise mask's compare
-# and or; a merge's or and and; a packed row prefix's pack and add; the
-# adaptive mean's two integral adds, three box adds, four for the compare
-# and the select.  Pass 2 of the banded warp: a product, an fma, rint and
-# two clamps in f32.
+# four compares, three logic ops and the select (int32: sums of pixels); the
+# noise mask's compare and or, a merge's or and and (uint8: pixels and
+# masks); a packed row prefix's pack and add, the adaptive mean's two
+# integral adds, three box adds, four for the compare and the select
+# (int32).  Pass 2 of the banded warp: a product, an fma, rint and two
+# clamps in f32.
 THRESHOLD_OPS = 16
 NOISE_OPS = 2
 MERGE_OPS = 2
 PREFIX_OPS = 3
 ADAPTIVE_OPS = 10
 PASS2_FLOPS = 6
+PROBE_LAUNCHES = {"shift_chain": 63, "shift_chain_2d": 1, "tophat_staged": 3,
+                  "dual_tophat": 1, "tophat_ellipse": 4}
+PROBE_REPS = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -114,34 +143,18 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    import torch
-
-    fn()  # warm-up
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def mismatches(a, b):
     """(number of differing elements, max abs difference) of two tensors."""
     d = (a.long() - b.long()).abs()
     return int((d != 0).sum()), int(d.max())
 
 
-def bound(nbytes, ops, ops_per_s):
+def bound(nbytes, *ops):
     """(bound_ms, bound_by): the least time the card could take, the
-    larger of ``nbytes`` over the HBM rate and ``ops`` over
-    ``ops_per_s``."""
+    larger of ``nbytes`` over the HBM rate and the time of the operations,
+    each ``(count, type)`` at ``OPS_PER_S[type]``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+    t_ops = sum(n / OPS_PER_S[t] for n, t in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -159,6 +172,50 @@ def morph_ops(k):
 
 def tophat_ops(k):
     return 2 * morph_ops(k) + 1
+
+
+def chain_work(v, x, k):
+    """(bytes, (operations, their type)) of a shift chain on block x: one
+    read and one write of the block; the body's operations per element in
+    each of its passes."""
+    from lane_tracker_tpu_torch.kernels import shift_chain as sc
+
+    n = x.numel()
+    return (2 * n * x.element_size(),
+            (n * v.n_passes(k) * sc.BODY_OPS[v.body], v.dtype))
+
+
+def chain_smem_per_pass(v, x):
+    """Bytes of shared memory (lt_shift_chain) or L2 (lt_shift_chain_2d)
+    one pass of the design moves: the design's cost, not the bound.  A
+    shift pass reads each element and its shifted neighbour(s) and writes
+    it back; the elementwise bodies stay in registers; an outer step of the
+    2-D chain reads 2 + 2 + 2 + 3 and writes 4 arrays."""
+    n = x.numel() * x.element_size()
+    if v.body == "morph_chain8":
+        return 13 * n
+    if v.boundary is None:
+        return 0
+    return (len(v.shifts) + 2) * n
+
+
+def kernel_launches(fn, trace):
+    """Names of the CUDA kernels one call of fn launches, from a
+    torch.profiler trace (the ctypes-launched kernels included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    return [re.match(r"(?:void )?([\w:]+)", ev["name"].replace(
+        "(anonymous namespace)::", "")).group(1).split("::")[-1]
+        for ev in events if ev.get("cat") == "kernel"]
 
 
 def curve_rmse_px(mine, ref, H):
@@ -237,11 +294,14 @@ def main():
     from lane_tracker_tpu_torch.kernels import channel_fused as cf
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
     from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
+    from lane_tracker_tpu_torch.kernels import shift_chain as sc
     from lane_tracker_tpu_torch.kernels.build import build
     from lane_tracker_tpu_torch.kernels.resample import bilinear_gather
     from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast
     from lane_tracker_tpu_torch.ops.filters import filter_stage
     from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
+    from lane_tracker_tpu_torch.probes import mosaic
+    from lane_tracker_tpu_torch.timing import cuda_ms
     from lane_tracker_tpu_torch.tracker.config import PRESETS, SECOND_ATTEMPT
     from lane_tracker_tpu_torch.tracker.step import (
         TrackerParams,
@@ -565,6 +625,52 @@ def main():
           f"mean abs {float(d.float().mean()):.4f}")
     del t1, p2, exact, d
 
+    # ---- 11. Morphology probes (before the timing phase) ----
+    sc.reset_launches()
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    probe_rows = mosaic.run("cuda")
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    probe_launches = {name: (sc.LAUNCHES | fs.LAUNCHES)[name]
+                      for name in PROBE_LAUNCHES}
+    print(f"[probes] probes.mosaic.run at full size: {len(probe_rows)} "
+          f"rows in {probe_s:.1f} s; launches {probe_launches}")
+    for row in probe_rows:
+        print(f"[probes] {json.dumps(row)}")
+    chains = [row for row in probe_rows
+              if row.get("kernel") in ("shift_chain", "shift_chain_2d")]
+    check([row["variant"] for row in probe_rows if "error" in row]
+          == ["i16_sublane_slice_add_s17"],
+          "the probes did not reject exactly i16_sublane_slice_add_s17")
+    check(len(chains) == 64 and all(row["launches"] == 1 for row in chains),
+          "a shift-chain variant did not run in one launch of its kernel")
+    bad = [row.get("variant", row.get("stage")) for row in probe_rows
+           if "error" not in row and not row.get("ok", row.get("exact"))]
+    check(not bad, f"probe rows disagree with their plain twins: {bad}")
+    check(probe_launches == PROBE_LAUNCHES,
+          f"the probes did not launch {PROBE_LAUNCHES}")
+    launches.update({name: probe_launches[name] for name in
+                     ("shift_chain", "shift_chain_2d", "tophat_staged",
+                      "dual_tophat")})
+    for name in ("shift_chain", "shift_chain_2d", "tophat_staged",
+                 "dual_tophat"):
+        max_err[name] = max(row["max_abs_err"] for row in probe_rows
+                            if row.get("kernel") == name)
+    # The dual tophat in 2 kernel launches where the separate calls take 4,
+    # read from a profile of 8 of the warped frames.
+    r10, b10 = mosaic.warped_channels(8, "cuda")
+    trace = REPO / "build" / "chip_smoke_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    n_dual = kernel_launches(lambda: fs.dual_tophat(r10, b10, 29, 55), trace)
+    n_sep = kernel_launches(lambda: (fs.tophat_ellipse(r10, 29),
+                                     fs.tophat_ellipse(b10, 55)), trace)
+    print(f"[probes] kernel launches under the profiler: dual_tophat "
+          f"{n_dual}; two tophat_ellipse calls {n_sep}")
+    check(len(n_dual) == 2 and len(n_sep) == 4,
+          "the dual tophat did not take 2 launches against the separate 4")
+    del r10, b10
+
     # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):
         """ms per chunk over N_TIMED_CHUNKS, state carried, after one
@@ -629,37 +735,50 @@ def main():
             lambda: rm.pass2(t1, gwarp.wpack, Wo),
             lambda: rm.pass2_plain(t1, gwarp.wpack, Wo)),
     }
-    # The least time of each timed call: (bytes, operations, their rate).
+    # The least time of each timed call: (bytes, (operations, their
+    # type), ...).
     N = r.numel()
     pref_bytes = 4 * N // r.shape[-1] * (r.shape[-1] + 1)
     t1 = gwarp.pass1(pairs)
+    u8, i32 = "uint8", "int32"
     work = {
-        "tophat_ellipse": (2 * N, N * tophat_ops(f.tophat_r), I32_OPS_PER_S),
-        "tophat_riders": (5 * N, N * (tophat_ops(f.tophat_b)
-                                      + 2 * THRESHOLD_OPS + NOISE_OPS),
-                          I32_OPS_PER_S),
+        "tophat_ellipse": (2 * N, (N * tophat_ops(f.tophat_r), u8)),
+        "tophat_riders": (5 * N, (N * (tophat_ops(f.tophat_b) + NOISE_OPS),
+                                  u8), (N * 2 * THRESHOLD_OPS, i32)),
         "thr_merge_open": (4 * N + pref_bytes,
-                           N * (THRESHOLD_OPS + MERGE_OPS
-                                + 2 * morph_ops(f.open_k) + PREFIX_OPS),
-                           I32_OPS_PER_S),
-        "adaptive_mean": (4 * N, 2 * N * ADAPTIVE_OPS, I32_OPS_PER_S),
+                           (N * (MERGE_OPS + 2 * morph_ops(f.open_k)), u8),
+                           (N * (THRESHOLD_OPS + PREFIX_OPS), i32)),
+        "adaptive_mean": (4 * N, (2 * N * ADAPTIVE_OPS, i32)),
         "merge_open": (3 * N + pref_bytes,
-                       N * (MERGE_OPS + 2 * morph_ops(f2.open_k)
-                            + PREFIX_OPS), I32_OPS_PER_S),
-        "bilateral_threshold": (2 * N, N * THRESHOLD_OPS, I32_OPS_PER_S),
-        "channel_stage": (5 * N, N * (tophat_ops(f.tophat_r)
-                                      + tophat_ops(f.tophat_b)
-                                      + 3 * THRESHOLD_OPS + NOISE_OPS),
-                          I32_OPS_PER_S),
-        "channel_stage_pyr": (2 * N, N * (tophat_ops(f.tophat_r)
-                                          + THRESHOLD_OPS), I32_OPS_PER_S),
+                       (N * (MERGE_OPS + 2 * morph_ops(f2.open_k)), u8),
+                       (N * PREFIX_OPS, i32)),
+        "bilateral_threshold": (2 * N, (N * THRESHOLD_OPS, i32)),
+        "channel_stage": (5 * N, (N * (tophat_ops(f.tophat_r)
+                                       + tophat_ops(f.tophat_b)
+                                       + NOISE_OPS), u8),
+                          (N * 3 * THRESHOLD_OPS, i32)),
+        "channel_stage_pyr": (2 * N, (N * tophat_ops(f.tophat_r), u8),
+                              (N * THRESHOLD_OPS, i32)),
         "banded_pass2": (4 * t1.numel() + 4 * gwarp.wpack.numel()
-                         + warped.numel(), warped.numel() * PASS2_FLOPS,
-                         F32_OPS_PER_S),
+                         + warped.numel(),
+                         (warped.numel() * PASS2_FLOPS, "float32")),
     }
-    sources = {**fs.SOURCE, **cf.SOURCE, **rm.SOURCE}
-    replaces = {**fs.REPLACES, **cf.REPLACES, **rm.REPLACES}
+    sources = {**fs.SOURCE, **cf.SOURCE, **rm.SOURCE, **sc.SOURCE}
+    replaces = {**fs.REPLACES, **cf.REPLACES, **rm.REPLACES, **sc.REPLACES}
     kernels = []
+
+    def add_kernel(name, ms, plain_ms, bound_ms, bound_by):
+        # No single PyTorch call computes any of these functions (an
+        # elliptical tophat, a cross threshold, cv2's MEAN_C threshold, a
+        # merge + open + packed prefixes, pass 2's rounded two-tap lerp, a
+        # K-pass shift chain).
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+
     for name, (kernel, twin) in calls.items():
         # plain, kernel, kernel, plain: the means of each pair.
         p1 = cuda_ms(twin, 3)
@@ -667,20 +786,60 @@ def main():
         k2 = cuda_ms(kernel, 10)
         p2 = cuda_ms(twin, 3)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        nbytes, *ops = work[name]
         bound_ms, bound_by = bound(*work[name])
         print(f"[timing] {name}: kernel {ms:.3f} ms, plain twin "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} G "
-              f"ops) ({card})")
-        # No single PyTorch call computes any of these functions (an
-        # elliptical tophat, a cross threshold, cv2's MEAN_C threshold, a
-        # merge + open + packed prefixes, pass 2's rounded two-tap lerp).
-        kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        })
+              f"{nbytes / 1e6:.1f} MB, {sum(n for n, _ in ops) / 1e9:.2f} "
+              f"G ops) ({card})")
+        add_kernel(name, ms, plain_ms, bound_ms, bound_by)
+
+    # Phase 11's kernels, timed once, in the probes' own rows: us per pass
+    # of each chain (its time over K, as the probes divide) with its bound
+    # and the shared-memory traffic its design moves per pass, ms per frame
+    # of each tophat row with the bound of one call.  A kernel's entry in
+    # the kernels line sums its rows: the 63 single-axis chains, the 2-D
+    # chain, probe 5's three staged tophats, the dual tophat on the T=128
+    # warped channels.
+    chain_in = {v.name: sc.make_input(v, device="cuda") for v in sc.VARIANTS
+                if not v.rejected}
+    n5 = mosaic.TOPHAT_T * mosaic.TOPHAT_HW[0] * mosaic.TOPHAT_HW[1]
+    n10 = mosaic.DUAL_T * mosaic.TOPHAT_HW[0] * mosaic.TOPHAT_HW[1]
+    timed = {name: [] for name in ("shift_chain", "shift_chain_2d",
+                                   "tophat_staged", "dual_tophat")}
+
+    def emit(row):
+        name = row.get("variant")
+        if name in chain_in:
+            v = sc.BY_NAME[name]
+            row["bound_ms"], row["bound_by"] = bound(
+                *chain_work(v, chain_in[name], sc.K))
+            row["smem_bytes_per_pass"] = chain_smem_per_pass(
+                v, chain_in[name])
+        elif "k" in row:
+            row["bound_ms"], row["bound_by"] = bound(
+                2 * n5, (n5 * tophat_ops(row["k"]), row["staging"]))
+        elif "stage" in row:
+            parts = [bound(2 * n10, (n10 * tophat_ops(k), "uint8"))
+                     for k in mosaic.DUAL_K]
+            row["bound_ms"] = sum(t for t, _ in parts)
+            row["bound_by"] = parts[-1][1]
+        if row.get("kernel") in timed:
+            timed[row["kernel"]].append(row)
+        print(f"[probes] {json.dumps(row)} ({card})")
+
+    mosaic.run("cuda", reps=PROBE_REPS, emit=emit)
+    for name, rows in timed.items():
+        bound_ms = sum(row["bound_ms"] for row in rows)
+        bound_by = max(("bytes", "operations"), key=lambda by: sum(
+            row["bound_ms"] for row in rows if row["bound_by"] == by))
+        ms = sum(row.get("ms_k_passes", row.get("ms")) for row in rows)
+        plain_ms = sum(row["plain_ms"] for row in rows)
+        print(f"[timing] {name}: kernel {ms:.3f} ms, plain twin "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"over its {len(rows)} probe rows ({card})")
+        add_kernel(name, ms, plain_ms, bound_ms, bound_by)
+    del chain_in
 
     # scripts/mosaic_probe7.py's study on this card: the fused stage at
     # several tile heights against the unfused kernels on the same inputs,
@@ -734,8 +893,6 @@ def main():
     # lt.back_half: the reader counts that range's host time in both, and
     # gives the back half's kernels launched after it to (outside).
     breakdown = importlib.import_module("scripts.torch_chunk_breakdown")
-    trace = REPO / "build" / "chip_smoke_trace.json"
-    trace.parent.mkdir(exist_ok=True)
     for mode in TIMED_MODES:
         st = fresh("cuda")
         torch.cuda.synchronize()

@@ -11,6 +11,15 @@
 //                         and keep, 5x5 elliptical open, packed row prefixes)
 //   lt_merge_open      <- merge_open_pallas2     ((r | b) & keep, the same
 //                         open and prefixes; the second attempt's last stage)
+// Two entries answer the morphology probes' questions with the same tiles:
+//   lt_tophat_staged   <- tophat_bf16 of scripts/mosaic_probe5.py (the tophat
+//                         with bf16 or f32 compute scratch): morph_kernel
+//                         staged in bf16 or f32 instead of uint8
+//   lt_dual_tophat     <- build_dual of scripts/mosaic_probe10.py (two
+//                         independent tophats, k=29 on R and k=55 on LAB-B,
+//                         in one kernel): one erode and one dilate launch
+//                         whose CTAs split between the two problems, where
+//                         two lt_tophat calls take four launches
 // The open + prefix tail is one host-side launcher (launch_open_prefix)
 // that both merge entries call.  The second attempt's adaptive mean
 // threshold is in adaptive_mean.cu.
@@ -41,8 +50,11 @@
 // fusing them, fusing the merge into the erode's staging, and fusing the
 // riders into the tophat, is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -57,24 +69,50 @@ using lt::op;
 using lt::SeRuns;
 using lt::tile_grid;
 
+// The type a morphology tile stages its pixels and builds its pyramid in:
+// uint8 (the production kernels), bf16 or f32 (scripts/mosaic_probe5.py's
+// question).  Pixels are 0..255, exact in all three, so the staging type
+// does not change the result.
+template <typename S>
+__device__ __forceinline__ S to_stage(uint8_t v) {
+  if constexpr (std::is_same_v<S, __nv_bfloat16>)
+    return __float2bfloat16_rn((float)v);
+  else return (S)v;
+}
+template <typename S>
+__device__ __forceinline__ uint8_t from_stage(S v) {
+  if constexpr (std::is_same_v<S, __nv_bfloat16>)
+    return (uint8_t)__bfloat162float(v);
+  else return (uint8_t)v;
+}
+template <bool kMax, typename S>
+__device__ __forceinline__ S stage_op(S a, S b) {
+  if constexpr (std::is_same_v<S, __nv_bfloat16>)
+    return kMax ? __hmax(a, b) : __hmin(a, b);
+  else if constexpr (std::is_same_v<S, float>)
+    return kMax ? fmaxf(a, b) : fminf(a, b);
+  else return op<kMax>(a, b);
+}
+
 // Erode (kMax=false, fill 255) or dilate (kMax=true, fill 0) by the SE
-// runs.  With kSubtract the output is sub_src - result (the tophat
-// epilogue).  Grid: (ceil(W/32), ceil(H/32), T); block 32x8.
-template <bool kMax, bool kSubtract>
-__global__ void morph_kernel(const uint8_t* __restrict__ in,
-                             const uint8_t* __restrict__ sub_src,
-                             uint8_t* __restrict__ out, int H, int W,
-                             SeRuns runs, int r, int nlev) {
-  extern __shared__ uint8_t lev[];
+// runs, one 32x32 output tile of frame z, staged in S.  With kSubtract the
+// output is sub_src - result (the tophat epilogue).  lev: the dynamic
+// shared memory, nlev planes of (32 + 2r)^2 S.
+template <typename S, bool kMax, bool kSubtract>
+__device__ __forceinline__ void morph_tile(const uint8_t* __restrict__ in,
+                                           const uint8_t* __restrict__ sub_src,
+                                           uint8_t* __restrict__ out, int H,
+                                           int W, const SeRuns& runs, int r,
+                                           int nlev, int z, S* lev) {
   const int rows = kTileH + 2 * r;
   const int cols = kTileW + 2 * r;
   const int plane = rows * cols;
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
-  const size_t frame = (size_t)blockIdx.z * H * W;
+  const size_t frame = (size_t)z * H * W;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthr = blockDim.x * blockDim.y;
-  const uint8_t fill = kMax ? 0 : 255;
+  const S fill = to_stage<S>(kMax ? 0 : 255);
 
   for (int i = tid; i < plane; i += nthr) {
     const int ly = i / cols;
@@ -82,19 +120,19 @@ __global__ void morph_kernel(const uint8_t* __restrict__ in,
     const int gy = y0 - r + ly;
     const int gx = x0 - r + lx;
     lev[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                 ? in[frame + (size_t)gy * W + gx]
+                 ? to_stage<S>(in[frame + (size_t)gy * W + gx])
                  : fill;
   }
   __syncthreads();
   // Level j holds op over columns [c, c + 2^j) of its row.  Entries whose
   // window runs off the tile are never read.
   for (int j = 0; j + 1 < nlev; ++j) {
-    const uint8_t* a = lev + j * plane;
-    uint8_t* b = lev + (j + 1) * plane;
+    const S* a = lev + j * plane;
+    S* b = lev + (j + 1) * plane;
     const int s = 1 << j;
     for (int i = tid; i < plane; i += nthr) {
       const int lx = i % cols;
-      b[i] = (lx + s < cols) ? op<kMax>(a[i], a[i + s]) : a[i];
+      b[i] = (lx + s < cols) ? stage_op<kMax>(a[i], a[i + s]) : a[i];
     }
     __syncthreads();
   }
@@ -104,18 +142,54 @@ __global__ void morph_kernel(const uint8_t* __restrict__ in,
     const int gy = y0 + ly;
     const int gx = x0 + lx;
     if (gy >= H || gx >= W) continue;
-    uint8_t acc = fill;
+    S acc = fill;
     for (int q = 0; q < runs.n; ++q) {
       const int lo = runs.lo[q];
       const int hi = runs.hi[q];
       const int k = 31 - __clz(hi - lo + 1);
-      const uint8_t* row =
+      const S* row =
           lev + k * plane + (ly + r + runs.dy[q]) * cols + (lx + r);
-      acc = op<kMax>(acc, op<kMax>(row[lo], row[hi - (1 << k) + 1]));
+      acc = stage_op<kMax>(acc, stage_op<kMax>(row[lo], row[hi - (1 << k) + 1]));
     }
     const size_t o = frame + (size_t)gy * W + gx;
-    out[o] = kSubtract ? (uint8_t)(sub_src[o] - acc) : acc;
+    const uint8_t res = from_stage(acc);
+    out[o] = kSubtract ? (uint8_t)(sub_src[o] - res) : res;
   }
+}
+
+// One tile per CTA.  Grid: (ceil(W/32), ceil(H/32), T); block 32x8.
+template <typename S, bool kMax, bool kSubtract>
+__global__ void morph_kernel(const uint8_t* __restrict__ in,
+                             const uint8_t* __restrict__ sub_src,
+                             uint8_t* __restrict__ out, int H, int W,
+                             SeRuns runs, int r, int nlev) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  morph_tile<S, kMax, kSubtract>(in, sub_src, out, H, W, runs, r, nlev,
+                                 blockIdx.z, reinterpret_cast<S*>(smem_raw));
+}
+
+// Two independent problems of one frame shape in one launch
+// (scripts/mosaic_probe10.py's dual tophat): CTAs with blockIdx.z < T take
+// problem a (its frames, runs, halo and output), the rest problem b.  The
+// dynamic shared memory is sized for the larger.  Grid: (ceil(W/32),
+// ceil(H/32), 2T).
+template <bool kMax, bool kSubtract>
+__global__ void dual_morph_kernel(const uint8_t* __restrict__ in_a,
+                                  const uint8_t* __restrict__ in_b,
+                                  const uint8_t* __restrict__ sub_a,
+                                  const uint8_t* __restrict__ sub_b,
+                                  uint8_t* __restrict__ out_a,
+                                  uint8_t* __restrict__ out_b, int T, int H,
+                                  int W, SeRuns runs_a, SeRuns runs_b,
+                                  int r_a, int r_b, int nlev_a, int nlev_b) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int z = blockIdx.z;
+  if (z < T)
+    morph_tile<uint8_t, kMax, kSubtract>(in_a, sub_a, out_a, H, W, runs_a, r_a,
+                                         nlev_a, z, smem_raw);
+  else
+    morph_tile<uint8_t, kMax, kSubtract>(in_b, sub_b, out_b, H, W, runs_b, r_b,
+                                         nlev_b, z - T, smem_raw);
 }
 
 // Bilateral cross threshold, mode 'floor': hit iff both horizontal k-arm
@@ -229,20 +303,57 @@ __global__ void merge_kernel(const uint8_t* __restrict__ r,
   }
 }
 
-template <bool kMax, bool kSubtract>
+// Pyramid levels a morphology tile needs for the SE's longest run.
+int pyramid_levels(const SeRuns& runs) {
+  int nlev = 1;
+  while ((1 << nlev) <= runs.max_run) ++nlev;
+  return nlev;
+}
+
+size_t morph_smem(const SeRuns& runs, int ksize, size_t elem) {
+  const int r = ksize / 2;
+  return elem * pyramid_levels(runs) * (kTileH + 2 * r) * (kTileW + 2 * r);
+}
+
+template <bool kMax, bool kSubtract, typename S = uint8_t>
 cudaError_t launch_morph(const uint8_t* in, const uint8_t* sub_src,
                          uint8_t* out, const SeRuns& runs, int ksize, int T,
                          int H, int W, cudaStream_t stream) {
-  const int r = ksize / 2;
-  int nlev = 1;
-  while ((1 << nlev) <= runs.max_run) ++nlev;
-  const size_t smem =
-      (size_t)nlev * (kTileH + 2 * r) * (kTileW + 2 * r);
-  cudaError_t err = allow_smem(morph_kernel<kMax, kSubtract>, smem);
+  const size_t smem = morph_smem(runs, ksize, sizeof(S));
+  cudaError_t err = allow_smem(morph_kernel<S, kMax, kSubtract>, smem);
   if (err != cudaSuccess) return err;
-  morph_kernel<kMax, kSubtract><<<tile_grid(T, H, W), dim3(32, 8), smem,
-                                  stream>>>(
-      in, sub_src, out, H, W, runs, r, nlev);
+  morph_kernel<S, kMax, kSubtract><<<tile_grid(T, H, W), dim3(32, 8), smem,
+                                     stream>>>(
+      in, sub_src, out, H, W, runs, ksize / 2, pyramid_levels(runs));
+  return cudaGetLastError();
+}
+
+// out = img - open(img), staged in S: an erode launch and a dilate launch.
+template <typename S>
+cudaError_t launch_tophat(const uint8_t* x, uint8_t* eroded, uint8_t* out,
+                          const SeRuns& se, int ksize, int T, int H, int W,
+                          cudaStream_t s) {
+  cudaError_t err =
+      launch_morph<false, false, S>(x, nullptr, eroded, se, ksize, T, H, W, s);
+  if (err != cudaSuccess) return err;
+  return launch_morph<true, true, S>(eroded, x, out, se, ksize, T, H, W, s);
+}
+
+template <bool kMax, bool kSubtract>
+cudaError_t launch_dual_morph(const uint8_t* in_a, const uint8_t* in_b,
+                              const uint8_t* sub_a, const uint8_t* sub_b,
+                              uint8_t* out_a, uint8_t* out_b,
+                              const SeRuns& se_a, const SeRuns& se_b, int ka,
+                              int kb, int T, int H, int W, cudaStream_t s) {
+  const size_t sa = morph_smem(se_a, ka, 1);
+  const size_t sb = morph_smem(se_b, kb, 1);
+  const size_t smem = sa > sb ? sa : sb;
+  cudaError_t err = allow_smem(dual_morph_kernel<kMax, kSubtract>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid = tile_grid(2 * T, H, W);
+  dual_morph_kernel<kMax, kSubtract><<<grid, dim3(32, 8), smem, s>>>(
+      in_a, in_b, sub_a, sub_b, out_a, out_b, T, H, W, se_a, se_b, ka / 2,
+      kb / 2, pyramid_levels(se_a), pyramid_levels(se_b));
   return cudaGetLastError();
 }
 
@@ -302,6 +413,52 @@ int lt_tophat(const void* img, void* out, void* scratch, const void* runs,
   if (err != cudaSuccess) return (int)err;
   return (int)launch_morph<true, true>(e, x, static_cast<uint8_t*>(out), se,
                                        ksize, T, H, W, s);
+}
+
+// lt_tophat with the tiles staged, and their pyramids built, in another
+// type than uint8: stage 1 bf16, 2 f32.
+int lt_tophat_staged(const void* img, void* out, void* scratch,
+                     const void* runs, int n_runs, int ksize, int T, int H,
+                     int W, int stage, void* stream) {
+  SeRuns se;
+  if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
+      ksize < 1 || T < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* x = static_cast<const uint8_t*>(img);
+  uint8_t* e = static_cast<uint8_t*>(scratch);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  switch (stage) {
+    case 1:
+      return (int)launch_tophat<__nv_bfloat16>(x, e, o, se, ksize, T, H, W, s);
+    case 2: return (int)launch_tophat<float>(x, e, o, se, ksize, T, H, W, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Two tophats of one frame shape, a with ka and b with kb, in one erode
+// launch and one dilate launch.  scratch_a / scratch_b hold the eroded
+// images.
+int lt_dual_tophat(const void* a, const void* b, void* out_a, void* out_b,
+                   void* scratch_a, void* scratch_b, const void* runs_a,
+                   int n_runs_a, int ka, const void* runs_b, int n_runs_b,
+                   int kb, int T, int H, int W, void* stream) {
+  SeRuns se_a, se_b;
+  if (load_runs(static_cast<const int*>(runs_a), n_runs_a, &se_a) != 0 ||
+      load_runs(static_cast<const int*>(runs_b), n_runs_b, &se_b) != 0 ||
+      ka < 1 || kb < 1 || T < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* xa = static_cast<const uint8_t*>(a);
+  const uint8_t* xb = static_cast<const uint8_t*>(b);
+  uint8_t* ea = static_cast<uint8_t*>(scratch_a);
+  uint8_t* eb = static_cast<uint8_t*>(scratch_b);
+  cudaError_t err = launch_dual_morph<false, false>(
+      xa, xb, nullptr, nullptr, ea, eb, se_a, se_b, ka, kb, T, H, W, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dual_morph<true, true>(
+      ea, eb, xa, xb, static_cast<uint8_t*>(out_a),
+      static_cast<uint8_t*>(out_b), se_a, se_b, ka, kb, T, H, W, s);
 }
 
 // Bilateral cross threshold (optionally the noise keep-mask) of img.

@@ -24,7 +24,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
 SOURCES = ("filter_stage.cu", "adaptive_mean.cu", "channel_stage.cu",
-           "resample_mxu2.cu")
+           "resample_mxu2.cu", "shift_chain.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -33,7 +33,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Every pointer and the stream are c_void_p, every int is c_int.
+_D = ctypes.c_double
+# Every pointer and the stream are c_void_p, every int is c_int, every
+# double c_double.
 SIGNATURES = {
     "lt_tophat": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lt_cross_threshold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -46,6 +48,13 @@ SIGNATURES = {
                          _I, _I, _I, _P),
     "lt_channel_stage_max_block": (_I, _I, _I),
     "lt_banded_pass2": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lt_tophat_staged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lt_dual_tophat": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
+                       _I, _I, _P),
+    "lt_shift_chain": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D,
+                       _D, _P),
+    "lt_shift_chain_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
 }
 
 

@@ -30,6 +30,18 @@ route for ``ksize_b + 1 > 64``:
 * ``bilateral_threshold`` <- ``bilateral_threshold_pallas2`` (the standalone
   cross threshold, optionally the noise keep-mask; the riders' kernel).
 
+The morphology probes (lane_tracker_tpu_torch/probes/mosaic.py; the
+tracker runs neither):
+
+* ``tophat_staged`` <- ``tophat_bf16`` of scripts/mosaic_probe5.py (the
+  production tophat with bf16 or f32 compute scratch): ``lt_tophat`` with
+  its tiles staged in bf16 or f32 instead of uint8.  Pixels are 0..255,
+  exact in all three, so the twin is ``tophat_ellipse_plain``.
+* ``dual_tophat`` <- ``build_dual``'s ``run`` of scripts/mosaic_probe10.py
+  (two independent tophats in one kernel): one erode and one dilate launch
+  whose CTAs split between the two problems, against the four launches of
+  two ``tophat_ellipse`` calls.
+
 Bounds on the H100 and what the design does about them are noted at the
 top of each source: the kernels are shared-memory bound, so the
 morphology reads two entries of a pow2 window pyramid per SE row and the
@@ -69,6 +81,8 @@ SOURCE = {
     "adaptive_mean": _CSRC + "adaptive_mean.cu",
     "merge_open": _CSRC + "filter_stage.cu",
     "bilateral_threshold": _CSRC + "filter_stage.cu",
+    "tophat_staged": _CSRC + "filter_stage.cu",
+    "dual_tophat": _CSRC + "filter_stage.cu",
 }
 _TPU = "lane_tracker_tpu/kernels/filter_stage2.py:"
 REPLACES = {
@@ -78,7 +92,12 @@ REPLACES = {
     "adaptive_mean": _TPU + "1725",
     "merge_open": _TPU + "1258",
     "bilateral_threshold": _TPU + "771",
+    "tophat_staged": "scripts/mosaic_probe5.py:91",
+    "dual_tophat": "scripts/mosaic_probe10.py:120",
 }
+# Staging types of ``tophat_staged`` (beside ``tophat_ellipse``'s uint8) and
+# their codes in lt_tophat_staged.
+STAGING = {torch.bfloat16: 1, torch.float32: 2}
 # Shared memory of the adaptive-mean kernel's (32 + k)^2 int32 integral
 # image must fit the 227 KB a block can take on the H100.
 ADAPTIVE_MEAN_MAX_K = 209
@@ -174,6 +193,63 @@ def tophat_ellipse(img: torch.Tensor, ksize: int) -> torch.Tensor:
     out = _launch_tophat(img, ksize)
     LAUNCHES["tophat_ellipse"] += 1
     return out
+
+
+# ---- tophat_staged -------------------------------------------------------
+
+
+def tophat_staged_plain(img: torch.Tensor, ksize: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Plain twin of ``tophat_staged`` (the staging type does not change
+    the function)."""
+    if dtype not in STAGING:
+        raise ValueError(f"no staging type {dtype}; one of {list(STAGING)}")
+    return _tophat_plain(img, ksize)
+
+
+def tophat_staged(img: torch.Tensor, ksize: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``tophat_ellipse`` with the kernel's tiles and pyramids in ``dtype``
+    (bfloat16 or float32) instead of uint8."""
+    if dtype not in STAGING:
+        raise ValueError(f"no staging type {dtype}; one of {list(STAGING)}")
+    if not _on_cuda(img):
+        return tophat_staged_plain(img, ksize, dtype)
+    T, H, W = img.shape
+    out, scratch = torch.empty_like(img), torch.empty_like(img)
+    runs = _runs_table(int(ksize))
+    _check(load_library().lt_tophat_staged(
+        img.data_ptr(), out.data_ptr(), scratch.data_ptr(), runs.ctypes.data,
+        len(runs), int(ksize), T, H, W, STAGING[dtype], _stream()),
+        "lt_tophat_staged")
+    LAUNCHES["tophat_staged"] += 1
+    return out
+
+
+# ---- dual_tophat ---------------------------------------------------------
+
+
+def dual_tophat_plain(a: torch.Tensor, b: torch.Tensor, ka: int, kb: int):
+    """Plain twin of ``dual_tophat``."""
+    return _tophat_plain(a, ka), _tophat_plain(b, kb)
+
+
+def dual_tophat(a: torch.Tensor, b: torch.Tensor, ka: int, kb: int):
+    """``(tophat_ellipse(a, ka), tophat_ellipse(b, kb))`` for two (T, H, W)
+    uint8 batches of one shape, both in one erode and one dilate launch."""
+    if not _on_cuda(a, b):
+        return dual_tophat_plain(a, b, ka, kb)
+    T, H, W = a.shape
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    sa, sb = torch.empty_like(a), torch.empty_like(b)
+    runs_a, runs_b = _runs_table(int(ka)), _runs_table(int(kb))
+    _check(load_library().lt_dual_tophat(
+        a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+        sa.data_ptr(), sb.data_ptr(), runs_a.ctypes.data, len(runs_a),
+        int(ka), runs_b.ctypes.data, len(runs_b), int(kb), T, H, W,
+        _stream()), "lt_dual_tophat")
+    LAUNCHES["dual_tophat"] += 1
+    return out_a, out_b
 
 
 # ---- tophat_riders -------------------------------------------------------

@@ -13,8 +13,14 @@ multiples of the tiles; the integer decision traces of the stills chunk
 and of the fail16 chunk (every 16th frame black, so the second attempt
 runs) on the card equal the CPU run's.  The fused channel stage also
 equals the unfused kernels, at tile heights from 1 row to the tallest.
+The morphology probes' kernels (every runnable shift-chain variant, the
+staged tophat in uint8, bf16 and f32 at k=29 and k=55, the dual tophat)
+equal their twins exactly, at full size and on ragged blocks, with rolls
+and slices at least a line long; the rejected variant raises before any
+launch.
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -25,6 +31,7 @@ from lane_tracker_tpu_torch.calib.io import load_calibration_npz
 from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
+from lane_tracker_tpu_torch.kernels import shift_chain as sc
 from lane_tracker_tpu_torch.kernels.build import build
 from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
 from lane_tracker_tpu_torch.tracker.config import PRESETS, SECOND_ATTEMPT
@@ -265,3 +272,84 @@ def test_mxu_warp_on_card_equals_cpu(setup):
     assert rm.LAUNCHES["banded_pass2"] == 1
     assert tuple(got.shape) == (2, 2, 96, 256)
     _same(got.cpu(), want)
+
+
+# ---- the morphology probes (kernels/shift_chain.py, tophat_staged,
+# dual_tophat) ----
+
+CHAINS = [v.name for v in sc.VARIANTS if not v.rejected]
+# Ragged blocks: lines (rows of W, columns of H) that fill no CTA evenly.
+RAGGED = [(37, 45), (300, 131), (5, 1500)]
+
+
+def _chain_input(v, shape, seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, v.high, shape)
+    return torch.from_numpy(vals).to(sc.DTYPES[v.dtype])
+
+
+def _check_chain_kernel(x, v, k):
+    kernel = "shift_chain_2d" if v.body == "morph_chain8" else "shift_chain"
+    sc.reset_launches()
+    got = sc.shift_chain(x, v, k)
+    assert sc.LAUNCHES == {"shift_chain": 0, "shift_chain_2d": 0} | {
+        kernel: 1}
+    torch.testing.assert_close(got.cpu(), sc.shift_chain_plain(x.cpu(), v, k),
+                               rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, sc.shift_chain_plain(x, v, k), rtol=0,
+                               atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", CHAINS)
+def test_shift_chain_equals_twin_on_ragged_blocks(cuda, name):
+    v = sc.BY_NAME[name]
+    for i, shape in enumerate(RAGGED):
+        _check_chain_kernel(_chain_input(v, shape, i).to(cuda), v, 12)
+
+
+@pytest.mark.parametrize("name", CHAINS)
+def test_shift_chain_equals_twin_at_full_size(cuda, name):
+    v = sc.BY_NAME[name]
+    _check_chain_kernel(sc.make_input(v, device=cuda), v, sc.K)
+
+
+@pytest.mark.parametrize("name", ["i32_lane_roll_add_s17",
+                                  "u8_sublane_roll_min_s17",
+                                  "bf16_roll_sub_minmax",
+                                  "i32_packed_u16_shift_add_s17",
+                                  "int16_lane_slice_min_s17",
+                                  "bf16_sub_max_s3"])
+def test_shift_chain_shift_at_least_a_line(cuda, name):
+    """Rolls by a line's length and more wrap; slices that long read only
+    the fill."""
+    v = sc.BY_NAME[name]
+    for shift in (45, 46, 101):
+        shifts = (shift, shift + 1) if v.body == "packed" else (shift,)
+        w = dataclasses.replace(v, shifts=shifts, margin=shift)
+        _check_chain_kernel(_chain_input(w, (37, 45), shift).to(cuda), w, 8)
+
+
+def test_shift_chain_rejects_before_launch(cuda):
+    v = sc.BY_NAME["i16_sublane_slice_add_s17"]
+    sc.reset_launches()
+    with pytest.raises(ValueError, match=v.name):
+        sc.shift_chain(sc.make_input(v, device=cuda), v)
+    assert sc.LAUNCHES == {"shift_chain": 0, "shift_chain_2d": 0}
+
+
+@pytest.mark.parametrize("shape", [(2, 77, 101), (1, 300, 5), (3, 33, 64)])
+def test_tophat_staged_and_dual_equal_twins(cuda, shape):
+    a = _stripes(shape, sum(shape))
+    b = _stripes(shape, sum(shape) + 1)
+    fs.reset_launches()
+    n = 0
+    for k in (29, 55):
+        for dtype in fs.STAGING:
+            _same(fs.tophat_staged(a.to(cuda), k, dtype).cpu(),
+                  fs.tophat_staged_plain(a, k, dtype))
+            n += 1
+    got = fs.dual_tophat(a.to(cuda), b.to(cuda), 29, 55)
+    for g, w in zip(got, fs.dual_tophat_plain(a, b, 29, 55)):
+        _same(g.cpu(), w)
+    assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES} | {
+        "tophat_staged": n, "dual_tophat": 1}
