@@ -57,14 +57,24 @@ Phases (each raises at the first failure; nothing is skipped):
    rows on (32, 1100, 1080) must equal the plain tophat; ``dual_tophat`` on
    the T=128 warped R and LAB-B must equal two ``tophat_ellipse`` calls and
    the twins, and a profile must show it in 2 kernel launches against their
-   4.
+   4.  Probe 6's ``sweep_dots`` (32, 600, 1280) bf16 in each kind (3
+   launches): swept equal to its twin's, out equal to the twin's for
+   ``sweeps`` and within a relative 1e-4 of it (float64 sums) for ``dots``
+   and ``both``; ``cuobjdump --dump-sass`` of the built library must show
+   HMMA (tensor-core) instructions in its kernel.  Probe 11's
+   ``tile_gather`` on (128, 1280) int32, each op at 16 and 64 reps (8
+   launches): equal to its twin.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    per-kernel times against the plain twins with CUDA events; the probes'
    rows, each timed once (us per pass of each shift chain, ms per frame of
-   each tophat row), with their bounds and the shared-memory traffic of
-   each chain's design per pass, summed into the probe kernels' entries of
-   the kernels line; the fused stage at several tile heights
+   each tophat row and of probe 6's kinds, ns per rep of probe 11's
+   gathers), with their bounds and the shared-memory traffic of each
+   chain's design per pass, summed into the probe kernels' entries of the
+   kernels line (probe 6's with the batched ``torch.matmul`` of its
+   products as ``library_ms``, beside the ``dots`` row's own ms as
+   ``library_of`` / ``library_of_ms``: the library computes that row's
+   products, not all three kinds); the fused stage at several tile heights
    against the unfused kernels (scripts/mosaic_probe7.py's study on this
    card); the banded warp against the two-stage warp; and a profile of one
    fail16 chunk per mode read through its ``lt.*`` ranges.
@@ -102,10 +112,12 @@ FUSED_LAUNCHES = {"channel_stage": 2, "channel_stage_pyr": 1}
 T_WARP_CPU = 4
 MXU_DST = (1080, 1100)  # the bird's-eye size, calibration.npz's warped size
 # The card's peak rates (H100 SXM data sheet, dense, at 700 W): HBM bytes/s,
-# f32 operations/s outside the tensor cores, and int32 at half that.
+# f32 operations/s outside the tensor cores, and int32 at half that; bf16
+# multiply-adds on the tensor cores (989.4 TFLOP/s dense, the same sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 I32_OPS_PER_S = F32_OPS_PER_S / 2
+BF16_TENSOR_FLOPS_PER_S = 989.4e12
 # Operations/s by the type they run in, for every bound: int32 at the int32
 # rate, f32 at the f32 rate, and the narrow types as packed SIMD (bf16x2
 # __hmin2 / __hadd2; two int16 or four 8-bit lanes a word with __vmins2 /
@@ -114,7 +126,8 @@ I32_OPS_PER_S = F32_OPS_PER_S / 2
 # run at the uint8 rate, a threshold's sums of pixels at the int32 rate.
 OPS_PER_S = {"int32": I32_OPS_PER_S, "int16": 2 * I32_OPS_PER_S,
              "uint8": 4 * I32_OPS_PER_S, "int8": 4 * I32_OPS_PER_S,
-             "float32": F32_OPS_PER_S, "bfloat16": 2 * F32_OPS_PER_S}
+             "float32": F32_OPS_PER_S, "bfloat16": 2 * F32_OPS_PER_S,
+             "bfloat16_tensor": BF16_TENSOR_FLOPS_PER_S}
 # Integer operations per pixel of the kernels' stages, as the kernels do
 # them: a cross threshold's two prefix adds, four arm differences, k*x - C*k,
 # four compares, three logic ops and the select (int32: sums of pixels); the
@@ -130,8 +143,15 @@ PREFIX_OPS = 3
 ADAPTIVE_OPS = 10
 PASS2_FLOPS = 6
 PROBE_LAUNCHES = {"shift_chain": 63, "shift_chain_2d": 1, "tophat_staged": 3,
-                  "dual_tophat": 1, "tophat_ellipse": 4}
+                  "dual_tophat": 1, "tophat_ellipse": 4, "sweep_dots": 3,
+                  "tile_gather": 8}
+PROBE_KERNELS = ("shift_chain", "shift_chain_2d", "tophat_staged",
+                 "dual_tophat", "sweep_dots", "tile_gather")
 PROBE_REPS = 10
+# int32 operations per element and rep of probe 11's chains: the add, one
+# address for each gather, the mask.
+GATHER_OPS = {"B0_plain_add": 2, "G1_lane_gather": 3, "G2_sublane_gather": 3,
+              "G3_2d_gather": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -199,23 +219,67 @@ def chain_smem_per_pass(v, x):
     return (len(v.shifts) + 2) * n
 
 
-def kernel_launches(fn, trace):
+def sweep_dots_work(kind):
+    """(bytes, (operations, their type), ...) of one sweep_dots call at the
+    probe's size: x and tri read once and out written once, as the TPU
+    kernel moves them (its swept scratch stays in VMEM; the port's write of
+    ``swept`` is work of its design, not of the function); a min and an add
+    per swept element and sweep (bf16), the three products' multiply-adds
+    (2 operations each, on the tensor cores), and the f32 sums of the
+    products' outputs and of the 8 x 128 corner."""
+    from lane_tracker_tpu_torch.kernels import sweep_dots as sd
+
+    frame = sd.T * sd.ROWS * sd.COLS * 2
+    ops = [(sd.T * 8 * 128, "float32")]
+    if sd.KINDS[kind] & 1:
+        ops.append((2 * sd.SWEEPS * (sd.ROWS - sd.UNSWEPT) * sd.COLS * sd.T,
+                    "bfloat16"))
+    if sd.KINDS[kind] & 2:
+        ops.append((2 * sd.N_BLOCKS * sd.T * sd.BLOCK * sd.KP * sd.NP,
+                    "bfloat16_tensor"))
+        ops.append((sd.N_BLOCKS * sd.T * sd.BLOCK * sd.NP, "float32"))
+    return (frame + 2 * sd.KP * sd.NP + 4 * sd.T, *ops)
+
+
+def gather_work(op, reps):
+    """(bytes, (operations, type)) of one tile_gather call: src, li and si
+    read once and the output written once, GATHER_OPS int32 operations per
+    element and rep."""
+    from lane_tracker_tpu_torch.kernels import tile_gather as tg
+
+    n = tg.H * tg.W
+    return (4 * 4 * n, (n * reps * GATHER_OPS[op], "int32"))
+
+
+def sass_count(lib_path, kernel, opcode):
+    """(count, function names): the instructions with ``opcode`` in the
+    SASS of the library's functions whose mangled name holds ``kernel``,
+    from ``cuobjdump --dump-sass``."""
+    from lane_tracker_tpu_torch.kernels.build import find_nvcc
+
+    tool = pathlib.Path(find_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "--dump-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+    count, names, name = 0, set(), None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and kernel in name and re.search(rf"\b{opcode}\b", line):
+            count += 1
+            names.add(name)
+    return count, sorted(names)
+
+
+def kernel_launches(fn):
     """Names of the CUDA kernels one call of fn launches, from a
     torch.profiler trace (the ctypes-launched kernels included)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from lane_tracker_tpu_torch.timing import kernel_trace
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    trace.unlink()
-    return [re.match(r"(?:void )?([\w:]+)", ev["name"].replace(
+    return [re.match(r"(?:void )?([\w:]+)", name.replace(
         "(anonymous namespace)::", "")).group(1).split("::")[-1]
-        for ev in events if ev.get("cat") == "kernel"]
+        for name, _ in kernel_trace(fn)]
 
 
 def curve_rmse_px(mine, ref, H):
@@ -295,6 +359,8 @@ def main():
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
     from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
     from lane_tracker_tpu_torch.kernels import shift_chain as sc
+    from lane_tracker_tpu_torch.kernels import sweep_dots as sd
+    from lane_tracker_tpu_torch.kernels import tile_gather as tg
     from lane_tracker_tpu_torch.kernels.build import build
     from lane_tracker_tpu_torch.kernels.resample import bilinear_gather
     from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast
@@ -626,14 +692,14 @@ def main():
     del t1, p2, exact, d
 
     # ---- 11. Morphology probes (before the timing phase) ----
-    sc.reset_launches()
-    fs.reset_launches()
+    for mod in (sc, fs, sd, tg):
+        mod.reset_launches()
     t0 = time.perf_counter()
     probe_rows = mosaic.run("cuda")
     torch.cuda.synchronize()
     probe_s = time.perf_counter() - t0
-    probe_launches = {name: (sc.LAUNCHES | fs.LAUNCHES)[name]
-                      for name in PROBE_LAUNCHES}
+    counts = sc.LAUNCHES | fs.LAUNCHES | sd.LAUNCHES | tg.LAUNCHES
+    probe_launches = {name: counts[name] for name in PROBE_LAUNCHES}
     print(f"[probes] probes.mosaic.run at full size: {len(probe_rows)} "
           f"rows in {probe_s:.1f} s; launches {probe_launches}")
     for row in probe_rows:
@@ -645,26 +711,41 @@ def main():
           "the probes did not reject exactly i16_sublane_slice_add_s17")
     check(len(chains) == 64 and all(row["launches"] == 1 for row in chains),
           "a shift-chain variant did not run in one launch of its kernel")
-    bad = [row.get("variant", row.get("stage")) for row in probe_rows
-           if "error" not in row and not row.get("ok", row.get("exact"))]
+    bad = [mosaic.row_name(row) for row in probe_rows
+           if "error" not in row and not mosaic.row_ok(row)]
     check(not bad, f"probe rows disagree with their plain twins: {bad}")
     check(probe_launches == PROBE_LAUNCHES,
           f"the probes did not launch {PROBE_LAUNCHES}")
-    launches.update({name: probe_launches[name] for name in
-                     ("shift_chain", "shift_chain_2d", "tophat_staged",
-                      "dual_tophat")})
-    for name in ("shift_chain", "shift_chain_2d", "tophat_staged",
-                 "dual_tophat"):
+    overlap = {row["kind"]: row for row in probe_rows
+               if row.get("kernel") == "sweep_dots"}
+    check(list(overlap) == list(sd.KINDS)
+          and all(row["launches"] == 1 and row["swept_mismatches"] == 0
+                  for row in overlap.values())
+          and overlap["sweeps"]["max_abs_err"] == 0
+          and all(overlap[k]["max_rel_err"] <= sd.RTOL
+                  for k in ("dots", "both")),
+          "sweep_dots: swept differs from its twin, or out is not equal "
+          f"(sweeps) / within rtol {sd.RTOL} (dots, both)")
+    gathers = [row for row in probe_rows if row.get("kernel") == "tile_gather"]
+    check([row["probe"] for row in gathers] == list(tg.OPS)
+          and all(row["ok"] and row["launches"] == len(tg.REPS)
+                  for row in gathers),
+          "tile_gather differs from its twin")
+    n_hmma, hmma_fns = sass_count(lib_path, "sweep_dots_kernel", "HMMA")
+    print(f"[probes] SASS of {lib_path.name}: {n_hmma} HMMA instructions "
+          f"in {hmma_fns}")
+    check(n_hmma > 0, "no tensor-core (HMMA) instruction in sweep_dots' "
+          "kernel")
+    launches.update({name: probe_launches[name] for name in PROBE_KERNELS})
+    for name in PROBE_KERNELS:
         max_err[name] = max(row["max_abs_err"] for row in probe_rows
                             if row.get("kernel") == name)
     # The dual tophat in 2 kernel launches where the separate calls take 4,
     # read from a profile of 8 of the warped frames.
     r10, b10 = mosaic.warped_channels(8, "cuda")
-    trace = REPO / "build" / "chip_smoke_trace.json"
-    trace.parent.mkdir(exist_ok=True)
-    n_dual = kernel_launches(lambda: fs.dual_tophat(r10, b10, 29, 55), trace)
+    n_dual = kernel_launches(lambda: fs.dual_tophat(r10, b10, 29, 55))
     n_sep = kernel_launches(lambda: (fs.tophat_ellipse(r10, 29),
-                                     fs.tophat_ellipse(b10, 55)), trace)
+                                     fs.tophat_ellipse(b10, 55)))
     print(f"[probes] kernel launches under the profiler: dual_tophat "
           f"{n_dual}; two tophat_ellipse calls {n_sep}")
     check(len(n_dual) == 2 and len(n_sep) == 4,
@@ -763,20 +844,25 @@ def main():
                          + warped.numel(),
                          (warped.numel() * PASS2_FLOPS, "float32")),
     }
-    sources = {**fs.SOURCE, **cf.SOURCE, **rm.SOURCE, **sc.SOURCE}
-    replaces = {**fs.REPLACES, **cf.REPLACES, **rm.REPLACES, **sc.REPLACES}
+    mods = (fs, cf, rm, sc, sd, tg)
+    sources = {k: v for m in mods for k, v in m.SOURCE.items()}
+    replaces = {k: v for m in mods for k, v in m.REPLACES.items()}
     kernels = []
 
-    def add_kernel(name, ms, plain_ms, bound_ms, bound_by):
+    def add_kernel(name, ms, plain_ms, bound_ms, bound_by, library_ms=None,
+                   **library_of):
         # No single PyTorch call computes any of these functions (an
         # elliptical tophat, a cross threshold, cv2's MEAN_C threshold, a
         # merge + open + packed prefixes, pass 2's rounded two-tap lerp, a
-        # K-pass shift chain).
+        # K-pass shift chain, a chain of in-tile gathers); probe 6's
+        # products alone are one batched torch.matmul, its library_ms,
+        # which ``library_of`` names the row of and that row's ms.
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, **library_of,
         })
 
     for name, (kernel, twin) in calls.items():
@@ -800,17 +886,24 @@ def main():
     # of each tophat row with the bound of one call.  A kernel's entry in
     # the kernels line sums its rows: the 63 single-axis chains, the 2-D
     # chain, probe 5's three staged tophats, the dual tophat on the T=128
-    # warped channels.
+    # warped channels, probe 6's three kinds, probe 11's four ops at both
+    # chain lengths.
     chain_in = {v.name: sc.make_input(v, device="cuda") for v in sc.VARIANTS
                 if not v.rejected}
     n5 = mosaic.TOPHAT_T * mosaic.TOPHAT_HW[0] * mosaic.TOPHAT_HW[1]
     n10 = mosaic.DUAL_T * mosaic.TOPHAT_HW[0] * mosaic.TOPHAT_HW[1]
-    timed = {name: [] for name in ("shift_chain", "shift_chain_2d",
-                                   "tophat_staged", "dual_tophat")}
+    timed = {name: [] for name in PROBE_KERNELS}
 
     def emit(row):
         name = row.get("variant")
-        if name in chain_in:
+        if row.get("kernel") == "sweep_dots":
+            row["bound_ms"], row["bound_by"] = bound(
+                *sweep_dots_work(row["kind"]))
+        elif row.get("kernel") == "tile_gather":
+            parts = [bound(*gather_work(row["probe"], n)) for n in tg.REPS]
+            row["bound_ms"] = sum(t for t, _ in parts)
+            row["bound_by"] = parts[-1][1]
+        elif name in chain_in:
             v = sc.BY_NAME[name]
             row["bound_ms"], row["bound_by"] = bound(
                 *chain_work(v, chain_in[name], sc.K))
@@ -835,10 +928,17 @@ def main():
             row["bound_ms"] for row in rows if row["bound_by"] == by))
         ms = sum(row.get("ms_k_passes", row.get("ms")) for row in rows)
         plain_ms = sum(row["plain_ms"] for row in rows)
+        lib = next((row for row in rows if "library_ms" in row), None)
+        library_of = {} if lib is None else {
+            "library_of": lib["kind"], "library_of_ms": lib["ms"]}
         print(f"[timing] {name}: kernel {ms:.3f} ms, plain twin "
-              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"over its {len(rows)} probe rows ({card})")
-        add_kernel(name, ms, plain_ms, bound_ms, bound_by)
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) over "
+              f"its {len(rows)} probe rows"
+              + ("" if lib is None else
+                 f"; library {lib['library_ms']:.3f} ms against the "
+                 f"{lib['kind']!r} row's {lib['ms']:.3f} ms") + f" ({card})")
+        add_kernel(name, ms, plain_ms, bound_ms, bound_by,
+                   lib and lib["library_ms"], **library_of)
     del chain_in
 
     # scripts/mosaic_probe7.py's study on this card: the fused stage at
@@ -893,6 +993,8 @@ def main():
     # lt.back_half: the reader counts that range's host time in both, and
     # gives the back half's kernels launched after it to (outside).
     breakdown = importlib.import_module("scripts.torch_chunk_breakdown")
+    trace = REPO / "build" / "chip_smoke_trace.json"
+    trace.parent.mkdir(exist_ok=True)
     for mode in TIMED_MODES:
         st = fresh("cuda")
         torch.cuda.synchronize()

@@ -24,7 +24,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
 SOURCES = ("filter_stage.cu", "adaptive_mean.cu", "channel_stage.cu",
-           "resample_mxu2.cu", "shift_chain.cu")
+           "resample_mxu2.cu", "shift_chain.cu", "sweep_dots.cu",
+           "tile_gather.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -55,6 +56,9 @@ SIGNATURES = {
                        _D, _P),
     "lt_shift_chain_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P),
+    "lt_sweep_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P),
+    "lt_tile_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -4,6 +4,11 @@ from __future__ import annotations
 
 import torch
 
+# Clock cycles of the spin kernel ``queued_ms`` queues its calls behind:
+# about 10 ms at an H100's 1.98 GHz boost clock, far longer than the host
+# takes to queue a few calls.
+SPIN_CYCLES = 20_000_000
+
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` on the current stream, after one
@@ -16,5 +21,54 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_trace(fn, calls: int = 1) -> list:
+    """(name, device microseconds) of each CUDA kernel that ``calls`` calls
+    of ``fn`` launch, in order, from a torch.profiler trace (kernels
+    launched through ctypes included).  Once a process has launched many
+    kernels outside any trace, a trace can miss some of its kernels (on an
+    H100: 6 of 10 after a minute of launches), so a count from it is a
+    floor; ``queued_ms`` times short kernels without it."""
+    import json
+    import pathlib
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    return [(ev["name"], ev["dur"]) for ev in events
+            if ev.get("cat") == "kernel"]
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls that
+    the host queues behind a spin kernel (``torch.cuda._sleep``), so that
+    the card runs them back to back: a call's device time with the gap
+    between two launches on the card, without the host's cost of launching
+    it (which paces ``cuda_ms`` for kernels of a few microseconds).  Raises
+    if the spin ended before the host had queued the calls."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        raise RuntimeError("the spin ended before the calls were queued")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps

@@ -15,10 +15,6 @@ kernel is held against these twins on the card by tests/test_torch_cuda.py
 and chip_smoke.py.
 """
 
-import importlib.util
-import pathlib
-import sys
-
 import numpy as np
 import pytest
 import torch
@@ -27,8 +23,8 @@ import jax  # noqa: F401  (JAX on the CPU, set up by tests/conftest.py)
 
 from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.tracker.config import PRESETS
+from torch_scripts import load_script
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 F = PRESETS["demo1"].filter
 CHANNELS = {
     "R": (F.tophat_r, F.ksize_r, F.C_r, None),
@@ -38,18 +34,9 @@ CHANNELS = {
 SHAPES = [(2, 72, 96), (1, 20, 30)]
 
 
-def _load_script(name):
-    spec = importlib.util.spec_from_file_location(
-        name, REPO / "scripts" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod  # its dataclasses look their module up
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.fixture(scope="module")
 def postmortem():
-    return _load_script("channel_fused_postmortem")
+    return load_script("channel_fused_postmortem")
 
 
 def stripes(shape, seed):

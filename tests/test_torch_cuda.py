@@ -17,7 +17,13 @@ The morphology probes' kernels (every runnable shift-chain variant, the
 staged tophat in uint8, bf16 and f32 at k=29 and k=55, the dual tophat)
 equal their twins exactly, at full size and on ragged blocks, with rolls
 and slices at least a line long; the rejected variant raises before any
-launch.
+launch.  Probe 6's ``sweep_dots``, in every kind at full size and on a
+ragged frame: swept equal to the twin's, out equal for ``sweeps`` and
+within a relative 1e-4 of the float64 twin for ``dots`` and ``both`` (f32
+accumulation on the tensor cores), the same bits on a second call.  Probe
+11's ``tile_gather``: every op at both chain lengths equal to its twin.
+One launch per call.  ``timing.queued_ms`` times calls queued behind its
+spin kernel.
 """
 
 import dataclasses
@@ -32,6 +38,8 @@ from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
 from lane_tracker_tpu_torch.kernels import shift_chain as sc
+from lane_tracker_tpu_torch.kernels import sweep_dots as sd
+from lane_tracker_tpu_torch.kernels import tile_gather as tg
 from lane_tracker_tpu_torch.kernels.build import build
 from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
 from lane_tracker_tpu_torch.tracker.config import PRESETS, SECOND_ATTEMPT
@@ -353,3 +361,70 @@ def test_tophat_staged_and_dual_equal_twins(cuda, shape):
         _same(g.cpu(), w)
     assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES} | {
         "tophat_staged": n, "dual_tophat": 1}
+
+
+# ---- probe 6 (kernels/sweep_dots.py) and probe 11 (kernels/tile_gather.py)
+# ----
+
+# (frame, tri, block, col0): the probe's full size, and a ragged frame
+# whose last strip is 22 columns wide and whose products start and end
+# inside strips.
+OVERLAP = {"full": ((sd.T, sd.ROWS, sd.COLS), (sd.KP, sd.NP), sd.BLOCK,
+                    sd.COL0),
+           "ragged": ((3, 61, 150), (96, 48), 32, 16)}
+
+
+@pytest.mark.parametrize("kind", list(sd.KINDS))
+@pytest.mark.parametrize("size", list(OVERLAP))
+def test_sweep_dots_equals_twin(cuda, size, kind):
+    (t, h, w), (kp, n), block, col0 = OVERLAP[size]
+    x, tri = sd.make_inputs(t, h, w, kp, n, cuda)
+    sd.reset_launches()
+    out, swept = sd.sweep_dots(x, tri, kind, block=block, col0=col0)
+    assert sd.LAUNCHES == {"sweep_dots": 1}
+    want, want_swept = sd.sweep_dots_plain(x, tri, kind, block=block,
+                                           col0=col0)
+    _same(swept, want_swept)
+    if kind == "sweeps":
+        _same(out, want)
+    else:
+        torch.testing.assert_close(out, want, rtol=sd.RTOL, atol=0)
+    again, _ = sd.sweep_dots(x, tri, kind, block=block, col0=col0)
+    _same(again, out)  # deterministic: no float atomics
+    assert sd.LAUNCHES == {"sweep_dots": 2}
+
+
+def test_sweep_dots_rejects_before_launch(cuda):
+    x, tri = sd.make_inputs(1, 64, 256, 128, 128, cuda)
+    sd.reset_launches()
+    with pytest.raises(ValueError):
+        sd.sweep_dots(x, tri, "both", block=24)
+    with pytest.raises(ValueError):
+        sd.sweep_dots(x[:, :47].contiguous(), tri, "both", block=32)
+    assert sd.LAUNCHES == {"sweep_dots": 0}
+
+
+@pytest.mark.parametrize("reps", tg.REPS)
+@pytest.mark.parametrize("op", list(tg.OPS))
+def test_tile_gather_equals_twin(cuda, op, reps):
+    src, li, si = tg.make_inputs(cuda)
+    tg.reset_launches()
+    got = tg.tile_gather(src, li, si, op, reps)
+    assert tg.LAUNCHES == {"tile_gather": 1}
+    _same(got, tg.tile_gather_plain(src, li, si, op, reps))
+    _same(got.cpu(), tg.tile_gather_plain(src.cpu(), li.cpu(), si.cpu(), op,
+                                          reps))
+
+
+def test_queued_ms_times_the_queued_calls(cuda):
+    """The calls are queued behind the spin (else ``queued_ms`` raises),
+    and a longer chain takes longer on the card."""
+    from lane_tracker_tpu_torch.timing import queued_ms
+
+    src, li, si = tg.make_inputs(cuda)
+
+    def fn(n):
+        return tg.tile_gather(src, li, si, "G3_2d_gather", n)
+
+    lo, hi = (queued_ms(lambda n=n: fn(n), 10) for n in tg.REPS)
+    assert 0 < lo < hi

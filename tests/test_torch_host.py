@@ -300,6 +300,8 @@ assert not any(k == "lane_tracker_tpu" or k.startswith("lane_tracker_tpu.")
                for k in sys.modules), "imported the JAX package"
 assert {mod!r} not in sys.modules
 for name in ("lane_tracker_tpu_torch.kernels.shift_chain",
+             "lane_tracker_tpu_torch.kernels.sweep_dots",
+             "lane_tracker_tpu_torch.kernels.tile_gather",
              "lane_tracker_tpu_torch.probes.mosaic",
              "lane_tracker_tpu_torch.timing"):
     assert name in sys.modules, "not walked: " + name
@@ -311,7 +313,7 @@ print("ok")
 def test_port_imports_without(blocked):
     """Every module of the port imports with jax, PIL or the JAX package
     unavailable (the card's machine has neither jax nor PIL), the
-    morphology probes' modules among them."""
+    probes' modules among them."""
     res = subprocess.run(
         [sys.executable, "-c", _BLOCKER.format(mod=blocked)],
         cwd=REPO, capture_output=True, text=True, timeout=120)

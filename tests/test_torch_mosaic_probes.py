@@ -23,12 +23,10 @@ on the card by tests/test_torch_cuda.py and chip_smoke.py.
 
 import contextlib
 import functools
-import importlib.util
 import io
 import json
 import pathlib
 import re
-import sys
 
 import numpy as np
 import pytest
@@ -42,7 +40,10 @@ import lane_tracker_tpu.utils.timing as timing
 
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.kernels import shift_chain as sc
+from lane_tracker_tpu_torch.kernels import sweep_dots as sd
+from lane_tracker_tpu_torch.kernels import tile_gather as tg
 from lane_tracker_tpu_torch.probes import mosaic
+from torch_scripts import load_script
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = {1: "mosaic_probe", 2: "mosaic_probe2", 3: "mosaic_probe3",
@@ -55,15 +56,6 @@ INT_ADDS = [v.name for v in sc.VARIANTS
             and not v.rejected]
 
 
-def _load_script(name):
-    spec = importlib.util.spec_from_file_location(
-        name, REPO / "scripts" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _tophat_unavailable(*args, **kwargs):
     raise RuntimeError("full-size tophat not run here")
 
@@ -72,7 +64,7 @@ def _run_probe(n, k, only=None):
     """(printed rows, {variant: (x0, out) or its error message}) of the
     probe's chains of k passes; with ``only``, the other variants' bodies
     are not run (their entries are None)."""
-    mod = _load_script(SCRIPTS[n])
+    mod = load_script(SCRIPTS[n])
     # The timer is called once per chain row, in the table's order (which
     # test_table_names_and_rejections_equal_probe holds to the probe's); a
     # rejected row's body raises in it and keeps nothing.
@@ -238,18 +230,26 @@ def test_probe_path_runs_on_cpu_at_a_small_size():
     that runs agrees, the rejected one prints its error, nothing counts."""
     sc.reset_launches()
     fs.reset_launches()
+    sd.reset_launches()
+    tg.reset_launches()
     rows = mosaic.run("cpu", h=24, w=48, k=4, tophat_t=1,
-                      tophat_hw=(40, 72), dual_t=1)
-    names = [r.get("variant", r.get("stage")) for r in rows]
+                      tophat_hw=(40, 72), dual_t=1,
+                      overlap_shape=(1, 48, 160), overlap_dims=(16, 64, 32))
+    names = [mosaic.row_name(r) for r in rows]
     assert names == [v.name for v in sc.VARIANTS] + [
         "tophat29", "tophat55", "tophat29_bf16", "tophat55_bf16",
-        "tophat29_f32", "separate_29_55", "dual"]
+        "tophat29_f32", "sweeps", "dots", "both", "separate_29_55",
+        "dual"] + list(tg.OPS)
     assert [r["variant"] for r in rows if "error" in r] == [
         "i16_sublane_slice_add_s17"]
-    assert all(r.get("ok", r.get("exact")) for r in rows if "error" not in r)
-    assert rows[-1]["block"] == "n/a"
+    assert all(mosaic.row_ok(r) for r in rows if "error" not in r)
+    assert next(r for r in rows if r.get("stage") == "dual")["block"] == "n/a"
     assert sc.LAUNCHES == {"shift_chain": 0, "shift_chain_2d": 0}
     assert not any(fs.LAUNCHES.values())
+    assert sd.LAUNCHES == {"sweep_dots": 0}
+    assert tg.LAUNCHES == {"tile_gather": 0}
+    assert all(r["launches"] == 0 for r in rows
+               if r.get("kernel") in ("sweep_dots", "tile_gather"))
 
 
 def test_probe_path_needs_cuda(monkeypatch):

@@ -16,10 +16,6 @@ against the twin on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
-import importlib.util
-import pathlib
-import sys
-
 import numpy as np
 import pytest
 import torch
@@ -31,18 +27,9 @@ from tests.conftest import ASSETS_DIR
 
 from lane_tracker_tpu_torch.calib.io import load_calibration_npz
 from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
+from torch_scripts import load_script
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 DST = (256, 96)
-
-
-def _load_script(name):
-    spec = importlib.util.spec_from_file_location(
-        name, REPO / "scripts" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod  # its dataclasses look their module up
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _calib():
@@ -53,7 +40,7 @@ def _calib():
 @pytest.fixture(scope="module")
 def warps():
     """(JAX MxuWarp2, the port's MxuWarp2 on the CPU) at DST."""
-    jw = _load_script("resample_mxu2").MxuWarp2.build(*_calib(), DST)
+    jw = load_script("resample_mxu2").MxuWarp2.build(*_calib(), DST)
     tw = rm.MxuWarp2.build(*_calib(), DST, device="cpu")
     return jw, tw
 

@@ -16,11 +16,8 @@ tests/test_torch_cuda.py and chip_smoke.py.
 
 import contextlib
 import functools
-import importlib.util
 import io
 import json
-import pathlib
-import sys
 
 import numpy as np
 import pytest
@@ -33,22 +30,12 @@ import lane_tracker_tpu.utils.timing as timing
 from lane_tracker_tpu.ops.morphology import tophat_ellipse as j_tophat
 
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
-
-REPO = pathlib.Path(__file__).resolve().parent.parent
-
-
-def _load_script(name):
-    spec = importlib.util.spec_from_file_location(
-        name, REPO / "scripts" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
+from torch_scripts import load_script
 
 
 @pytest.fixture(scope="module")
 def probe5_rows():
-    mod = _load_script("mosaic_probe5")
+    mod = load_script("mosaic_probe5")
     out = io.StringIO()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(mod, "T", 1)
@@ -106,7 +93,7 @@ def test_tophat_staged_rejects_other_types(frame):
 
 @pytest.mark.parametrize("shape", [(2, 72, 96), (2, 77, 101)])
 def test_dual_tophat_twin_equals_build_dual(shape):
-    probe10 = _load_script("mosaic_probe10")
+    probe10 = load_script("mosaic_probe10")
     rng = np.random.default_rng(sum(shape))
     a = rng.integers(0, 256, shape).astype(np.uint8)
     b = rng.integers(100, 200, shape).astype(np.uint8)
