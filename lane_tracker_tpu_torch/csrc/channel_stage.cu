@@ -31,7 +31,7 @@
 //      (the threshold's zero border);
 //   4. int32 exclusive prefix sums of the tophat's row strip and column
 //      strip through the tile, four reads per pixel for the arm sums
-//      (lt::cross_hit, shared with filter_stage.cu's cross threshold);
+//      (lt::cross_hit, common.cuh);
 //   5. with keep: the same prefix strips of the raw plane read with zero
 //      borders, at the noise arm length.
 // Three borders meet in one kernel (255 for the erode, 0 for the dilate, 0

@@ -11,15 +11,15 @@
 //                         and keep, 5x5 elliptical open, packed row prefixes)
 //   lt_merge_open      <- merge_open_pallas2     ((r | b) & keep, the same
 //                         open and prefixes; the second attempt's last stage)
-// Two entries answer the morphology probes' questions with the same tiles:
+// Two entries answer the morphology probes' questions with pow2-pyramid
+// tiles (morph_kernel):
 //   lt_tophat_staged   <- tophat_bf16 of scripts/mosaic_probe5.py (the tophat
 //                         with bf16 or f32 compute scratch): morph_kernel
 //                         staged in bf16 or f32 instead of uint8
 //   lt_dual_tophat     <- build_dual of scripts/mosaic_probe10.py (two
 //                         independent tophats, k=29 on R and k=55 on LAB-B,
 //                         in one kernel): one erode and one dilate launch
-//                         whose CTAs split between the two problems, where
-//                         two lt_tophat calls take four launches
+//                         whose CTAs split between the two problems
 // The open + prefix tail is one host-side launcher (launch_open_prefix)
 // that both merge entries call.  The second attempt's adaptive mean
 // threshold is in adaptive_mean.cu.
@@ -29,26 +29,24 @@
 // Plain C interface, loaded with ctypes: each entry launches on the stream it
 // is given, allocates nothing (the caller passes outputs and scratch) and
 // returns cudaGetLastError().  Images are (T, H, W) uint8, row-major,
-// contiguous.
+// contiguous.  lt_filter_stage_launches counts the kernels launched.
 //
-// What bounds them on the H100: shared-memory reads, not HBM bytes.  Each
-// pass reads its u8 inputs from device memory once and writes once, while
-// a naive stencil would read every pixel up to k*k times from shared
-// memory.
-//   * Morphology: a k x k ellipse is up to k*k taps.  Each block stages a
-//     32x32 tile plus a k/2 halo in shared memory (255 outside the image
-//     for erode, 0 for dilate) and builds a pow2 pyramid of horizontal
-//     window min/max in place, so each SE row costs two shared reads: 2k
-//     reads per pixel instead of ~k*k (110 instead of ~2400 at k=55).
-//   * Cross threshold: the four k-pixel arms come from int32 exclusive
-//     prefix sums of a horizontal and a vertical strip through the tile
-//     (zero outside the image): four reads per pixel at any k.
+// What bounds them on the H100: shared-memory traffic and issue slots, not
+// HBM bytes.  Each kernel reads its u8 inputs from device memory once and
+// writes once, while a naive stencil would read every pixel up to k*k
+// times from shared memory.
+//   * The tophat (tophat_kernel): four pixels a word, one plane of
+//     horizontal window min/max widened in place through the ellipse's
+//     distinct half-widths, erode and dilate in one launch; see its notes.
+//   * The cross threshold (threshold_kernel): running arm sums, row walkers
+//     and column walkers over a tall staged tile; see its notes.
+//   * The 5x5 open of the merge entries (morph_kernel): a 32x32 tile plus
+//     a k/2 halo (255 outside the image for erode, 0 for dilate) with a
+//     pow2 pyramid of horizontal window min/max, two shared reads per SE
+//     row; erode and dilate are two launches.
 //   * Row prefixes: one warp per image row, shuffle scans of 32 columns.
 //   * The merge of lt_merge_open is a grid-stride elementwise pass: HBM
 //     bound, three u8 reads and one write per pixel.
-// Erode and dilate are two launches (the dilate needs the eroded halo);
-// fusing them, fusing the merge into the erode's staging, and fusing the
-// riders into the tophat, is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,13 +59,33 @@
 namespace {
 
 using lt::allow_smem;
-using lt::cross_hit;
 using lt::kTileH;
+using lt::kMaxRuns;
 using lt::kTileW;
 using lt::load_runs;
 using lt::op;
 using lt::SeRuns;
 using lt::tile_grid;
+
+long long g_launches = 0;  // lt_filter_stage_launches
+
+// cudaGetLastError() after a launch, counting the launch if it was taken.
+cudaError_t launched() {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches;
+  return err;
+}
+
+// Whether a kernel may move whole 16-byte quads: W a multiple of 16 and
+// every (non-null) image 16-byte aligned.
+bool aligned16(const void* a, const void* b, const void* c, const void* d,
+               int W) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) |
+                         reinterpret_cast<uintptr_t>(d);
+  return W % 16 == 0 && bits % 16 == 0;
+}
 
 // The type a morphology tile stages its pixels and builds its pyramid in:
 // uint8 (the production kernels), bf16 or f32 (scripts/mosaic_probe5.py's
@@ -192,77 +210,453 @@ __global__ void dual_morph_kernel(const uint8_t* __restrict__ in_a,
                                          nlev_b, z - T, smem_raw);
 }
 
+// ---- Quads: 16 pixels, four u8x4 words, little-endian ----
+
+// The quad of frame row gy at columns [gx, gx + 16), fill outside the
+// image.  vec: W and the frame are 16-byte aligned and gx is a multiple of
+// 16, so a quad lies wholly inside or outside a row: one 16-byte load.
+__device__ __forceinline__ uint4 load_quad(const uint8_t* __restrict__ src,
+                                           int H, int W, int gy, int gx,
+                                           uint32_t fill, bool vec) {
+  const uint32_t f = fill * 0x01010101u;
+  if (gy < 0 || gy >= H || gx >= W || gx + 16 <= 0)
+    return make_uint4(f, f, f, f);
+  const uint8_t* row = src + (size_t)gy * W;
+  if (vec) return *reinterpret_cast<const uint4*>(row + gx);
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w[j] = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int x = gx + 4 * j + b;
+      const uint32_t v = (x >= 0 && x < W) ? row[x] : fill;
+      w[j] |= v << (8 * b);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint32_t quad_word(const uint4& q, int j) {
+  return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+}
+
+// Per-pixel min (erode) or max (dilate) of three words whose pixels ride
+// in the high byte of each 16-bit lane, one DPX instruction
+// (__vimin3_u16x2 / __vimax3_u16x2): the high byte of a lane's min or max
+// is the min or max of the high bytes, whatever the low bytes hold.  A
+// u8x4 word w holds pixels 1 and 3 so ("hi form"); w << 8 holds pixels 0
+// and 2 so ("lo form"), and merge_lanes puts the two results back in
+// order.  On sm_90a a three-way min of u8x4 words with __vminu4 takes two
+// six-instruction emulations; this takes one DPX instruction for each
+// half, a shift for each lo form and one byte permute.
+template <bool kMax>
+__device__ __forceinline__ uint32_t op3_hi(uint32_t a, uint32_t b, uint32_t c) {
+  return kMax ? __vimax3_u16x2(a, b, c) : __vimin3_u16x2(a, b, c);
+}
+
+__device__ __forceinline__ uint32_t merge_lanes(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x7351);  // lo.1, hi.1, lo.3, hi.3
+}
+
+// ---- The tophat (lt_tophat): one launch, the eroded tile in shared memory
+//
+// What bounds it: shared-memory traffic and issue slots.  The design:
+//   * Four pixels a 32-bit word in memory; min/max with Hopper's DPX
+//     three-way __vimin3_u16x2 / __vimax3_u16x2 on two pixels a word (see
+//     op3_hi), shifted words from __funnelshift_r, quads of 16 bytes for
+//     every shared and global load and store.
+//   * The ellipse's rows are symmetric: rows +-d share the half-width
+//     w(d), and w falls as d grows.  So one plane H of horizontal window
+//     min/max, widened in place from half-width 0 to w(0) (a step from h
+//     to h + s is op(H << s, H, H >> s), exact while s <= 2h + 1), serves
+//     every row: after the step that reaches w(d) each output quad folds
+//     in the plane at rows +-d, two aligned quad reads.  k=55 takes 19
+//     steps (its 17 half-widths and two strides on the way), 2r + 1 plane
+//     reads an output quad, where a pyramid of pow2 windows needs two
+//     unaligned reads per SE row.
+//     A step only widens the rows a later gather reads.
+//   * Erode and dilate in one launch: the erode runs over the tile plus an
+//     r halo (input staged with a 2r halo, 255 outside the image), its
+//     result stays in shared memory (0 outside the image: the opening's
+//     dilate pad), the dilate runs from there and the epilogue writes
+//     img - open(img).  The eroded image never goes to HBM.
+//   * Tiles sized for the halo: 64 to 256 columns by up to 256 rows, the
+//     tallest that fits two CTAs an SM, chosen by the host (tophat_plan)
+//     for the frame.
+// Two shared buffers, each the staged tile: the plane is widened from one
+// into the other, one barrier a step.  Reads that run off a row or off
+// the buffer (into a guard) only feed values whose window runs off the
+// staged region, which no output reads.
+
+constexpr int kTopThreads = 512;
+constexpr int kTopMaxQuads = 6;    // accumulator quads a thread holds
+constexpr int kTopMaxSteps = 40;   // widening steps of an odd k <= 63
+constexpr int kTopGuard = 3;       // guard quads before and after a buffer
+constexpr size_t kTopSmemTwo = 110 * 1024;  // two CTAs an SM
+
+struct TophatPlan {
+  int r;    // radius, k / 2
+  int rq;   // the radius rounded up to quads (16 pixels)
+  int tq;   // tile width in quads
+  int th;   // tile height in rows
+  int nsteps;
+  int shift[kTopMaxSteps];  // widening of step j (0 for step 0)
+  int dlo[kTopMaxSteps];    // rows at distances [dlo, dhi] gathered after it
+  int dhi[kTopMaxSteps];
+  int dneed[kTopMaxSteps];  // the largest distance gathered from step j on
+};
+
+// Bytes of the tophat's two buffers (each the staged tile, 2r rows and
+// 2 rq quads of halo a side, plus guards) for a tile of tq quads x th rows.
+size_t tophat_smem(int tq, int th, int r, int rq) {
+  return 2 * 16 * ((size_t)(th + 4 * r) * (tq + 4 * rq) + 2 * kTopGuard);
+}
+
+// Word j of quad 2 of w (quads i - 2 .. i + 2 as 20 words) shifted by T
+// pixels: the four pixels starting T after its own, from two neighbouring
+// words by one funnel shift (-8 <= floor(T / 4) <= 7).
+template <int T>
+__device__ __forceinline__ uint32_t shifted(const uint32_t (&w)[20], int j) {
+  constexpr int Q = (T >= 0 ? T : T - 3) / 4;  // floor(T / 4)
+  constexpr int B = 8 * (T - 4 * Q);
+  return __funnelshift_r(w[8 + j + Q], w[9 + j + Q], B);
+}
+
+// Widen rows of quads [q0, q1): dst = op(src shifted by -S, src, src
+// shifted by +S pixels).  The words of quads i - 2 .. i + 2 are loaded
+// (the compiler drops those S does not reach); S is a template argument
+// so every word index and funnel shift is a constant.  A shift by t pixels
+// gives the hi form of the shifted word, a shift by t - 1 its lo form.
+template <int S, bool kMax>
+__device__ __forceinline__ void widen_quads(const uint4* __restrict__ src,
+                                            uint4* __restrict__ dst, int q0,
+                                            int q1) {
+  for (int i = q0 + threadIdx.x; i < q1; i += kTopThreads) {
+    uint32_t w[20];
+#pragma unroll
+    for (int a = 0; a < 5; ++a) {
+      const uint4 v = src[i - 2 + a];
+      w[4 * a] = v.x;
+      w[4 * a + 1] = v.y;
+      w[4 * a + 2] = v.z;
+      w[4 * a + 3] = v.w;
+    }
+    uint32_t o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t hi = op3_hi<kMax>(w[8 + j], shifted<S>(w, j),
+                                       shifted<-S>(w, j));
+      const uint32_t lo = op3_hi<kMax>(w[8 + j] << 8, shifted<S - 1>(w, j),
+                                       shifted<-S - 1>(w, j));
+      o[j] = merge_lanes(lo, hi);
+    }
+    dst[i] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+template <bool kMax>
+__device__ __forceinline__ void widen(int s, const uint4* src, uint4* dst,
+                                      int q0, int q1) {
+  switch (s) {
+#define LT_WIDEN(S) \
+  case S:           \
+    widen_quads<S, kMax>(src, dst, q0, q1); \
+    break;
+    LT_WIDEN(1) LT_WIDEN(2) LT_WIDEN(3) LT_WIDEN(4) LT_WIDEN(5) LT_WIDEN(6)
+    LT_WIDEN(7) LT_WIDEN(8) LT_WIDEN(9) LT_WIDEN(10) LT_WIDEN(11)
+    LT_WIDEN(12) LT_WIDEN(13) LT_WIDEN(14) LT_WIDEN(15) LT_WIDEN(16)
+    LT_WIDEN(17) LT_WIDEN(18) LT_WIDEN(19) LT_WIDEN(20) LT_WIDEN(21)
+    LT_WIDEN(22) LT_WIDEN(23) LT_WIDEN(24) LT_WIDEN(25) LT_WIDEN(26)
+    LT_WIDEN(27) LT_WIDEN(28) LT_WIDEN(29) LT_WIDEN(30) LT_WIDEN(31)
+#undef LT_WIDEN
+  }
+}
+
+// Fold the plane at rows +-d, d in [dlo, dhi], into each held quad; off[n]
+// is the quad's own row and column in the plane, pitch its row in quads.
+// A quad's accumulator is split into lo and hi forms for the step.
+template <bool kMax>
+__device__ __forceinline__ void gather(const uint4* src, int pitch, int dlo,
+                                       int dhi, const int (&off)[kTopMaxQuads],
+                                       uint4 (&acc)[kTopMaxQuads], int nq) {
+  if (dlo > dhi) return;
+#pragma unroll
+  for (int n = 0; n < kTopMaxQuads; ++n) {
+    if (n >= nq) break;
+    uint32_t hi[4] = {acc[n].x, acc[n].y, acc[n].z, acc[n].w};
+    uint32_t lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) lo[j] = hi[j] << 8;
+    for (int d = dlo; d <= dhi; ++d) {
+      const uint4 a = src[off[n] - d * pitch];
+      const uint4 b = src[off[n] + d * pitch];
+      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        hi[j] = op3_hi<kMax>(hi[j], aw[j], bw[j]);
+        lo[j] = op3_hi<kMax>(lo[j], aw[j] << 8, bw[j] << 8);
+      }
+    }
+    acc[n] = make_uint4(merge_lanes(lo[0], hi[0]), merge_lanes(lo[1], hi[1]),
+                        merge_lanes(lo[2], hi[2]), merge_lanes(lo[3], hi[3]));
+  }
+}
+
+// One morphology pass over the plane in buf0 (nrows_out + 2r rows of
+// `pitch` quads): the held quads' results in acc.  buf1 is scratch; both
+// buffers are overwritten.
+template <bool kMax>
+__device__ __forceinline__ void morph_pass(uint4* buf0, uint4* buf1,
+                                           const TophatPlan& p, int pitch,
+                                           int nrows_out,
+                                           const int (&off)[kTopMaxQuads],
+                                           uint4 (&acc)[kTopMaxQuads],
+                                           int nq) {
+  const uint32_t init = kMax ? 0u : 0xffffffffu;
+#pragma unroll
+  for (int n = 0; n < kTopMaxQuads; ++n)
+    acc[n] = make_uint4(init, init, init, init);
+  gather<kMax>(buf0, pitch, p.dlo[0], p.dhi[0], off, acc, nq);
+  uint4* src = buf0;
+  uint4* dst = buf1;
+  for (int j = 1; j < p.nsteps; ++j) {
+    const int need = p.dneed[j];
+    widen<kMax>(p.shift[j], src, dst, (p.r - need) * pitch,
+                (nrows_out + p.r + need) * pitch);
+    __syncthreads();
+    gather<kMax>(dst, pitch, p.dlo[j], p.dhi[j], off, acc, nq);
+    uint4* t = src;
+    src = dst;
+    dst = t;
+  }
+}
+
+// This thread's quads of a region of `cols` quads a row and `n` quads in
+// all (m = thread + n * threads, row-major), as offsets into a plane of
+// `pitch` quads a row whose row r, quad rq is the region's first.
+__device__ __forceinline__ int held_quads(int n, int cols, int pitch, int r,
+                                          int rq,
+                                          int (&off)[kTopMaxQuads]) {
+  int nq = 0;
+#pragma unroll
+  for (int j = 0; j < kTopMaxQuads; ++j) {
+    const int m = threadIdx.x + j * kTopThreads;
+    const int row = m / cols;
+    off[j] = (row + r) * pitch + (m - row * cols) + rq;
+    if (m < n) nq = j + 1;
+  }
+  return nq;
+}
+
+// Grid: (ceil(W / 16 tq), ceil(H / th), T); kTopThreads threads.
+__global__ void __launch_bounds__(kTopThreads, 2)
+    tophat_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                  int H, int W, bool vec, TophatPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int r = p.r, rq = p.rq, tq = p.tq, th = p.th;
+  const int nqx = tq + 4 * rq, nrx = th + 4 * r;  // staged input
+  const int nqe = tq + 2 * rq, nre = th + 2 * r;  // eroded region
+  uint4* buf0 = reinterpret_cast<uint4*>(smem_raw) + kTopGuard;
+  uint4* buf1 = buf0 + (size_t)nrx * nqx + 2 * kTopGuard;
+  const int x0 = blockIdx.x * tq * 16;
+  const int y0 = blockIdx.y * th;
+  const size_t frame = (size_t)blockIdx.z * H * W;
+
+  for (int i = threadIdx.x; i < nrx * nqx; i += kTopThreads) {
+    const int row = i / nqx;
+    buf0[i] = load_quad(in + frame, H, W, y0 - 2 * r + row,
+                        x0 - 32 * rq + 16 * (i - row * nqx), 255u, vec);
+  }
+  __syncthreads();
+  int off[kTopMaxQuads];
+  uint4 acc[kTopMaxQuads];
+  int nq = held_quads(nre * nqe, nqe, nqx, r, rq, off);
+  morph_pass<false>(buf0, buf1, p, nqx, nre, off, acc, nq);
+  __syncthreads();
+  // The eroded region into buf0, rows of nqe quads, 0 outside the image.
+#pragma unroll
+  for (int j = 0; j < kTopMaxQuads; ++j) {
+    if (j >= nq) break;
+    const int m = threadIdx.x + j * kTopThreads;
+    const int row = m / nqe;
+    const int gy = y0 - r + row;
+    const int gx = x0 - 16 * rq + 16 * (m - row * nqe);
+    uint4 e = acc[j];
+    if (gy < 0 || gy >= H || gx >= W || gx + 16 <= 0) {
+      e = make_uint4(0, 0, 0, 0);
+    } else if (gx < 0 || gx + 16 > W) {
+      uint32_t w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        w[q] = quad_word(e, q);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int x = gx + 4 * q + b;
+          if (x < 0 || x >= W) w[q] &= ~(0xffu << (8 * b));
+        }
+      }
+      e = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    buf0[m] = e;
+  }
+  __syncthreads();
+  nq = held_quads(th * tq, tq, nqe, r, rq, off);
+  morph_pass<true>(buf0, buf1, p, nqe, th, off, acc, nq);
+  // out = img - open(img): bytewise with no borrow, as open <= img.
+#pragma unroll
+  for (int j = 0; j < kTopMaxQuads; ++j) {
+    if (j >= nq) break;
+    const int m = threadIdx.x + j * kTopThreads;
+    const int row = m / tq;
+    const int gy = y0 + row;
+    const int gx = x0 + 16 * (m - row * tq);
+    if (gy >= H || gx >= W) continue;
+    const uint4 x = load_quad(in + frame, H, W, gy, gx, 0u, vec);
+    const uint4& d = acc[j];
+    const uint4 o = make_uint4(x.x - d.x, x.y - d.y, x.z - d.z, x.w - d.w);
+    uint8_t* dst = out + frame + (size_t)gy * W + gx;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = o;
+    } else {
+      for (int b = 0; b < 16 && gx + b < W; ++b)
+        dst[b] = (uint8_t)(quad_word(o, b / 4) >> (8 * (b % 4)));
+    }
+  }
+}
+
+// ---- The cross threshold (lt_cross_threshold, lt_thr_merge_open) ----
+//
 // Bilateral cross threshold, mode 'floor': hit iff both horizontal k-arm
 // sums < k*x - C*k or both vertical ones are; arms exclude the pixel and
 // read 0 outside the image.  noise_thresh >= 0 gives the keep-mask
 // (x < noise_thresh) | hit.  Non-null merge_r / keep give the merge
 // epilogue ((merge_r | hit) & keep).  Output 0/255.
-__global__ void cross_threshold_kernel(const uint8_t* __restrict__ in,
-                                       const uint8_t* __restrict__ merge_r,
-                                       const uint8_t* __restrict__ keep,
-                                       uint8_t* __restrict__ out, int H, int W,
-                                       int k, int C, int noise_thresh) {
-  extern __shared__ int strips[];
-  const int hw = kTileW + 2 * k + 1;  // odd: conflict-free row scans
-  const int vh = kTileH + 2 * k + 1;
-  int* hs = strips;                // kTileH rows x hw: row prefixes
-  int* vs = strips + kTileH * hw;  // vh rows x kTileW: column prefixes
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const size_t frame = (size_t)blockIdx.z * H * W;
-  const uint8_t* src = in + frame;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
+//
+// What bounds it: shared-memory reads and issue slots (its HBM traffic is
+// one read of the input and one write).  The design: a CTA stages a
+// 128 x 128 tile with a k-row and kx-column halo (kx = k rounded up to 16)
+// as bytes, zero outside the image, with 16-byte global loads; a tall tile
+// reads the vertical halo once for 128 rows.  Then every thread walks:
+//   * row walkers, two a row (64 columns each), keep the left and right
+//     arm sums, adding the entering pixel and subtracting the leaving one,
+//     and leave the horizontal hits as bits;
+//   * column walkers, two a column (64 rows each), do the same with the up
+//     and down arms, or in the row's bit, and write the output.
+// Three shared byte reads a pixel in each walk (2k more to start a walk),
+// all 256 threads busy; rows are an odd number of words apart, so the row
+// walkers' reads meet no bank twice.
 
-  // Slot 0 of each strip is the leading zero of the exclusive prefix;
-  // slot 1 + j holds the pixel k columns (rows) before the tile plus j.
-  for (int i = tid; i < kTileH * hw; i += nthr) {
-    const int ly = i / hw;
-    const int j = i - ly * hw;
-    const int gy = y0 + ly;
-    const int gx = x0 - k + j - 1;
-    hs[i] = (j > 0 && gy < H && gx >= 0 && gx < W) ? src[(size_t)gy * W + gx]
-                                                   : 0;
-  }
-  for (int i = tid; i < vh * kTileW; i += nthr) {
-    const int j = i / kTileW;
-    const int lx = i - j * kTileW;
-    const int gy = y0 - k + j - 1;
-    const int gx = x0 + lx;
-    vs[i] = (j > 0 && gy >= 0 && gy < H && gx < W) ? src[(size_t)gy * W + gx]
-                                                   : 0;
+constexpr int kThrTW = 128;
+constexpr int kThrTH = 128;
+constexpr int kThrThreads = 256;
+constexpr int kThrSeg = 64;         // pixels a walker covers
+constexpr int kThrBitsPitch = 5;    // words a row of horizontal hits (odd)
+static_assert(kThrTH * (kThrTW / kThrSeg) == kThrThreads, "row walkers");
+static_assert(kThrTW * (kThrTH / kThrSeg) == kThrThreads, "column walkers");
+
+// Strip bytes: (kThrTH + 2k) rows of pitch bytes, pitch an odd number of
+// words; then the hit bits.
+__host__ __device__ inline int thr_pitch(int k) {
+  return 4 * ((kThrTW + 2 * ((k + 15) / 16 * 16)) / 4 + 1);
+}
+
+inline size_t thr_smem(int k) {
+  return (size_t)(kThrTH + 2 * k) * thr_pitch(k) +
+         4 * kThrTH * kThrBitsPitch;
+}
+
+// Grid: (ceil(W / 128), ceil(H / 128), T); kThrThreads threads.
+__global__ void __launch_bounds__(kThrThreads)
+    threshold_kernel(const uint8_t* __restrict__ in,
+                     const uint8_t* __restrict__ merge_r,
+                     const uint8_t* __restrict__ keep,
+                     uint8_t* __restrict__ out, int H, int W, int k, int C,
+                     int noise_thresh, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kx = (k + 15) / 16 * 16;
+  const int pb = thr_pitch(k);
+  const int nrs = kThrTH + 2 * k;
+  const int nq = (kThrTW + 2 * kx) / 16;  // quads a strip row
+  uint32_t* s32 = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* hbits = s32 + (size_t)nrs * pb / 4;
+  const int x0 = blockIdx.x * kThrTW;
+  const int y0 = blockIdx.y * kThrTH;
+  const size_t frame = (size_t)blockIdx.z * H * W;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < nrs * nq; i += kThrThreads) {
+    const int row = i / nq;
+    const int q = i - row * nq;
+    const uint4 v =
+        load_quad(in + frame, H, W, y0 - k + row, x0 - kx + 16 * q, 0u, vec);
+    uint32_t* dst = s32 + row * (pb / 4) + 4 * q;
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
   }
   __syncthreads();
-  if (tid < kTileH) {
-    int* row = hs + tid * hw;
-    int s = 0;
-    for (int j = 0; j < hw; ++j) {
-      s += row[j];
-      row[j] = s;
+  const int t_off = C * k;
+  {
+    // Row walker: tile row `row`, columns [xs, xs + kThrSeg).
+    const int row = tid % kThrTH;
+    const int xs = tid / kThrTH * kThrSeg;
+    const uint8_t* rp = smem_raw + (size_t)(k + row) * pb + kx;
+    int left = 0, right = 0;
+#pragma unroll 4
+    for (int j = 1; j <= k; ++j) {
+      left += rp[xs - j];
+      right += rp[xs + j];
     }
-  } else if (tid >= 32 && tid < 32 + kTileW) {
-    const int lx = tid - 32;
-    int s = 0;
-    for (int j = 0; j < vh; ++j) {
-      s += vs[j * kTileW + lx];
-      vs[j * kTileW + lx] = s;
+    uint32_t bits = 0;
+#pragma unroll 8
+    for (int x = xs; x < xs + kThrSeg; ++x) {
+      const int v = rp[x];
+      const int t = k * v - t_off;
+      bits |= (uint32_t)(left < t && right < t) << (x & 31);
+      if ((x & 31) == 31) {
+        hbits[row * kThrBitsPitch + (x >> 5)] = bits;
+        bits = 0;
+      }
+      // The last slide reads at most the row's pad word: not used.
+      left += v - rp[x - k];
+      right += rp[x + k + 1] - rp[x + 1];
     }
   }
   __syncthreads();
-  for (int i = tid; i < kTileW * kTileH; i += nthr) {
-    const int ly = i / kTileW;
-    const int lx = i - ly * kTileW;
-    const int gy = y0 + ly;
-    const int gx = x0 + lx;
-    if (gy >= H || gx >= W) continue;
-    const int* h = hs + ly * hw + lx;
-    const int x = h[k + 1] - h[k];
-    bool hit = cross_hit(h, vs + ly * kTileW + lx, kTileW, k, x, C);
-    if (noise_thresh >= 0) hit = hit || x < noise_thresh;
-    const size_t o = frame + (size_t)gy * W + gx;
-    if (merge_r != nullptr) hit = hit || merge_r[o] != 0;
-    if (keep != nullptr) hit = hit && keep[o] != 0;
-    out[o] = hit ? 255 : 0;
+  {
+    // Column walker: tile column c, rows [ys, ys + kThrSeg).
+    const int c = tid % kThrTW;
+    const int ys = tid / kThrTW * kThrSeg;
+    const uint8_t* cp = smem_raw + kx + c;  // cp[y * pb]: strip row y
+    int up = 0, down = 0;
+#pragma unroll 4
+    for (int j = 1; j <= k; ++j) {
+      up += cp[(size_t)(k + ys - j) * pb];
+      down += cp[(size_t)(k + ys + j) * pb];
+    }
+    const int gx = x0 + c;
+#pragma unroll 8
+    for (int y = ys; y < ys + kThrSeg; ++y) {
+      const int v = cp[(size_t)(k + y) * pb];
+      const int t = k * v - t_off;
+      bool hit = (up < t && down < t) ||
+                 ((hbits[y * kThrBitsPitch + (c >> 5)] >> (c & 31)) & 1u);
+      if (noise_thresh >= 0) hit = hit || v < noise_thresh;
+      const int gy = y0 + y;
+      if (gy < H && gx < W) {
+        const size_t o = frame + (size_t)gy * W + gx;
+        if (merge_r != nullptr) hit = hit || merge_r[o] != 0;
+        if (keep != nullptr) hit = hit && keep[o] != 0;
+        out[o] = hit ? 255 : 0;
+      }
+      // The last slide reads at most one row past the strip (the hit
+      // bits): not used.
+      up += v - cp[(size_t)y * pb];
+      down += cp[(size_t)(2 * k + y + 1) * pb] - cp[(size_t)(k + y + 1) * pb];
+    }
   }
 }
 
@@ -325,7 +719,7 @@ cudaError_t launch_morph(const uint8_t* in, const uint8_t* sub_src,
   morph_kernel<S, kMax, kSubtract><<<tile_grid(T, H, W), dim3(32, 8), smem,
                                      stream>>>(
       in, sub_src, out, H, W, runs, ksize / 2, pyramid_levels(runs));
-  return cudaGetLastError();
+  return launched();
 }
 
 // out = img - open(img), staged in S: an erode launch and a dilate launch.
@@ -354,20 +748,121 @@ cudaError_t launch_dual_morph(const uint8_t* in_a, const uint8_t* in_b,
   dual_morph_kernel<kMax, kSubtract><<<grid, dim3(32, 8), smem, s>>>(
       in_a, in_b, sub_a, sub_b, out_a, out_b, T, H, W, se_a, se_b, ka / 2,
       kb / 2, pyramid_levels(se_a), pyramid_levels(se_b));
-  return cudaGetLastError();
+  return launched();
 }
 
 cudaError_t launch_threshold(const uint8_t* in, const uint8_t* merge_r,
                              const uint8_t* keep, uint8_t* out, int T, int H,
                              int W, int k, int C, int noise_thresh,
                              cudaStream_t stream) {
-  const size_t smem = sizeof(int) * ((size_t)kTileH * (kTileW + 2 * k + 1) +
-                                     (size_t)(kTileH + 2 * k + 1) * kTileW);
-  cudaError_t err = allow_smem(cross_threshold_kernel, smem);
+  const size_t smem = thr_smem(k);
+  cudaError_t err = allow_smem(threshold_kernel, smem);
   if (err != cudaSuccess) return err;
-  cross_threshold_kernel<<<tile_grid(T, H, W), dim3(32, 8), smem, stream>>>(
-      in, merge_r, keep, out, H, W, k, C, noise_thresh);
-  return cudaGetLastError();
+  const dim3 grid((W + kThrTW - 1) / kThrTW, (H + kThrTH - 1) / kThrTH, T);
+  threshold_kernel<<<grid, kThrThreads, smem, stream>>>(
+      in, merge_r, keep, out, H, W, k, C, noise_thresh,
+      aligned16(in, out, merge_r, keep, W));
+  return launched();
+}
+
+// The tophat's plan for an odd ksize whose runs are symmetric (rows +-d
+// span [-w(d), w(d)], w falling as d grows), and its tiles for an H x W
+// frame; -1 if the runs are not so or the plan does not fit.  The steps
+// widen the plane from half-width 0 through every w(d) in turn, by at most
+// 2h + 1 from half-width h; tests/torch_filter_models.py's tophat_steps
+// is the same plan.
+int tophat_plan(const SeRuns& se, int ksize, int H, int W, TophatPlan* p) {
+  const int r = ksize / 2;
+  if (ksize % 2 == 0 || se.n != ksize) return -1;
+  int w[kMaxRuns];
+  for (int q = 0; q < se.n; ++q) {
+    if (se.dy[q] != q - r || se.lo[q] != -se.hi[q] ||
+        se.hi[q] != se.hi[se.n - 1 - q] || se.hi[q] < 0 || se.hi[q] > r)
+      return -1;
+  }
+  for (int d = 0; d <= r; ++d) {
+    w[d] = se.hi[r + d];
+    if (d > 0 && w[d] > w[d - 1]) return -1;
+  }
+  p->r = r;
+  p->rq = (r + 15) / 16;
+  int n = 0;
+  auto add = [&](int s, int u) {
+    p->shift[n] = s;
+    p->dlo[n] = 1;
+    p->dhi[n] = 0;
+    for (int d = 0; d <= r; ++d) {
+      if (w[d] != u) continue;
+      if (p->dlo[n] > p->dhi[n]) p->dlo[n] = d;
+      p->dhi[n] = d;
+    }
+    ++n;
+  };
+  add(0, 0);
+  int cur = 0;
+  for (int u = 1; u <= r; ++u) {
+    bool present = false;
+    for (int d = 0; d <= r; ++d) present = present || w[d] == u;
+    while (present && cur < u) {
+      if (n >= kTopMaxSteps) return -1;
+      const int s = u - cur < 2 * cur + 1 ? u - cur : 2 * cur + 1;
+      cur += s;
+      add(s, cur == u ? u : -1);
+    }
+  }
+  p->nsteps = n;
+  int need = -1;
+  for (int j = n - 1; j >= 0; --j) {
+    if (p->dlo[j] <= p->dhi[j] && p->dhi[j] > need) need = p->dhi[j];
+    p->dneed[j] = need;
+  }
+  // Tiles: of 64, 128, 192 or 256 columns, each with the tallest height
+  // (a multiple of 8, at most 256 and the frame's) whose buffers fit two
+  // CTAs an SM and whose quads the threads can hold (for every odd k up
+  // to 63 some height does); the one whose frame costs the fewest
+  // shared-memory quad accesses (an estimate of the widening steps' and
+  // the gathers').
+  long long best = -1;
+  const int hmax = (H + 7) / 8 * 8 < 256 ? (H + 7) / 8 * 8 : 256;
+  for (int tq = 4; tq <= 16; tq += 4) {
+    const long long nqx = tq + 4 * p->rq, nqe = tq + 2 * p->rq;
+    int th = 0;
+    for (int h = 8; h <= hmax; h += 8) {
+      if (tophat_smem(tq, h, r, p->rq) <= kTopSmemTwo &&
+          (h + 2 * r) * nqe <= kTopMaxQuads * kTopThreads &&
+          h * tq <= kTopMaxQuads * kTopThreads)
+        th = h;
+    }
+    if (th == 0) continue;
+    const long long rows_x = th + 4 * r, rows_e = th + 2 * r;
+    const long long tile = 6LL * n * (rows_x * nqx + rows_e * nqe) +
+                           2LL * (2 * r + 1) * (rows_e * nqe + th * tq) +
+                           rows_x * nqx;
+    const long long cost =
+        tile * ((H + th - 1) / th) * ((W + 16 * tq - 1) / (16 * tq));
+    if (best < 0 || cost < best) {
+      best = cost;
+      p->tq = tq;
+      p->th = th;
+    }
+  }
+  return best < 0 ? -1 : 0;
+}
+
+// img - open(img): one launch of tophat_kernel.
+cudaError_t launch_tophat_fused(const uint8_t* in, uint8_t* out,
+                                const SeRuns& se, int ksize, int T, int H,
+                                int W, cudaStream_t stream) {
+  TophatPlan p;
+  if (tophat_plan(se, ksize, H, W, &p) != 0) return cudaErrorInvalidValue;
+  const size_t smem = tophat_smem(p.tq, p.th, p.r, p.rq);
+  cudaError_t err = allow_smem(tophat_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + 16 * p.tq - 1) / (16 * p.tq), (H + p.th - 1) / p.th,
+                  T);
+  tophat_kernel<<<grid, kTopThreads, smem, stream>>>(
+      in, out, H, W, aligned16(in, out, nullptr, nullptr, W), p);
+  return launched();
 }
 
 // The tail both merge entries share: binary = open(merged) with the
@@ -389,30 +884,33 @@ cudaError_t launch_open_prefix(const uint8_t* merged, uint8_t* eroded,
   const int threads = 256;
   const int blocks = (n_rows * 32 + threads - 1) / threads;
   row_prefix_kernel<<<blocks, threads, 0, s>>>(bin, pref, n_rows, W, shift);
-  return cudaGetLastError();
+  return launched();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Kernel launches the entries below have made since the library was
+// loaded (each launcher adds one per kernel it launches): a caller reads it
+// before and after a call to count that call's launches.
+long long lt_filter_stage_launches(void) { return g_launches; }
+
 // out = img - open(img) with the ellipse SE whose runs are in `runs`
-// (n rows of int32 (dy, lo, hi), a host array).  scratch holds the
-// eroded image.
+// (n rows of int32 (dy, lo, hi), a host array): one launch of
+// tophat_kernel.  ksize odd, the runs symmetric (OpenCV's ellipse), at most
+// kMaxRuns rows.  scratch is not used (the eroded image stays in shared
+// memory); the argument keeps the entry's interface.
 int lt_tophat(const void* img, void* out, void* scratch, const void* runs,
               int n_runs, int ksize, int T, int H, int W, void* stream) {
+  (void)scratch;
   SeRuns se;
   if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
       ksize < 1 || T < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* x = static_cast<const uint8_t*>(img);
-  uint8_t* e = static_cast<uint8_t*>(scratch);
-  cudaError_t err =
-      launch_morph<false, false>(x, nullptr, e, se, ksize, T, H, W, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_morph<true, true>(e, x, static_cast<uint8_t*>(out), se,
-                                       ksize, T, H, W, s);
+  return (int)launch_tophat_fused(static_cast<const uint8_t*>(img),
+                                  static_cast<uint8_t*>(out), se, ksize, T, H,
+                                  W, static_cast<cudaStream_t>(stream));
 }
 
 // lt_tophat with the tiles staged, and their pyramids built, in another
@@ -516,7 +1014,7 @@ int lt_merge_open(const void* r_th, const void* b_th, const void* keep,
   merge_kernel<<<blocks, threads, 0, s>>>(
       static_cast<const uint8_t*>(r_th), static_cast<const uint8_t*>(b_th),
       static_cast<const uint8_t*>(keep), merged, n);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launched();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_open_prefix(merged, static_cast<uint8_t*>(scratch1),
                                  static_cast<uint8_t*>(out),

@@ -59,7 +59,10 @@ SIGNATURES = {
     "lt_sweep_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P),
     "lt_tile_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "lt_filter_stage_launches": (),
 }
+# Entries that return something else than an int error code.
+RESTYPES = {"lt_filter_stage_launches": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:
@@ -128,5 +131,5 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib

@@ -15,7 +15,7 @@ Replaced TPU kernels (lane_tracker_tpu/kernels/filter_stage2.py), attempt 1:
   bilateral cross threshold per rider, each on its own input).  The TPU
   kernel fuses the riders to hide their MXU band matmuls under the tophat's
   VPU sweeps; here the riders are separate launches of the cross-threshold
-  kernel, which reads four prefix-sum entries per pixel at any arm length.
+  kernel, which keeps running arm sums at any arm length.
 * ``thr_merge_open``  <- ``thr_merge_open_pallas2`` (B cross threshold,
   (R | B) & keep, 5x5 elliptical open, packed row prefixes).
 
@@ -39,13 +39,17 @@ tracker runs neither):
   exact in all three, so the twin is ``tophat_ellipse_plain``.
 * ``dual_tophat`` <- ``build_dual``'s ``run`` of scripts/mosaic_probe10.py
   (two independent tophats in one kernel): one erode and one dilate launch
-  whose CTAs split between the two problems, against the four launches of
-  two ``tophat_ellipse`` calls.
+  of pow2-pyramid tiles, whose CTAs split between the two problems,
+  against the two launches of two ``tophat_ellipse`` calls.
 
 Bounds on the H100 and what the design does about them are noted at the
-top of each source: the kernels are shared-memory bound, so the
-morphology reads two entries of a pow2 window pyramid per SE row and the
-thresholds read prefix sums or an integral image.
+top of each source: the kernels are shared-memory and issue bound.  The
+tophat keeps four pixels a word (min/max by Hopper's DPX on two 16-bit
+lanes) and widens one plane of window min/max through the ellipse's
+distinct half-widths, erode and dilate in one launch; the threshold keeps
+running arm sums; the 5x5 open reads a pow2 window pyramid; the adaptive
+mean reads an integral image.
+``kernel_launches()`` reads the library's own count of kernel launches.
 """
 
 from __future__ import annotations
@@ -101,6 +105,14 @@ STAGING = {torch.bfloat16: 1, torch.float32: 2}
 # Shared memory of the adaptive-mean kernel's (32 + k)^2 int32 integral
 # image must fit the 227 KB a block can take on the H100.
 ADAPTIVE_MEAN_MAX_K = 209
+# The tophat kernel takes odd k (OpenCV's ellipse is then symmetric about
+# its centre row) with at most 64 SE rows (csrc/common.cuh kMaxRuns), in
+# at most 40 widening steps (kTopMaxSteps); the threshold kernel's staged
+# tile, (128 + 2k) rows of 128 + 2 round16(k) bytes, fits the 227 KB a
+# block can take up to k = 128.
+TOPHAT_MAX_K = 63
+TOPHAT_MAX_STEPS = 40
+THRESHOLD_MAX_K = 128
 LAUNCHES = {name: 0 for name in REPLACES}
 
 
@@ -139,6 +151,29 @@ def _runs_table(ksize: int) -> np.ndarray:
                       dtype=np.int32)
 
 
+def kernel_launches() -> int:
+    """Kernel launches the library's filter-stage entries have made so
+    far (the C launchers count them): the difference over a call is the
+    call's launches, with no profiler."""
+    return int(load_library().lt_filter_stage_launches())
+
+
+def _tophat_k(ksize) -> int:
+    k = int(ksize)
+    if k % 2 != 1 or not 1 <= k <= TOPHAT_MAX_K:
+        raise ValueError(f"the tophat kernel needs an odd ksize in "
+                         f"[1, {TOPHAT_MAX_K}], got {ksize}")
+    return k
+
+
+def _threshold_k(ksize) -> int:
+    k = int(ksize)
+    if not 1 <= k <= THRESHOLD_MAX_K:
+        raise ValueError(f"the cross-threshold kernel needs a ksize in "
+                         f"[1, {THRESHOLD_MAX_K}], got {ksize}")
+    return k
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -149,13 +184,14 @@ def _check(rc: int, name: str) -> None:
 
 
 def _launch_tophat(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """One launch of the tophat kernel (its scratch argument unused: the
+    eroded image stays in shared memory)."""
     T, H, W = img.shape
     out = torch.empty_like(img)
-    scratch = torch.empty_like(img)
     runs = _runs_table(int(ksize))
     _check(load_library().lt_tophat(
-        img.data_ptr(), out.data_ptr(), scratch.data_ptr(), runs.ctypes.data,
-        len(runs), int(ksize), T, H, W, _stream()), "lt_tophat")
+        img.data_ptr(), out.data_ptr(), None, runs.ctypes.data, len(runs),
+        int(ksize), T, H, W, _stream()), "lt_tophat")
     return out
 
 
@@ -187,7 +223,9 @@ def tophat_ellipse_plain(img: torch.Tensor, ksize: int) -> torch.Tensor:
 
 
 def tophat_ellipse(img: torch.Tensor, ksize: int) -> torch.Tensor:
-    """White tophat img - open(img) with OpenCV's ksize x ksize ellipse."""
+    """White tophat img - open(img) with OpenCV's ksize x ksize ellipse;
+    ksize odd, at most TOPHAT_MAX_K."""
+    ksize = _tophat_k(ksize)
     if not _on_cuda(img):
         return tophat_ellipse_plain(img, ksize)
     out = _launch_tophat(img, ksize)
@@ -265,7 +303,10 @@ def tophat_riders(img: torch.Tensor, ksize: int, riders) -> tuple:
     """``(tophat(img), thr(src_0), ..., thr(src_n-1))`` for riders
     ``(src, k, C, noise_thresh)``: each a bilateral cross threshold of its
     own input (noise_thresh = -1), or with ``noise_thresh >= 0`` the noise
-    keep-mask ``(src < noise_thresh) | thr(src)``."""
+    keep-mask ``(src < noise_thresh) | thr(src)``.  ksize as
+    ``tophat_ellipse``'s, each rider's k at most THRESHOLD_MAX_K."""
+    ksize = _tophat_k(ksize)
+    riders = [(src, _threshold_k(k), C, nt) for src, k, C, nt in riders]
     if not _on_cuda(img, *(r[0] for r in riders)):
         return tophat_riders_plain(img, ksize, riders)
     outs = (_launch_tophat(img, ksize),
@@ -288,7 +329,9 @@ def thr_merge_open(r_th: torch.Tensor, b_feat: torch.Tensor, kb: int,
                    open_k: int = 5):
     """open_k ellipse opening of ``((r_th | thr(b_feat, kb, Cb)) & keep)``
     as 0/255, plus its packed exclusive row prefixes (T, H, W + 1) int32
-    with ``shift = (W + 1).bit_length()``.  Returns (binary, RowPrefixes)."""
+    with ``shift = (W + 1).bit_length()``.  Returns (binary, RowPrefixes).
+    kb at most THRESHOLD_MAX_K."""
+    kb = _threshold_k(kb)
     imgs = (r_th, b_feat) if keep is None else (r_th, b_feat, keep)
     if not _on_cuda(*imgs):
         return thr_merge_open_plain(r_th, b_feat, kb, Cb, keep, open_k)
@@ -377,7 +420,8 @@ def bilateral_threshold(img: torch.Tensor, ksize: int, C: int,
                         noise_thresh: int = -1) -> torch.Tensor:
     """Bilateral cross threshold (mode 'floor') of img, or with
     ``noise_thresh >= 0`` the noise keep-mask ``(img < noise_thresh) |
-    thr(img)``, as 0/255."""
+    thr(img)``, as 0/255; ksize at most THRESHOLD_MAX_K."""
+    ksize = _threshold_k(ksize)
     if not _on_cuda(img):
         return bilateral_threshold_plain(img, ksize, C, noise_thresh)
     out = _launch_threshold(img, ksize, C, noise_thresh)

@@ -89,17 +89,25 @@ class ResampleGrid(nn.Module):
 
 
 def _fma(p: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``p * w + c`` for uint8 taps ``p``, float64-held f32 weights ``w``
-    and an f32 partial sum ``c``, computed in float64 and rounded to f32.
+    """``fma(p, w, c)``: the correctly rounded f32 of the exact ``p*w + c``
+    for uint8 taps ``p``, float64-held f32 weights ``w`` and an f32
+    partial sum ``c``, on any device.
 
-    The product (8 by 24 significant bits) is exact in float64.  The sum
-    is exact, so the result is one f32 rounding as in a true fma, whenever
-    the two addends' bits span at most 53 places; otherwise it rounds in
-    float64 first, and that double rounding can differ from a true fma in
-    the last f32 place.  Bit-exactness with the reference is checked on
-    the four stills (tests/test_torch_color_warp.py), not proven for
-    every grid."""
-    return (p.double() * w + c.double()).float()
+    The product (8 by 24 significant bits) is exact in float64.  The
+    float64 sum ``s`` and its TwoSum residual ``e`` give the exact sum
+    ``s + e``; rounding it to odd (step ``s`` one place toward zero where
+    ``e`` has the opposite sign, then set its last bit where ``e != 0``)
+    gives a float64 whose rounding to nearest f32 equals the rounding of
+    the exact sum, because 53 >= 24 + 2 (round-to-odd at two or more extra
+    bits never turns into a tie, nor moves off one).  So this is one f32
+    rounding, as a true fma, for every input."""
+    a = p * w  # uint8 * float64: exact
+    s = a + c  # c promotes to float64 exactly
+    bb = s - a
+    e = (a - (s - bb)).add_(c - bb)
+    # e and s of opposite signs: the exact sum lies below s in magnitude.
+    bits = s.view(torch.int64).sub_((e * s < 0).long())
+    return bits.bitwise_or_((e != 0).long()).view(torch.float64).float()
 
 
 def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
@@ -116,7 +124,7 @@ def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
     ws = [w[:, None] for w in (grid.w00, grid.w01, grid.w10, grid.w11)]
     if grid.is_float:
         # The f32 product p01 * w01: exact in float64, rounded once.
-        acc = (p01.double() * ws[1]).float()
+        acc = (p01 * ws[1]).float()
         for p, w in ((p00, ws[0]), (p10, ws[2]), (p11, ws[3])):
             acc = _fma(p, w, acc)
         return torch.round(acc).clamp_(0, 255).to(torch.uint8)

@@ -25,33 +25,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_trace(fn, calls: int = 1) -> list:
-    """(name, device microseconds) of each CUDA kernel that ``calls`` calls
-    of ``fn`` launch, in order, from a torch.profiler trace (kernels
-    launched through ctypes included).  Once a process has launched many
-    kernels outside any trace, a trace can miss some of its kernels (on an
-    H100: 6 of 10 after a minute of launches), so a count from it is a
-    floor; ``queued_ms`` times short kernels without it."""
-    import json
-    import pathlib
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    return [(ev["name"], ev["dur"]) for ev in events
-            if ev.get("cat") == "kernel"]
-
-
 def queued_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call of ``fn`` over ``reps`` calls that
     the host queues behind a spin kernel (``torch.cuda._sleep``), so that

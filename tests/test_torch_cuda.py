@@ -13,6 +13,12 @@ multiples of the tiles; the integer decision traces of the stills chunk
 and of the fail16 chunk (every 16th frame black, so the second attempt
 runs) on the card equal the CPU run's.  The fused channel stage also
 equals the unfused kernels, at tile heights from 1 row to the tallest.
+The redesigned tophat (k = 1, 3, 5, 29, 55, 63) and cross threshold (k =
+1, 15, 35, 65, plain, with the noise mask, through the merge epilogue and
+as riders) equal their twins on ragged shapes (W = 1, 3, 5, 67, 673 and
+672, H below k, T = 1 and 64, data off 16-byte alignment), give the same
+bits twice, and launch as many kernels as the library's launchers count;
+too large a k is refused before any launch.
 The morphology probes' kernels (every runnable shift-chain variant, the
 staged tophat in uint8, bf16 and f32 at k=29 and k=55, the dual tophat)
 equal their twins exactly, at full size and on ragged blocks, with rolls
@@ -186,6 +192,102 @@ def test_fail16_chunk_on_card_equals_cpu(setup):
     assert launches == {name: 0 for name in fs.REPLACES} | {
         name: 1 for name in ATTEMPT1} | {"adaptive_mean": 2,
                                          "merge_open": 1}
+
+
+# ---- the redesigned tophat and cross threshold on ragged shapes ----
+
+# (T, H, W): W = 1, 3, 5, 67, 673 (no multiple of 4 or 16: the kernels'
+# byte paths), H below every large k, T = 1 and 64; 672 (the corridor's
+# width) takes the 16-byte path.
+RAGGED_SHAPES = [(1, 20, 1), (64, 9, 3), (1, 50, 5), (64, 21, 67),
+                 (1, 40, 673), (2, 37, 672)]
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose data starts one byte past a
+    16-byte boundary (the kernels' byte path even when W % 16 == 0)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
+def _counted(fn):
+    """(fn's result, the kernel launches it made, read from the library's
+    own counter)."""
+    n0 = fs.kernel_launches()
+    out = fn()
+    return out, fs.kernel_launches() - n0
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 29, 55, 63])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_tophat_equals_twin_on_ragged_shapes(cuda, shape, k):
+    img = _stripes(shape, sum(shape) + k)
+    want = fs.tophat_ellipse_plain(img, k)
+    x = img.to(cuda)
+    got, n = _counted(lambda: fs.tophat_ellipse(x, k))
+    assert n == 1
+    _same(got.cpu(), want)
+    _same(fs.tophat_ellipse(x, k), got)  # the same bits again
+    _same(fs.tophat_ellipse(_misaligned(x), k), got)
+
+
+@pytest.mark.parametrize("k", [1, 15, 35, 65])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_threshold_equals_twin_on_ragged_shapes(cuda, shape, k):
+    img = _stripes(shape, sum(shape) * k)
+    g = torch.Generator().manual_seed(k)
+    r_th = (torch.rand(shape, generator=g) < 0.1).to(torch.uint8) * 255
+    keep = (torch.rand(shape, generator=g) < 0.9).to(torch.uint8) * 255
+    x, r_g, keep_g = img.to(cuda), r_th.to(cuda), keep.to(cuda)
+    for nt in (-1, 140):
+        want = fs.bilateral_threshold_plain(img, k, 5, nt)
+        got, n = _counted(lambda: fs.bilateral_threshold(x, k, 5, nt))
+        assert n == 1
+        _same(got.cpu(), want)
+        _same(fs.bilateral_threshold(x, k, 5, nt), got)
+        _same(fs.bilateral_threshold(_misaligned(x), k, 5, nt), got)
+    for kp, kp_g in ((keep, keep_g), (None, None)):
+        want = fs.thr_merge_open_plain(r_th, img, k, 5, kp)
+        got, n = _counted(lambda: fs.thr_merge_open(r_g, x, k, 5, kp_g))
+        assert n == 4  # threshold + merge, erode, dilate, prefixes
+        _same(got[0].cpu(), want[0])
+        _same(got[1].packed.cpu(), want[1].packed)
+    riders = [(x, k, 5, -1), (x, k, 8, 140)]
+    got, n = _counted(lambda: fs.tophat_riders(x, 29, riders))
+    assert n == 3
+    for g_, w in zip(got, fs.tophat_riders_plain(
+            img, 29, [(img, *rd[1:]) for rd in riders])):
+        _same(g_.cpu(), w)
+
+
+def test_filter_kernels_reject_large_k_before_launch(cuda):
+    x = torch.zeros((1, 64, 64), dtype=torch.uint8, device=cuda)
+    fs.reset_launches()
+    n0 = fs.kernel_launches()
+    for fn in (lambda: fs.tophat_ellipse(x, fs.TOPHAT_MAX_K + 2),
+               lambda: fs.tophat_ellipse(x, 30),
+               lambda: fs.bilateral_threshold(x, fs.THRESHOLD_MAX_K + 1, 5),
+               lambda: fs.thr_merge_open(x, x, fs.THRESHOLD_MAX_K + 1, 5),
+               lambda: fs.tophat_riders(
+                   x, 29, [(x, fs.THRESHOLD_MAX_K + 1, 5, -1)])):
+        with pytest.raises(ValueError, match="ksize"):
+            fn()
+    assert fs.kernel_launches() == n0
+    assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}
+
+
+def test_dual_tophat_launch_count(cuda):
+    """The dual tophat (pyramid tiles) makes 2 kernel launches; two calls
+    of the one-launch tophat make 2 as well."""
+    a = _stripes((2, 60, 96), 1).to(cuda)
+    b = _stripes((2, 60, 96), 2).to(cuda)
+    _, n_dual = _counted(lambda: fs.dual_tophat(a, b, 29, 55))
+    _, n_sep = _counted(lambda: (fs.tophat_ellipse(a, 29),
+                                 fs.tophat_ellipse(b, 55)))
+    assert (n_dual, n_sep) == (2, 2)
 
 
 CHANNELS = (  # (kt, kb, C, noise) of demo1's R and LAB-B channels

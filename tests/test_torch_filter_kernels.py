@@ -22,6 +22,7 @@ import torch
 import jax
 
 from tests.conftest import ASSETS_DIR
+from tests.torch_filter_models import tophat_model, tophat_tiles
 
 from lane_tracker_tpu.calib.io import load_calibration_npz
 from lane_tracker_tpu.kernels.filter_stage2 import (
@@ -72,6 +73,17 @@ def test_tophat_twin_equals_pallas(patch, chan, ksize):
     img = patch[0] if chan == "r" else patch[1]
     want = np.asarray(tophat_pallas2(img, ksize, interpret=True))
     got = fs.tophat_ellipse_plain(_t(img), ksize).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("chan,ksize", [("r", 29), ("b", 55)])
+def test_tophat_kernel_model_equals_pallas(patch, chan, ksize):
+    """The redesigned kernel's numpy model (tests/torch_filter_models.py),
+    at the tiles its planner picks for the full corridor frame."""
+    img = patch[0] if chan == "r" else patch[1]
+    want = np.asarray(tophat_pallas2(img, ksize, interpret=True))
+    tw, th = tophat_tiles(ksize, 1100, 672)
+    got = tophat_model(img, ksize, tw, th, np.random.default_rng(ksize))
     np.testing.assert_array_equal(got, want)
 
 

@@ -1,0 +1,234 @@
+"""Numpy models of the tophat and cross-threshold kernels' decompositions.
+
+Each model follows its CUDA kernel (lane_tracker_tpu_torch/csrc/
+filter_stage.cu) step for step: the same tiles, halos, fills, shared
+buffers and their order of writes, with every value the kernel computes
+at the byte it lands on.  The kernels keep four pixels a 32-bit word and
+four words a 16-byte quad, little-endian, so a shift of a word by s pixels
+(``__funnelshift_r`` of two neighbours) is a shift of the buffer's bytes
+by s; the models work on those bytes.  The tophat's min/max runs on
+16-bit lanes with the pixels in their high bytes, which gives each byte's
+min/max whatever the low bytes hold; the model takes it per byte.  A test
+that holds a model equal to the plain twin for every k the wrapper takes
+checks the decomposition and the index arithmetic the kernel shares with
+it; what the model cannot see (the word and quad bookkeeping inside one
+instruction) the card-only tests check against the twin.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from lane_tracker_tpu_torch.ops.morphology import ellipse_runs
+
+# ---- tophat (lt_tophat: tophat_kernel) ----
+
+GUARD = 48  # bytes of guard before and after each buffer (12 words)
+
+
+def half_widths(k: int) -> list:
+    """w[d]: the half-width of the ellipse's rows at |dy| = d, d = 0..r;
+    the kernel takes odd k only (symmetric runs)."""
+    r = k // 2
+    runs = dict(ellipse_runs(k))
+    assert all(runs[d] == (-runs[d][1], runs[d][1]) == runs[-d]
+               for d in range(r + 1))
+    return [runs[d][1] for d in range(r + 1)]
+
+
+def tophat_steps(k: int) -> list:
+    """The kernel's plan: (shift, dlo, dhi, dneed) per step.  Step 0 (shift
+    0) gathers the rows at distances [dlo, dhi] whose half-width is 0 from
+    the staged plane itself; each later step widens the plane's horizontal
+    window from half-width h to h + shift (min of the plane shifted by
+    -shift, 0 and +shift, exact while shift <= 2h + 1) and gathers the
+    rows of its new half-width (none where it is a stride on the way).
+    dneed: the largest distance any step from this one on gathers, so the
+    rows the widening must cover."""
+    w = half_widths(k)
+    span = {}
+    for d, u in enumerate(w):
+        lo, hi = span.get(u, (d, d))
+        span[u] = (min(lo, d), max(hi, d))
+    steps = [(0, *span.get(0, (1, 0)))]
+    cur = 0
+    for u in sorted(set(w) - {0}):
+        while cur < u:
+            s = min(u - cur, 2 * cur + 1)
+            cur += s
+            steps.append((s, *(span[u] if cur == u else (1, 0))))
+    out, need = [], -1
+    for s, lo, hi in reversed(steps):
+        if lo <= hi:
+            need = max(need, hi)
+        out.append((s, lo, hi, need))
+    return out[::-1]
+
+
+def _round16(x):
+    return -(-x // 16) * 16
+
+
+def tophat_tiles(k: int, H: int, W: int) -> tuple:
+    """(tile width, tile height) the kernel's host planner (tophat_plan in
+    csrc/filter_stage.cu) picks for an H x W frame."""
+    r = k // 2
+    rq = _round16(r) // 16
+    n = len(tophat_steps(k))
+    hmax = min(-(-H // 8) * 8, 256)
+    best = None
+    for tq in (4, 8, 12, 16):
+        nqx, nqe = tq + 4 * rq, tq + 2 * rq
+        th = 0
+        for h in range(8, hmax + 1, 8):
+            smem = 2 * 16 * ((h + 4 * r) * nqx + 6)
+            if (smem <= 110 * 1024 and (h + 2 * r) * nqe <= 6 * 512
+                    and h * tq <= 6 * 512):
+                th = h
+        if th == 0:
+            continue
+        rows_x, rows_e = th + 4 * r, th + 2 * r
+        tile = (6 * n * (rows_x * nqx + rows_e * nqe)
+                + 2 * (2 * r + 1) * (rows_e * nqe + th * tq)
+                + rows_x * nqx)
+        cost = tile * -(-H // th) * -(-W // (16 * tq))
+        if best is None or cost < best[0]:
+            best = (cost, 16 * tq, th)
+    return best[1], best[2]
+
+
+def tophat_model(img: np.ndarray, k: int, tw: int, th: int,
+                 rng: np.random.Generator) -> np.ndarray:
+    """img - open(img) with the k x k ellipse, as tophat_kernel computes
+    it with (tw, th) output tiles; buffers start as random bytes."""
+    T, H, W = img.shape
+    r = k // 2
+    r16 = _round16(r)
+    steps = tophat_steps(k)
+    out = np.zeros_like(img)
+    nrx, bx = th + 4 * r, tw + 4 * r16  # staged rows, row bytes
+    nre, be = th + 2 * r, tw + 2 * r16  # eroded rows, row bytes
+    size = nrx * bx
+    for z in range(T):
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                bufs = [rng.integers(0, 256, size + 2 * GUARD).astype(
+                    np.uint8) for _ in range(2)]
+                # Stage: 255 outside the image.
+                gy = np.arange(y0 - 2 * r, y0 - 2 * r + nrx)[:, None]
+                gx = np.arange(x0 - 2 * r16, x0 - 2 * r16 + bx)[None, :]
+                inside = (gy >= 0) & (gy < H) & (gx >= 0) & (gx < W)
+                x = np.full((nrx, bx), 255, np.uint8)
+                x[inside] = img[z][np.clip(gy, 0, H - 1),
+                                   np.clip(gx, 0, W - 1)][inside]
+                bufs[0][GUARD:GUARD + size] = x.reshape(-1)
+                # Erode: acc over the eroded region (rows r.., bytes r16..).
+                acc = _morph(bufs, steps, np.minimum, nrx, bx, r, r16, nre,
+                             be, 255)
+                # E into buffer 0: 0 outside the image (the dilate's pad).
+                gy = np.arange(y0 - r, y0 - r + nre)[:, None]
+                gx = np.arange(x0 - r16, x0 - r16 + be)[None, :]
+                inside = (gy >= 0) & (gy < H) & (gx >= 0) & (gx < W)
+                bufs[0][GUARD:GUARD + nre * be] = np.where(
+                    inside, acc, 0).astype(np.uint8).reshape(-1)
+                dil = _morph(bufs, steps, np.maximum, nre, be, r, r16, th,
+                             tw, 0)
+                ys, xs = min(th, H - y0), min(tw, W - x0)
+                src = img[z, y0:y0 + ys, x0:x0 + xs]
+                out[z, y0:y0 + ys, x0:x0 + xs] = src - dil[:ys, :xs]
+    return out
+
+
+def _morph(bufs, steps, op, nrows, pitch, r, r16, orows, obytes, init):
+    """One phase: the source plane (nrows x pitch bytes) in bufs[0];
+    returns the (orows, obytes) result at rows r.., bytes r16.."""
+    acc = np.full((orows, obytes), init, np.uint8)
+    rows = np.arange(orows)[:, None] + r
+    cols = np.arange(obytes)[None, :] + r16
+    g = GUARD
+    src = 0
+    for j, (s, lo, hi, need) in enumerate(steps):
+        if j > 0:
+            dst = 1 - src
+            # Widen the rows [r - need, orows + r + need) only; the rest
+            # of dst keeps what it held.
+            a = (r - need) * pitch
+            b = (orows + r + need) * pitch
+            i = np.arange(a, b) + g
+            sb = bufs[src]
+            bufs[dst][i] = op(sb[i], op(sb[i - s], sb[i + s]))
+            src = dst
+        for d in range(lo, hi + 1):
+            for dd in (-d, d):
+                acc = op(acc, bufs[src][g + (rows + dd) * pitch + cols])
+    return acc
+
+
+# ---- cross threshold (lt_cross_threshold: threshold_kernel) ----
+
+THR_TW, THR_TH, THR_THREADS = 128, 128, 256
+
+
+def threshold_model(img, k, C, noise_thresh=-1, merge_r=None, keep=None):
+    """The bilateral cross threshold as threshold_kernel computes it:
+    (THR_TH, THR_TW) tiles; a zero-padded strip; row walkers (two per
+    row, 64 columns each) keep the left and right arm sums and leave the
+    horizontal hits as bits; column walkers (two per column, 64 rows
+    each) keep the up and down arm sums and write the output."""
+    T, H, W = img.shape
+    kx = _round16(k)
+    tw, th = THR_TW, THR_TH
+    nrs, rb = th + 2 * k, tw + 2 * kx
+    seg_h = tw // (THR_THREADS // th)
+    seg_v = th // (THR_THREADS // tw)
+    out = np.zeros_like(img)
+    for z in range(T):
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                gy = np.arange(y0 - k, y0 - k + nrs)[:, None]
+                gx = np.arange(x0 - kx, x0 - kx + rb)[None, :]
+                inside = (gy >= 0) & (gy < H) & (gx >= 0) & (gx < W)
+                s = np.where(inside, img[z][np.clip(gy, 0, H - 1),
+                                            np.clip(gx, 0, W - 1)],
+                             0).astype(np.int64)
+                # Row walkers: walker (row, seg) walks columns
+                # [seg * seg_h, (seg + 1) * seg_h) of tile row `row`.
+                hbits = np.zeros((th, tw), bool)
+                for seg in range(tw // seg_h):
+                    xs = seg * seg_h
+                    row = s[k:k + th]
+                    c = kx + xs
+                    left = row[:, c - k:c].sum(1)
+                    right = row[:, c + 1:c + k + 1].sum(1)
+                    for x in range(xs, xs + seg_h):
+                        c = kx + x
+                        v = row[:, c]
+                        t = k * v - C * k
+                        hbits[:, x] = (left < t) & (right < t)
+                        if x + 1 < xs + seg_h:
+                            left += v - row[:, c - k]
+                            right += row[:, c + k + 1] - row[:, c + 1]
+                # Column walkers.
+                for seg in range(th // seg_v):
+                    ys = seg * seg_v
+                    col = s[:, kx:kx + tw]
+                    up = col[ys:ys + k].sum(0)
+                    down = col[ys + k + 1:ys + 2 * k + 1].sum(0)
+                    for y in range(ys, ys + seg_v):
+                        v = col[k + y]
+                        t = k * v - C * k
+                        hit = ((up < t) & (down < t)) | hbits[y]
+                        if noise_thresh >= 0:
+                            hit |= v < noise_thresh
+                        gy_, n = y0 + y, min(tw, W - x0)
+                        if gy_ < H:
+                            o = slice(x0, x0 + n)
+                            if merge_r is not None:
+                                hit[:n] |= merge_r[z, gy_, o] != 0
+                            if keep is not None:
+                                hit[:n] &= keep[z, gy_, o] != 0
+                            out[z, gy_, o] = np.where(hit[:n], 255, 0)
+                        if y + 1 < ys + seg_v:
+                            up += v - col[y]
+                            down += col[k + y + k + 1] - col[k + y + 1]
+    return out
