@@ -5,20 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-or, to time the redesigned filter kernels against the parent commit's on
-the same card, with a checkout of the parent's package unpacked into a
-directory (``git archive <parent> lane_tracker_tpu_torch | tar -x -C
-build/parent``):
-
-    python3 chip_smoke.py --parent build/parent
-
 Phases (each raises at the first failure; nothing is skipped):
 
 1. Device: the card's name and power limit.
-2. Build: nvcc builds the port's CUDA kernels from csrc/; the opcode
-   counts of the tophat's and the cross threshold's SASS are printed
-   (``cuobjdump --dump-sass``); with ``--parent`` the parent's kernels are
-   built from its own sources too.
+2. Build: nvcc builds the port's CUDA kernels from csrc/.
 3. Frames: the four decoded stills (assets/stills_720p.npz), cycled to 64
    frames; the fail16 chunk is the same with every 16th frame black.
 4. Kernel parity: the six filter-stage kernels against their plain
@@ -76,11 +66,9 @@ Phases (each raises at the first failure; nothing is skipped):
    launches): equal to its twin.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
-   per-kernel times against the plain twins with CUDA events (the
-   redesigned rows 1-3 and 6 with their times before the redesign as
-   ``prior_ms``, and with ``--parent`` the parent's kernels in turns as
-   ``parent_ms``); rows 1-3 launch by launch (each tophat and threshold
-   entry alone, its own bound, ``launches_ms`` in the row's entry); the
+   per-kernel times against the plain twins with CUDA events; rows 1-3
+   launch by launch (each tophat and threshold entry alone, its own
+   bound, ``launches_ms`` in the row's entry); the
    probes' rows, each timed once (us per pass of each shift chain, ms per frame of
    each tophat row and of probe 6's kinds, ns per rep of probe 11's
    gathers), with their bounds and the shared-memory traffic of each
@@ -91,8 +79,7 @@ Phases (each raises at the first failure; nothing is skipped):
    products, not all three kinds); the fused stage at several tile heights
    against the unfused kernels (scripts/mosaic_probe7.py's study on this
    card); the banded warp against the two-stage warp; and a profile of one
-   fail16 chunk per mode read through its ``lt.*`` ranges (with
-   ``--parent``, each mode also on the parent's filter kernels).
+   fail16 chunk per mode read through its ``lt.*`` ranges.
 
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move over the HBM rate and the
@@ -164,11 +151,6 @@ PROBE_KERNELS = ("shift_chain", "shift_chain_2d", "tophat_staged",
                  "dual_tophat", "sweep_dots", "tile_gather")
 PROBE_REPS = 10
 DUAL_LAUNCHES = 2
-# The redesigned kernels' times before the redesign, as PERF.md section 6
-# records them (NVIDIA H100 80GB HBM3, 700.00 W): ``prior_ms`` in their
-# kernels entries.
-PRIOR_MS = {"tophat_ellipse": 3.726, "tophat_riders": 9.081,
-            "thr_merge_open": 1.803, "bilateral_threshold": 0.909}
 LAUNCH_REPS = 10
 # int32 operations per element and rep of probe 11's chains: the add, one
 # address for each gather, the mask.
@@ -201,15 +183,24 @@ def bound(nbytes, *ops):
 
 
 def morph_ops(k):
-    """Integer operations per pixel of an erode or dilate with the k x k
-    ellipse as the kernels do it: one per pow2 pyramid level above the
-    first, and two per SE row (the op of the two level reads, and into the
-    accumulator)."""
+    """Integer operations per pixel of an erode or dilate with the odd
+    k x k ellipse: the fewer of the port's two decompositions.  A pow2
+    window pyramid takes one per level above the first and two per SE row
+    (the op of the two level reads, and into the accumulator); lt_tophat's
+    widening takes two per step of its horizontal window (h to h + s,
+    s <= 2h + 1, through the ellipse's distinct half-widths) and one per
+    SE row."""
     from lane_tracker_tpu_torch.ops.morphology import ellipse_runs
 
     runs = ellipse_runs(int(k))
     max_run = max(hi - lo + 1 for _, (lo, hi) in runs)
-    return (max_run.bit_length() - 1) + 2 * len(runs)
+    pyramid = (max_run.bit_length() - 1) + 2 * len(runs)
+    steps, h = 0, 0
+    for u in sorted({hi for _, (_, hi) in runs} - {0}):
+        while h < u:
+            h += min(u - h, 2 * h + 1)
+            steps += 1
+    return min(pyramid, 2 * steps + len(runs))
 
 
 def tophat_ops(k):
@@ -294,80 +285,17 @@ def sass_count(lib_path, kernel, opcode):
     return count, sorted(names)
 
 
-def parent_library(tree):
-    """(library, build seconds) of another checkout's kernels (``--parent
-    DIR``: e.g. ``git archive`` of the parent commit unpacked into a
-    directory), built by that checkout's own build module from its own
-    sources into its own build directory."""
-    import importlib.util
-
-    path = tree / "lane_tracker_tpu_torch" / "kernels" / "build.py"
-    spec = importlib.util.spec_from_file_location("parent_kernel_build", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    _, seconds, _ = mod.build()
-    return mod.load_library(), seconds
-
-
-def on_library(lib):
-    """A context in which the filter-stage wrappers launch ``lib``'s
-    entries (the same C interfaces), where the parent's lt_tophat takes a
-    scratch image for its eroded pass."""
-    import contextlib
-
-    import torch
-    from lane_tracker_tpu_torch.kernels import filter_stage as fs
-
-    def tophat(img, ksize):
-        T, H, W = img.shape
-        out, scratch = torch.empty_like(img), torch.empty_like(img)
-        runs = fs._runs_table(int(ksize))
-        fs._check(lib.lt_tophat(
-            img.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            runs.ctypes.data, len(runs), int(ksize), T, H, W, fs._stream()),
-            "lt_tophat")
-        return out
-
-    stack = contextlib.ExitStack()
-    stack.enter_context(mock.patch.object(fs, "load_library", lambda: lib))
-    stack.enter_context(mock.patch.object(fs, "_launch_tophat", tophat))
-    return stack
-
-
 def single_launches(f, r, b, r_feat, b_feat):
-    """Rows 1-3 launch by launch, each a function of a kernel library:
-    (row, launch, make) with make(lib) -> a call of that entry alone on
-    the main path's input, its output and scratch allocated once."""
-    import torch
+    """Rows 1-3 launch by launch: (row, launch, k, call), each call one
+    launch of that entry alone on the main path's input, through the
+    library's C interface, not counted."""
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
 
     def tophat(img, k):
-        def make(lib):
-            T, H, W = img.shape
-            out, scratch = torch.empty_like(img), torch.empty_like(img)
-            runs = fs._runs_table(k)
-
-            def call():
-                fs._check(lib.lt_tophat(
-                    img.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                    runs.ctypes.data, len(runs), k, T, H, W, fs._stream()),
-                    "lt_tophat")
-                return out
-            return call
-        return make
+        return lambda: fs._launch_tophat(img, k)
 
     def threshold(img, k, C, nt):
-        def make(lib):
-            T, H, W = img.shape
-            out = torch.empty_like(img)
-
-            def call():
-                fs._check(lib.lt_cross_threshold(
-                    img.data_ptr(), out.data_ptr(), T, H, W, k, C, nt,
-                    fs._stream()), "lt_cross_threshold")
-                return out
-            return call
-        return make
+        return lambda: fs._launch_threshold(img, k, C, nt)
 
     return [
         ("tophat_ellipse", f"lt_tophat k={f.tophat_r}", f.tophat_r,
@@ -382,86 +310,6 @@ def single_launches(f, r, b, r_feat, b_feat):
         ("thr_merge_open", f"lt_cross_threshold k={f.ksize_b}", f.ksize_b,
          threshold(b_feat, f.ksize_b, f.C_b, -1)),
     ]
-
-
-def sass_histogram(lib_path, kernel):
-    """{opcode: count} over the SASS of the library's functions whose
-    mangled name holds ``kernel`` (``cuobjdump --dump-sass``)."""
-    from lane_tracker_tpu_torch.kernels.build import find_nvcc
-
-    tool = pathlib.Path(find_nvcc()).with_name("cuobjdump")
-    res = subprocess.run([str(tool), "--dump-sass", str(lib_path)],
-                         capture_output=True, text=True, timeout=300)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
-    hist, name = {}, None
-    for line in res.stdout.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                     line)
-        if name and kernel in name and m:
-            op = m.group(1)
-            hist[op] = hist.get(op, 0) + 1
-    return hist
-
-
-# Three-way per-pixel min of u8x4 words, three ways, for the SASS count
-# of the tophat's design choice: __vminu4 twice; Hopper's DPX
-# __vimin3_u16x2 on the bytes split into 16-bit lanes (masks); and the
-# tophat's form, pixels in the lanes' high bytes (hi form w, lo form
-# w << 8) with one byte permute to merge; and one DPX call alone.
-SIMD_PROBE = r"""
-#include <stdint.h>
-#define K(name, expr) extern "C" __global__ void name(const uint32_t* p, \
-    uint32_t* o) { const uint32_t a = p[0], b = p[1], c = p[2]; o[0] = expr; }
-K(min3_vminu4, __vminu4(__vminu4(a, b), c))
-K(min3_dpx_masked, __vimin3_u16x2(a & 0xff00ffu, b & 0xff00ffu, c & 0xff00ffu)
-  | (__vimin3_u16x2((a >> 8) & 0xff00ffu, (b >> 8) & 0xff00ffu,
-                    (c >> 8) & 0xff00ffu) << 8))
-K(min3_dpx_high_bytes, __byte_perm(__vimin3_u16x2(a << 8, b << 8, c << 8),
-                                   __vimin3_u16x2(a, b, c), 0x7351))
-K(min3_dpx_u16x2, __vimin3_u16x2(a, b, c))
-"""
-
-
-def simd_probe_counts(build_dir):
-    """{probe: instructions between its last load and its store} in the
-    SASS of SIMD_PROBE built for sm_90a: the instructions one three-way
-    min of a word costs in each form."""
-    from lane_tracker_tpu_torch.kernels.build import ARCH_FLAGS, find_nvcc
-
-    build_dir.mkdir(parents=True, exist_ok=True)
-    src, cubin = build_dir / "simd_probe.cu", build_dir / "simd_probe.cubin"
-    src.write_text(SIMD_PROBE)
-    nvcc = find_nvcc()
-    res = subprocess.run([nvcc, *ARCH_FLAGS, "-O3", "-cubin", "-o", str(cubin),
-                          str(src)], capture_output=True, text=True,
-                         timeout=300)
-    check(res.returncode == 0, f"nvcc failed on the SIMD probe: {res.stderr}")
-    res = subprocess.run(
-        [str(pathlib.Path(nvcc).with_name("cuobjdump")), "--dump-sass",
-         str(cubin)], capture_output=True, text=True, timeout=300)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
-    counts, name, ops = {}, None, []
-    for line in res.stdout.splitlines() + ["Function : end"]:
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            if name:
-                last_load = max(i for i, op in enumerate(ops)
-                                if op.startswith("LDG"))
-                store = next(i for i, op in enumerate(ops)
-                             if op.startswith("STG"))
-                counts[name] = sum(
-                    1 for op in ops[last_load + 1:store]
-                    if not op.startswith(("LDC", "ULDC", "IMAD.WIDE", "MOV")))
-            name, ops = m.group(1), []
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([A-Z][A-Z0-9_.]*)", line)
-        if m:
-            ops.append(m.group(1))
-    return counts
 
 
 def counted_launches(fn):
@@ -539,12 +387,7 @@ def main(argv):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", type=pathlib.Path, default=None,
-                    help="a checkout of the parent commit: its filter "
-                    "kernels are built there and timed in turns with "
-                    "this tree's (rows 1-3 and 6, their launches, and the "
-                    "fail16 profile's lt.filter)")
-    args = ap.parse_args(argv)
+    ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -564,7 +407,7 @@ def main(argv):
     from lane_tracker_tpu_torch.kernels import shift_chain as sc
     from lane_tracker_tpu_torch.kernels import sweep_dots as sd
     from lane_tracker_tpu_torch.kernels import tile_gather as tg
-    from lane_tracker_tpu_torch.kernels.build import build, load_library
+    from lane_tracker_tpu_torch.kernels.build import build
     from lane_tracker_tpu_torch.kernels.resample import bilinear_gather
     from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast
     from lane_tracker_tpu_torch.ops.filters import filter_stage
@@ -598,20 +441,6 @@ def main(argv):
     for line in log.splitlines():
         if "ptxas info" in line:
             print(f"[build] {line.strip()}")
-    for kern in ("tophat_kernel", "threshold_kernel"):
-        hist = sass_histogram(lib_path, kern)
-        check(hist, f"no SASS for {kern}")
-        top = sorted(hist.items(), key=lambda kv: -kv[1])
-        print(f"[build] SASS of {kern}: {sum(hist.values())} instructions; "
-              f"{json.dumps(dict(top))}")
-    probe = simd_probe_counts(REPO / "build" / "simd_probe")
-    print(f"[build] SASS instructions of one three-way min of u8x4 words: "
-          f"{json.dumps(probe)}")
-    plib = None
-    if args.parent is not None:
-        plib, parent_s = parent_library(args.parent.resolve())
-        print(f"[build] parent kernels from {args.parent}: nvcc "
-              f"{parent_s:.1f} s")
 
     # ---- 3. Frames ----
     with np.load(REPO / "assets" / "stills_720p.npz") as z:
@@ -1084,43 +913,26 @@ def main(argv):
         })
 
     for name, (kernel, twin) in calls.items():
-        # plain, kernel, kernel, plain: the means of each pair; with
-        # --parent the redesigned rows also take the parent's kernels in
-        # turns: plain, parent, kernel, kernel, parent, plain.
-        on_parent = plib is not None and name in PRIOR_MS
+        # plain, kernel, kernel, plain: the means of each pair.
         p1 = cuda_ms(twin, 3)
-        if on_parent:
-            with on_library(plib):
-                q1 = cuda_ms(kernel, 10)
         k1 = cuda_ms(kernel, 10)
         k2 = cuda_ms(kernel, 10)
-        if on_parent:
-            with on_library(plib):
-                q2 = cuda_ms(kernel, 10)
         p2 = cuda_ms(twin, 3)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         nbytes, *ops = work[name]
         bound_ms, bound_by = bound(*work[name])
-        extra = {}
-        if name in PRIOR_MS:
-            extra["prior_ms"] = PRIOR_MS[name]
-        if on_parent:
-            extra["parent_ms"] = (q1 + q2) / 2
         print(f"[timing] {name}: kernel {ms:.3f} ms, plain twin "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{nbytes / 1e6:.1f} MB, {sum(n for n, _ in ops) / 1e9:.2f} "
-              f"G ops){''.join(f', {k} {v:.3f} ms' for k, v in extra.items())}"
-              f" ({card})")
-        add_kernel(name, ms, plain_ms, bound_ms, bound_by, **extra)
+              f"G ops) ({card})")
+        add_kernel(name, ms, plain_ms, bound_ms, bound_by)
 
     # Rows 1-3 launch by launch, each entry called alone on the main
     # path's input (row 3's threshold without its merge epilogue's two
-    # reads), timed in turns (parent, kernel, kernel, parent with
-    # --parent), with its own bound; the rows' kernels entries list them as
+    # reads), with its own bound; the rows' kernels entries list them as
     # "launches_ms".
     by_row = {}
-    for row, launch, k, make in single_launches(f, r, b, r_feat, b_feat):
-        call = make(load_library())
+    for row, launch, k, call in single_launches(f, r, b, r_feat, b_feat):
         if launch.startswith("lt_tophat"):
             work_l = (2 * N, (N * tophat_ops(k), u8))
         else:
@@ -1130,19 +942,11 @@ def main(argv):
             work_l = (2 * N, *ops_l)
         bound_l, by_l = bound(*work_l)
         part = {"launch": launch, "bound_ms": bound_l, "bound_by": by_l}
-        if plib is not None:
-            pcall = make(plib)
-            n_diff, _ = mismatches(pcall(), call())
-            check(n_diff == 0, f"{launch}: the parent's kernel differs")
-            q1 = cuda_ms(pcall, LAUNCH_REPS)
         k1 = cuda_ms(call, LAUNCH_REPS)
         k2 = cuda_ms(call, LAUNCH_REPS)
         part["ms"] = (k1 + k2) / 2
-        if plib is not None:
-            part["parent_ms"] = (q1 + cuda_ms(pcall, LAUNCH_REPS)) / 2
-        print(f"[launch] {row}: {launch}: kernel {part['ms']:.4f} ms"
-              + (f", parent {part['parent_ms']:.4f} ms" if plib else "")
-              + f", bound {bound_l:.4f} ms ({by_l}) ({card})")
+        print(f"[launch] {row}: {launch}: kernel {part['ms']:.4f} ms, bound "
+              f"{bound_l:.4f} ms ({by_l}) ({card})")
         by_row.setdefault(row, []).append(part)
     for entry in kernels:
         if entry["name"] in by_row:
@@ -1287,13 +1091,8 @@ def main(argv):
                   f"device {v['device_ms']:9.3f} ms  launches "
                   f"{v['launches']:7.0f}")
 
-    # With --parent, each mode's chunk also runs on the parent's filter
-    # kernels, in turns: this tree's, the parent's.
     for mode in TIMED_MODES:
         profile_chunk(mode, "profile")
-        if plib is not None:
-            with on_library(plib):
-                profile_chunk(mode, "profile-parent")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

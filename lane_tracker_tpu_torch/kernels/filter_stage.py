@@ -224,11 +224,10 @@ def tophat_ellipse_plain(img: torch.Tensor, ksize: int) -> torch.Tensor:
 
 def tophat_ellipse(img: torch.Tensor, ksize: int) -> torch.Tensor:
     """White tophat img - open(img) with OpenCV's ksize x ksize ellipse;
-    ksize odd, at most TOPHAT_MAX_K."""
-    ksize = _tophat_k(ksize)
+    the kernel takes ksize odd, at most TOPHAT_MAX_K (the twin any)."""
     if not _on_cuda(img):
         return tophat_ellipse_plain(img, ksize)
-    out = _launch_tophat(img, ksize)
+    out = _launch_tophat(img, _tophat_k(ksize))
     LAUNCHES["tophat_ellipse"] += 1
     return out
 
@@ -304,11 +303,12 @@ def tophat_riders(img: torch.Tensor, ksize: int, riders) -> tuple:
     ``(src, k, C, noise_thresh)``: each a bilateral cross threshold of its
     own input (noise_thresh = -1), or with ``noise_thresh >= 0`` the noise
     keep-mask ``(src < noise_thresh) | thr(src)``.  ksize as
-    ``tophat_ellipse``'s, each rider's k at most THRESHOLD_MAX_K."""
-    ksize = _tophat_k(ksize)
-    riders = [(src, _threshold_k(k), C, nt) for src, k, C, nt in riders]
+    ``tophat_ellipse``'s, each rider's k at most THRESHOLD_MAX_K on the
+    card; all are checked before the first launch."""
     if not _on_cuda(img, *(r[0] for r in riders)):
         return tophat_riders_plain(img, ksize, riders)
+    ksize = _tophat_k(ksize)
+    riders = [(src, _threshold_k(k), C, nt) for src, k, C, nt in riders]
     outs = (_launch_tophat(img, ksize),
             *(_launch_threshold(src, k, C, nt) for src, k, C, nt in riders))
     LAUNCHES["tophat_riders"] += 1
@@ -330,11 +330,11 @@ def thr_merge_open(r_th: torch.Tensor, b_feat: torch.Tensor, kb: int,
     """open_k ellipse opening of ``((r_th | thr(b_feat, kb, Cb)) & keep)``
     as 0/255, plus its packed exclusive row prefixes (T, H, W + 1) int32
     with ``shift = (W + 1).bit_length()``.  Returns (binary, RowPrefixes).
-    kb at most THRESHOLD_MAX_K."""
-    kb = _threshold_k(kb)
+    kb at most THRESHOLD_MAX_K on the card."""
     imgs = (r_th, b_feat) if keep is None else (r_th, b_feat, keep)
     if not _on_cuda(*imgs):
         return thr_merge_open_plain(r_th, b_feat, kb, Cb, keep, open_k)
+    kb = _threshold_k(kb)
     T, H, W = r_th.shape
     out, pref, scratch0, scratch1 = _open_prefix_buffers(r_th)
     runs = _runs_table(int(open_k))
@@ -420,10 +420,9 @@ def bilateral_threshold(img: torch.Tensor, ksize: int, C: int,
                         noise_thresh: int = -1) -> torch.Tensor:
     """Bilateral cross threshold (mode 'floor') of img, or with
     ``noise_thresh >= 0`` the noise keep-mask ``(img < noise_thresh) |
-    thr(img)``, as 0/255; ksize at most THRESHOLD_MAX_K."""
-    ksize = _threshold_k(ksize)
+    thr(img)``, as 0/255; ksize at most THRESHOLD_MAX_K on the card."""
     if not _on_cuda(img):
         return bilateral_threshold_plain(img, ksize, C, noise_thresh)
-    out = _launch_threshold(img, ksize, C, noise_thresh)
+    out = _launch_threshold(img, _threshold_k(ksize), C, noise_thresh)
     LAUNCHES["bilateral_threshold"] += 1
     return out

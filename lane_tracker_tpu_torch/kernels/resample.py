@@ -61,7 +61,9 @@ class ResampleGrid(nn.Module):
     ``index_select``); ``dst_shape`` keeps the destination (H, W).  Float
     weights are held as float64 copies of their float32 values, the dtype
     ``combine_taps`` computes its multiply-adds in, so no chunk converts
-    them again.
+    them again.  ``rounded`` lists the flattened pixels whose multiply-adds
+    take ``_fma``'s round-to-odd correction (``needs_fma``); it is empty
+    for fixed grids.
     """
 
     def __init__(self, base, w00, w01, w10, w11, src_size):
@@ -71,12 +73,15 @@ class ResampleGrid(nn.Module):
         self.src_size = (int(src_size[0]), int(src_size[1]))
         self.register_buffer(
             "base", torch.from_numpy(base.reshape(-1).astype(np.int64)))
-        for name, w in (("w00", w00), ("w01", w01), ("w10", w10),
-                        ("w11", w11)):
-            w = np.asarray(w).reshape(-1)
+        ws = [np.asarray(w).reshape(-1) for w in (w00, w01, w10, w11)]
+        for name, w in zip(("w00", "w01", "w10", "w11"), ws):
             if w.dtype == np.float32:
                 w = w.astype(np.float64)
             self.register_buffer(name, torch.tensor(w))
+        rounded = (np.flatnonzero(needs_fma(*ws)) if ws[0].dtype.kind == "f"
+                   else np.zeros(0))
+        self.register_buffer(
+            "rounded", torch.from_numpy(rounded.astype(np.int64)))
 
     @classmethod
     def from_remapped(cls, g: dict) -> "ResampleGrid":
@@ -86,6 +91,26 @@ class ResampleGrid(nn.Module):
     @property
     def is_float(self) -> bool:
         return self.w00.dtype == torch.float64
+
+
+# Every nonzero weight at least 2^-20 (an f32, so its last bit at least
+# 2^-43) and their sum at most 4: then each tap product, each f32 partial
+# sum and their exact sum are multiples of 2^-43 below 255 * 4 < 2^10,
+# which 53 bits hold.  The float64 sum is then exact and the one rounding
+# to f32 is the fma's.
+EXACT_MIN_WEIGHT = 2.0 ** -20
+EXACT_MAX_WEIGHT_SUM = 4.0
+
+
+def needs_fma(*ws: np.ndarray) -> np.ndarray:
+    """Per pixel of float weights ``ws`` (one array per slot): True where
+    the plain float64 multiply-add may round twice, so ``combine_taps``
+    needs ``_fma`` there; False where it is exact (see EXACT_MIN_WEIGHT)."""
+    ws = [np.asarray(w, np.float64) for w in ws]
+    tiny = np.zeros(ws[0].shape, bool)
+    for w in ws:
+        tiny |= (w != 0) & ~(np.abs(w) >= EXACT_MIN_WEIGHT)
+    return tiny | ~(sum(np.abs(w) for w in ws) <= EXACT_MAX_WEIGHT_SUM)
 
 
 def _fma(p: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -110,6 +135,15 @@ def _fma(p: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return bits.bitwise_or_((e != 0).long()).view(torch.float64).float()
 
 
+def _fma_chain(p00, p01, p10, p11, ws):
+    """The f32 chain ``fma(p11, w11, fma(p10, w10, fma(p00, w00, p01 *
+    w01)))`` with ``_fma``."""
+    acc = (p01 * ws[1]).float()  # exact in float64, rounded once
+    for p, w in ((p00, ws[0]), (p10, ws[2]), (p11, ws[3])):
+        acc = _fma(p, w, acc)
+    return acc
+
+
 def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
     """Weighted combine of the four window-slot taps (the reference's one
     arithmetic definition, resample.py:103-130).  Taps are (..., N, C)
@@ -119,14 +153,21 @@ def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
     multiply-add chain XLA contracts the reference's sum into,
     ``fma(p11, w11, fma(p10, w10, fma(p00, w00, p01 * w01)))``, then
     round-half-even and clip; bit-exact with the reference on the CPU.
-    Fixed grids: 2^15 int weights, ``(acc + 2^14) >> 15``, clip.
+    Each fma is a float64 multiply-add rounded to f32, exact wherever
+    ``needs_fma`` is False; the pixels in ``grid.rounded`` are then taken
+    again through ``_fma``.  Fixed grids: 2^15 int weights,
+    ``(acc + 2^14) >> 15``, clip.
     """
     ws = [w[:, None] for w in (grid.w00, grid.w01, grid.w10, grid.w11)]
     if grid.is_float:
-        # The f32 product p01 * w01: exact in float64, rounded once.
         acc = (p01 * ws[1]).float()
         for p, w in ((p00, ws[0]), (p10, ws[2]), (p11, ws[3])):
-            acc = _fma(p, w, acc)
+            acc = (p * w + acc).float()
+        idx = grid.rounded
+        if idx.numel():
+            acc.index_copy_(-2, idx, _fma_chain(
+                *(p.index_select(-2, idx) for p in (p00, p01, p10, p11)),
+                [w[idx] for w in ws]))
         return torch.round(acc).clamp_(0, 255).to(torch.uint8)
     acc = (p00.int() * ws[0] + p01.int() * ws[1]
            + p10.int() * ws[2] + p11.int() * ws[3])

@@ -8,12 +8,15 @@ exactly on random ragged inputs, for every k the wrappers take: odd k in
 bytes), k in 1..65 for the threshold (plain, with the noise keep-mask, and
 with the merge epilogue).  The tophat model also equals JAX's
 ``tophat_pallas2`` in interpret mode at k=29 and 55, in
-tests/test_torch_filter_kernels.py.  The wrappers' limits are checked too.
+tests/test_torch_filter_kernels.py.  The wrappers' limits on the card are
+checked too, and that the CPU twins take any k.
 """
 
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 from tests.torch_filter_models import (
     half_widths,
@@ -21,6 +24,8 @@ from tests.torch_filter_models import (
     tophat_model,
     tophat_steps,
 )
+
+from lane_tracker_tpu.ops import morphology as j_morph
 
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.ops.threshold import cross_threshold
@@ -91,12 +96,35 @@ def test_threshold_model_equals_twin(k):
         np.testing.assert_array_equal(got, want.numpy(), err_msg=f"k={k}")
 
 
-@pytest.mark.parametrize("k", [0, 2, 28, fs.TOPHAT_MAX_K + 2])
-def test_tophat_wrapper_rejects_k_before_launch(k):
-    """Even k (asymmetric runs) and k above 63 are refused, on any device,
-    before a launch or the twin."""
-    x = torch.zeros((1, 8, 8), dtype=torch.uint8)
+def _no_launch(*args, **kwargs):
+    raise AssertionError("a kernel library was loaded for a refused k")
+
+
+def _as_if_on_card(monkeypatch):
+    """The wrappers take their CUDA branch for CPU tensors, and any
+    launch fails the test: what a card would see before launching."""
+    monkeypatch.setattr(fs, "_on_cuda", lambda *imgs: True)
+    monkeypatch.setattr(fs, "load_library", _no_launch)
     fs.reset_launches()
+
+
+@pytest.mark.parametrize("k", [0, 2, 28, fs.TOPHAT_MAX_K + 2])
+def test_tophat_wrapper_rejects_k_before_launch(k, monkeypatch):
+    """On the card, even k (asymmetric runs) and k above 63 are refused
+    before any launch.  On the CPU the twin answers at every k >= 1, equal
+    to JAX's tophat_ellipse (k = 0 is no ellipse: both refuse it)."""
+    img = _ragged(k, T=2)
+    x = torch.from_numpy(img)
+    if k >= 1:
+        want = np.stack([np.asarray(j_morph.tophat_ellipse(jnp.asarray(f), k))
+                         for f in img])
+        np.testing.assert_array_equal(fs.tophat_ellipse(x, k).numpy(), want)
+        got, = fs.tophat_riders(x, k, [])
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        with pytest.raises(ValueError, match="ksize"):
+            fs.tophat_ellipse(x, k)
+    _as_if_on_card(monkeypatch)
     with pytest.raises(ValueError, match="ksize"):
         fs.tophat_ellipse(x, k)
     with pytest.raises(ValueError, match="ksize"):
@@ -105,9 +133,16 @@ def test_tophat_wrapper_rejects_k_before_launch(k):
 
 
 @pytest.mark.parametrize("k", [0, fs.THRESHOLD_MAX_K + 1])
-def test_threshold_wrapper_rejects_k_before_launch(k):
-    x = torch.zeros((1, 8, 8), dtype=torch.uint8)
-    fs.reset_launches()
+def test_threshold_wrapper_rejects_k_before_launch(k, monkeypatch):
+    """On the card, k = 0 and k above 128 are refused before any launch
+    (a rider's k before the tophat launches); on the CPU the twins answer."""
+    x = torch.from_numpy(_ragged(k + 1, T=2))
+    want = cross_threshold(x, k, 5)
+    assert torch.equal(fs.bilateral_threshold(x, k, 5), want)
+    assert torch.equal(fs.tophat_riders(x, 29, [(x, k, 5, -1)])[1], want)
+    got, _ = fs.thr_merge_open(x, x, k, 5)
+    assert torch.equal(got, fs.thr_merge_open_plain(x, x, k, 5)[0])
+    _as_if_on_card(monkeypatch)
     with pytest.raises(ValueError, match="ksize"):
         fs.bilateral_threshold(x, k, 5)
     with pytest.raises(ValueError, match="ksize"):

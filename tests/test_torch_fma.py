@@ -196,3 +196,56 @@ def test_combine_taps_equals_jax_at_tiny_weights(pipeline):
         for c, ch in enumerate("RGB"):
             n_diff = int((got[..., c] != want[..., c]).sum())
             assert n_diff == 0, (pipeline, name, ch, n_diff)
+
+
+# ---- where combine_taps may skip the correction ----
+
+
+def test_needs_fma_flags_tiny_weights_and_large_sums():
+    """A pixel needs the correction where a nonzero weight is below 2^-20
+    or the weights sum above 4; zero weights never do."""
+    w = np.array([[0.25, 0.0, TINY, TINY / 2, 0.0, 1.0],
+                  [0.25, 0.0, 0.5, 0.5, 0.0, 1.0],
+                  [0.25, 0.0, 0.5, 0.0, -TINY / 4, 1.0],
+                  [0.25, 0.0, 0.0, 0.0, 0.0, 1.5]], np.float32)
+    got = t_resample.needs_fma(*w)
+    np.testing.assert_array_equal(got, [False, False, False, True, True, True])
+
+
+def _port_warp_grid(pipeline):
+    cam, warp = load_calibration_npz(ASSETS_DIR / "calibration.npz")
+    return t_step.TrackerParams.build(
+        cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+        warp.image_width_height, warp.warped_width_height, warp.mppv,
+        warp.mpph, pipeline=pipeline, device="cpu").grid_warp_roi
+
+
+@pytest.mark.parametrize("pipeline", ["corridor", "fast"])
+def test_combine_taps_float64_sum_exact_where_unflagged(pipeline):
+    """On the whole warp grid, with taps at 0, 1, 254, 255 and random: at
+    every pixel outside ``grid.rounded`` each float64 multiply-add of the
+    chain is exact (its TwoSum residual is 0), so its one f32 rounding is
+    the fma's; and combine_taps equals the chain of ``_fma`` everywhere."""
+    g = _port_warp_grid(pipeline)
+    n = g.base.numel()
+    assert 0 < g.rounded.numel() < n // 1000
+    rng = np.random.default_rng(len(pipeline))
+    vals = np.array([0, 1, 254, 255], np.uint8)
+    taps = [torch.from_numpy(np.concatenate(
+        [vals[rng.integers(0, 4, (1, n, 3))],
+         rng.integers(0, 256, (1, n, 3)).astype(np.uint8)]))
+        for _ in range(4)]
+    ws = [w[:, None] for w in (g.w00, g.w01, g.w10, g.w11)]
+    free = torch.ones(n, dtype=torch.bool)
+    free[g.rounded] = False
+    acc = (taps[1] * ws[1]).float()
+    for p, w in ((taps[0], ws[0]), (taps[2], ws[2]), (taps[3], ws[3])):
+        a = p * w
+        s = a + acc
+        bb = s - a
+        e = (a - (s - bb)) + (acc - bb)
+        assert int((e[:, free] != 0).sum()) == 0
+        acc = s.float()
+    chain = t_resample._fma_chain(*taps, ws)
+    want = torch.round(chain).clamp_(0, 255).to(torch.uint8)
+    assert torch.equal(t_resample.combine_taps(*taps, g), want)

@@ -303,6 +303,7 @@ for name in ("lane_tracker_tpu_torch.kernels.shift_chain",
              "lane_tracker_tpu_torch.kernels.sweep_dots",
              "lane_tracker_tpu_torch.kernels.tile_gather",
              "lane_tracker_tpu_torch.probes.mosaic",
+             "lane_tracker_tpu_torch.probes.filter_redesign",
              "lane_tracker_tpu_torch.timing"):
     assert name in sys.modules, "not walked: " + name
 print("ok")
