@@ -15,7 +15,9 @@ Phases (each raises at the first failure; nothing is skipped):
    PyTorch twins on the card, on the corridor channels of the slice's 64
    frames, the inputs the main path gives them (the second attempt's at
    its k=15 / k=35, C=-5; the standalone threshold at k=65); every output,
-   prefixes included, must match exactly.
+   prefixes included, must match exactly.  The library's launch counter
+   must show ``thr_merge_open`` in 2 kernel launches (the threshold, the
+   bit-packed open + prefix tail) and ``merge_open`` in 1.
 5. Slice: ``chunk_process`` (demo1, 'corridor', two_phase, overlay on) on
    the 64 stills from a fresh state; the attempt-1 kernels must have
    launched and the second attempt's not, the corridor certificate must
@@ -61,14 +63,15 @@ Phases (each raises at the first failure; nothing is skipped):
    launches): swept equal to its twin's, out equal to the twin's for
    ``sweeps`` and within a relative 1e-4 of it (float64 sums) for ``dots``
    and ``both``; ``cuobjdump --dump-sass`` of the built library must show
-   HMMA (tensor-core) instructions in its kernel.  Probe 11's
+   HGMMA (warpgroup tensor-core) instructions in its kernel.  Probe 11's
    ``tile_gather`` on (128, 1280) int32, each op at 16 and 64 reps (8
    launches): equal to its twin.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    per-kernel times against the plain twins with CUDA events; rows 1-3
-   launch by launch (each tophat and threshold entry alone, its own
-   bound, ``launches_ms`` in the row's entry); the
+   and 5 launch by launch (each tophat and threshold entry alone, the open
+   + prefix tail of rows 3 and 5 alone and row 5's whole call, each with
+   its own bound, ``launches_ms`` in the row's entry); the
    probes' rows, each timed once (us per pass of each shift chain, ms per frame of
    each tophat row and of probe 6's kinds, ns per rep of probe 11's
    gathers), with their bounds and the shared-memory traffic of each
@@ -285,30 +288,60 @@ def sass_count(lib_path, kernel, opcode):
     return count, sorted(names)
 
 
-def single_launches(f, r, b, r_feat, b_feat):
-    """Rows 1-3 launch by launch: (row, launch, k, call), each call one
-    launch of that entry alone on the main path's input, through the
-    library's C interface, not counted."""
+def single_launches(f, f2, r, b, r_feat, b_feat, r_th, keep, r_am, b_am):
+    """Rows 1-3 and 5 launch by launch: (row, launch, work, call), each
+    call one launch of that entry alone on the main path's input, through
+    the library's C interface, not counted; work is its (bytes, (operations,
+    their type), ...).  Row 3's second launch is the tail with its merge
+    ((r | b_th) & keep) in the load, row 5's whole call the tail with (r |
+    b); lt_open_prefix is the tail alone on each row's merged image."""
+    import torch
+
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
 
+    N = r.numel()
+    pref_bytes = 4 * N // r.shape[-1] * (r.shape[-1] + 1)
+    u8, i32 = "uint8", "int32"
+
     def tophat(img, k):
-        return lambda: fs._launch_tophat(img, k)
+        return (f"lt_tophat k={k}", (2 * N, (N * tophat_ops(k), u8)),
+                lambda: fs._launch_tophat(img, k))
 
     def threshold(img, k, C, nt):
-        return lambda: fs._launch_threshold(img, k, C, nt)
+        ops = [(N * THRESHOLD_OPS, i32)] + ([(N * NOISE_OPS, u8)]
+                                             if nt >= 0 else [])
+        return (f"lt_cross_threshold k={k}" + (" noise mask" if nt >= 0
+                                                else ""),
+                (2 * N, *ops), lambda: fs._launch_threshold(img, k, C, nt))
 
+    def tail(k, merged=None, merge=None):
+        """The tail alone on a merged image, or with the merge of `merge`
+        = (r, b, keep) in its load."""
+        n_in = 1 if merged is not None else sum(x is not None for x in merge)
+        morph = 2 * morph_ops(k) + (0 if merged is not None else MERGE_OPS)
+        work = ((n_in + 1) * N + pref_bytes, (N * morph, u8),
+                (N * PREFIX_OPS, i32))
+        if merged is not None:
+            return (f"lt_open_prefix k={k}", work,
+                    lambda: fs._launch_open_prefix(merged, k))
+        return (f"lt_merge_open k={k}, {n_in} inputs", work,
+                lambda: fs._launch_merge_open(*merge, k))
+
+    b_th = fs.bilateral_threshold_plain(b_feat, f.ksize_b, f.C_b)
+    merged3 = torch.where(((r_th > 0) | (b_th > 0)) & (keep > 0), 255,
+                          0).to(torch.uint8)
+    merged5 = torch.where((r_am > 0) | (b_am > 0), 255, 0).to(torch.uint8)
     return [
-        ("tophat_ellipse", f"lt_tophat k={f.tophat_r}", f.tophat_r,
-         tophat(r, f.tophat_r)),
-        ("tophat_riders", f"lt_tophat k={f.tophat_b}", f.tophat_b,
-         tophat(b, f.tophat_b)),
-        ("tophat_riders", f"lt_cross_threshold k={f.ksize_r}", f.ksize_r,
-         threshold(r_feat, f.ksize_r, f.C_r, -1)),
-        ("tophat_riders",
-         f"lt_cross_threshold k={f.ksize_noise} noise mask", f.ksize_noise,
-         threshold(b, f.ksize_noise, f.C_noise, f.noise_thresh)),
-        ("thr_merge_open", f"lt_cross_threshold k={f.ksize_b}", f.ksize_b,
-         threshold(b_feat, f.ksize_b, f.C_b, -1)),
+        ("tophat_ellipse", *tophat(r, f.tophat_r)),
+        ("tophat_riders", *tophat(b, f.tophat_b)),
+        ("tophat_riders", *threshold(r_feat, f.ksize_r, f.C_r, -1)),
+        ("tophat_riders", *threshold(b, f.ksize_noise, f.C_noise,
+                                     f.noise_thresh)),
+        ("thr_merge_open", *threshold(b_feat, f.ksize_b, f.C_b, -1)),
+        ("thr_merge_open", *tail(f.open_k, merge=(r_th, b_th, keep))),
+        ("thr_merge_open", *tail(f.open_k, merged=merged3)),
+        ("merge_open", *tail(f2.open_k, merged=merged5)),
+        ("merge_open", *tail(f2.open_k, merge=(r_am, b_am, None))),
     ]
 
 
@@ -519,6 +552,14 @@ def main(argv):
         check(all(n == 0 for n, _ in pairs), f"{name} disagrees with its "
               "plain twin")
     max_err = {name: max(m for _, m in pairs) for name, pairs in errs.items()}
+    n_thr = counted_launches(lambda: fs.thr_merge_open(
+        r_th, b_feat, f.ksize_b, f.C_b, keep, open_k=f.open_k))
+    n_mo = counted_launches(lambda: fs.merge_open(r_am, b_am, keep,
+                                                  open_k=f2.open_k))
+    print(f"[parity] kernel launches counted by the launchers: "
+          f"thr_merge_open {n_thr}, merge_open {n_mo}")
+    check((n_thr, n_mo) == (2, 1), "thr_merge_open did not take 2 kernel "
+          "launches, or merge_open not 1")
     launches = {}
 
     # ---- 5. Slice ----
@@ -777,11 +818,11 @@ def main(argv):
           and all(row["ok"] and row["launches"] == len(tg.REPS)
                   for row in gathers),
           "tile_gather differs from its twin")
-    n_hmma, hmma_fns = sass_count(lib_path, "sweep_dots_kernel", "HMMA")
-    print(f"[probes] SASS of {lib_path.name}: {n_hmma} HMMA instructions "
-          f"in {hmma_fns}")
-    check(n_hmma > 0, "no tensor-core (HMMA) instruction in sweep_dots' "
-          "kernel")
+    n_hgmma, hgmma_fns = sass_count(lib_path, "sweep_dots_kernel", "HGMMA")
+    print(f"[probes] SASS of {lib_path.name}: {n_hgmma} HGMMA instructions "
+          f"in {hgmma_fns}")
+    check(n_hgmma > 0, "no warpgroup tensor-core (HGMMA) instruction in "
+          "sweep_dots' kernel")
     launches.update({name: probe_launches[name] for name in PROBE_KERNELS})
     for name in PROBE_KERNELS:
         max_err[name] = max(row["max_abs_err"] for row in probe_rows
@@ -927,19 +968,12 @@ def main(argv):
               f"G ops) ({card})")
         add_kernel(name, ms, plain_ms, bound_ms, bound_by)
 
-    # Rows 1-3 launch by launch, each entry called alone on the main
-    # path's input (row 3's threshold without its merge epilogue's two
-    # reads), with its own bound; the rows' kernels entries list them as
-    # "launches_ms".
+    # Rows 1-3 and 5 launch by launch, each entry called alone on the main
+    # path's input, with its own bound; the rows' kernels entries list them
+    # as "launches_ms".
     by_row = {}
-    for row, launch, k, call in single_launches(f, r, b, r_feat, b_feat):
-        if launch.startswith("lt_tophat"):
-            work_l = (2 * N, (N * tophat_ops(k), u8))
-        else:
-            ops_l = [(N * THRESHOLD_OPS, i32)]
-            if "noise" in launch:
-                ops_l.append((N * NOISE_OPS, u8))
-            work_l = (2 * N, *ops_l)
+    for row, launch, work_l, call in single_launches(
+            f, f2, r, b, r_feat, b_feat, r_th, keep, r_am, b_am):
         bound_l, by_l = bound(*work_l)
         part = {"launch": launch, "bound_ms": bound_l, "bound_by": by_l}
         k1 = cuda_ms(call, LAUNCH_REPS)

@@ -20,8 +20,9 @@
 //                         independent tophats, k=29 on R and k=55 on LAB-B,
 //                         in one kernel): one erode and one dilate launch
 //                         whose CTAs split between the two problems
-// The open + prefix tail is one host-side launcher (launch_open_prefix)
-// that both merge entries call.  The second attempt's adaptive mean
+// The merge + open + prefix tail is one kernel (open_tail_kernel) that both
+// merge entries launch, lt_merge_open with the merge in its load;
+// lt_open_prefix launches it alone.  The second attempt's adaptive mean
 // threshold is in adaptive_mean.cu.
 // Everything is integer, so each entry is bit-exact with its plain PyTorch
 // twin in lane_tracker_tpu_torch/kernels/filter_stage.py.
@@ -31,22 +32,21 @@
 // returns cudaGetLastError().  Images are (T, H, W) uint8, row-major,
 // contiguous.  lt_filter_stage_launches counts the kernels launched.
 //
-// What bounds them on the H100: shared-memory traffic and issue slots, not
-// HBM bytes.  Each kernel reads its u8 inputs from device memory once and
-// writes once, while a naive stencil would read every pixel up to k*k
-// times from shared memory.
+// What bounds them on the H100: shared-memory traffic and issue slots for
+// the stencils, HBM bytes for the tail.  Each kernel reads its u8 inputs
+// from device memory once and writes once, while a naive stencil would
+// read every pixel up to k*k times from shared memory.
 //   * The tophat (tophat_kernel): four pixels a word, one plane of
 //     horizontal window min/max widened in place through the ellipse's
 //     distinct half-widths, erode and dilate in one launch; see its notes.
 //   * The cross threshold (threshold_kernel): running arm sums, row walkers
 //     and column walkers over a tall staged tile; see its notes.
-//   * The 5x5 open of the merge entries (morph_kernel): a 32x32 tile plus
-//     a k/2 halo (255 outside the image for erode, 0 for dilate) with a
-//     pow2 pyramid of horizontal window min/max, two shared reads per SE
-//     row; erode and dilate are two launches.
-//   * Row prefixes: one warp per image row, shuffle scans of 32 columns.
-//   * The merge of lt_merge_open is a grid-stride elementwise pass: HBM
-//     bound, three u8 reads and one write per pixel.
+//   * The merge + open + prefix tail (open_tail_kernel): 32 binary pixels a
+//     word, the open as ANDs and ORs of funnel-shifted words, the prefixes
+//     from popcounts; see its notes.
+//   * The probes' pow2-pyramid tiles (morph_kernel): a 32x32 tile plus a
+//     k/2 halo (255 outside the image for erode, 0 for dilate), two shared
+//     reads per SE row; erode and dilate are two launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,13 +77,10 @@ cudaError_t launched() {
 }
 
 // Whether a kernel may move whole 16-byte quads: W a multiple of 16 and
-// every (non-null) image 16-byte aligned.
-bool aligned16(const void* a, const void* b, const void* c, const void* d,
-               int W) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
-                         reinterpret_cast<uintptr_t>(b) |
-                         reinterpret_cast<uintptr_t>(c) |
-                         reinterpret_cast<uintptr_t>(d);
+// both images 16-byte aligned.
+bool aligned16(const void* a, const void* b, int W) {
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
   return W % 16 == 0 && bits % 16 == 0;
 }
 
@@ -531,8 +528,7 @@ __global__ void __launch_bounds__(kTopThreads, 2)
 // Bilateral cross threshold, mode 'floor': hit iff both horizontal k-arm
 // sums < k*x - C*k or both vertical ones are; arms exclude the pixel and
 // read 0 outside the image.  noise_thresh >= 0 gives the keep-mask
-// (x < noise_thresh) | hit.  Non-null merge_r / keep give the merge
-// epilogue ((merge_r | hit) & keep).  Output 0/255.
+// (x < noise_thresh) | hit.  Output 0/255.
 //
 // What bounds it: shared-memory reads and issue slots (its HBM traffic is
 // one read of the input and one write).  The design: a CTA stages a
@@ -570,8 +566,6 @@ inline size_t thr_smem(int k) {
 // Grid: (ceil(W / 128), ceil(H / 128), T); kThrThreads threads.
 __global__ void __launch_bounds__(kThrThreads)
     threshold_kernel(const uint8_t* __restrict__ in,
-                     const uint8_t* __restrict__ merge_r,
-                     const uint8_t* __restrict__ keep,
                      uint8_t* __restrict__ out, int H, int W, int k, int C,
                      int noise_thresh, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -648,8 +642,6 @@ __global__ void __launch_bounds__(kThrThreads)
       const int gy = y0 + y;
       if (gy < H && gx < W) {
         const size_t o = frame + (size_t)gy * W + gx;
-        if (merge_r != nullptr) hit = hit || merge_r[o] != 0;
-        if (keep != nullptr) hit = hit && keep[o] != 0;
         out[o] = hit ? 255 : 0;
       }
       // The last slide reads at most one row past the strip (the hit
@@ -660,40 +652,251 @@ __global__ void __launch_bounds__(kThrThreads)
   }
 }
 
-// Packed exclusive row prefixes: pref[row][X] = (xsum << shift) | count
-// over the nonzero pixels with column < X, X = 0..W.  One warp per row.
-__global__ void row_prefix_kernel(const uint8_t* __restrict__ bin,
-                                  int32_t* __restrict__ pref, int n_rows,
-                                  int W, int shift) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const uint8_t* b = bin + (size_t)row * W;
-  int32_t* p = pref + (size_t)row * (W + 1);
-  if (lane == 0) p[0] = 0;
-  int carry = 0;
-  for (int base = 0; base < W; base += 32) {
-    const int x = base + lane;
-    int v = (x < W && b[x] != 0) ? ((x << shift) | 1) : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int n = __shfl_up_sync(0xffffffffu, v, d);
-      if (lane >= d) v += n;
-    }
-    if (x < W) p[x + 1] = carry + v;
-    carry += __shfl_sync(0xffffffffu, v, 31);
+// ---- The merge + open + prefix tail (lt_thr_merge_open's second launch,
+// lt_merge_open, lt_open_prefix): open_tail_kernel
+//
+// binary = open((a | b) & keep) as 0/255 with the ellipse runs, and its
+// packed exclusive row prefixes pref[row][X] = (xsum << shift) + count over
+// the set pixels with column < X, X = 0..W (uint32 arithmetic: int32's
+// wrap, as torch.cumsum's).  b and keep may be null.
+//
+// What bounds it: HBM bytes (the input read, binary written and the int32
+// prefixes, four bytes a pixel, written).  The input of the open is binary,
+// so the design keeps 32 pixels a 32-bit word (bit b of word i is column
+// 32 i + b) and the open becomes bitwise:
+//   * A CTA takes a band of kBandRows output rows across the full width of
+//     a frame and packs its input rows, with 2r halo rows for the erode and
+//     2r more for the dilate, from 16-, 4- or 1-byte loads (byte compares
+//     by a carry trick, four at a time).  A row's words have a pad word on
+//     each side.
+//   * Erode (dilate): per output word and SE row, the AND (OR) of the
+//     source word shifted by every offset in the run, from the 96-bit
+//     window of the word and its neighbours (funnel shifts; a doubling
+//     window, log2 of the run's length steps), folded over the SE rows.
+//     The erode's outside (rows, pad words and the bits past W) is 1, the
+//     reference's 255 pad; the eroded rows outside the image, the pads and
+//     the bits past W are 0 for the dilate, its pad.  Half-widths up to 31
+//     (one neighbour word): odd k up to 63.
+//   * Prefixes: each dilated word's packed total from popcounts (the
+//     count, and the column sum from the popcounts of five bit-plane
+//     masks), an exclusive scan over a row's words, then a warp a row
+//     writes X = 32 j + lane from word j's bits below the lane: coalesced
+//     int32 stores.  The binary bytes are written from the bits, as 16, 4
+//     or 1 bytes a thread.
+
+constexpr int kOpenThreads = 256;
+constexpr int kOpenWarps = kOpenThreads / 32;
+constexpr int kBandRows = 32;
+constexpr int kOpenMaxR = 31;  // half-widths a neighbour word covers
+
+// Shared memory of a band: the packed input rows and the eroded rows (each
+// with a pad word a side), the dilated rows (plus a zero word) and their
+// exclusive word prefixes (plus the row's total).
+size_t open_smem(int r, int W) {
+  const int nw = (W + 31) / 32;
+  return 4 * ((size_t)(kBandRows + 4 * r + kBandRows + 2 * r) * (nw + 2) +
+              2 * (size_t)kBandRows * (nw + 1));
+}
+
+// Four bytes' nonzero flags as four bits.
+__device__ __forceinline__ uint32_t nz4(uint32_t v) {
+  const uint32_t hi = (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u;
+  return (((hi >> 7) * 0x00204081u) >> 21) & 0xfu;
+}
+
+// Four bits as four bytes of 0 or 255.
+__device__ __forceinline__ uint32_t bytes4(uint32_t nib) {
+  return ((nib * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+// The nonzero flags of V bytes at p (V = 16, 4 or 1, p aligned to V).
+template <int V>
+__device__ __forceinline__ uint32_t chunk_bits(const uint8_t* p) {
+  if constexpr (V == 16) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    return nz4(q.x) | nz4(q.y) << 4 | nz4(q.z) << 8 | nz4(q.w) << 12;
+  } else if constexpr (V == 4) {
+    return nz4(*reinterpret_cast<const uint32_t*>(p));
+  } else {
+    return p[0] != 0;
   }
 }
 
-// merged = ((r | b) & keep) as 0/255, elementwise; keep may be null.
-__global__ void merge_kernel(const uint8_t* __restrict__ r,
-                             const uint8_t* __restrict__ b,
-                             const uint8_t* __restrict__ keep,
-                             uint8_t* __restrict__ merged, size_t n) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    bool hit = r[i] != 0 || b[i] != 0;
-    if (keep != nullptr) hit = hit && keep[i] != 0;
-    merged[i] = hit ? 255 : 0;
+// The band's input word of columns [x0, x0 + 32) of a row: the bits of
+// (a | b) & keep, 1 past W.  W % V == 0, so a chunk is wholly in or out.
+template <int V>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* a,
+                                              const uint8_t* b,
+                                              const uint8_t* keep, int x0,
+                                              int W) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int c = 0; c < 32 / V; ++c) {
+    const int x = x0 + c * V;
+    uint32_t bits = (1u << V) - 1;
+    if (x < W) {
+      uint32_t m = chunk_bits<V>(a + x);
+      if (b != nullptr) m |= chunk_bits<V>(b + x);
+      if (keep != nullptr) m &= chunk_bits<V>(keep + x);
+      bits = m;
+    }
+    w |= bits << (c * V);
+  }
+  return w;
+}
+
+// Bit j of the result: op over bits j + lo .. j + hi of the 96-bit row
+// segment (l, c, r) around c (bit j of c is bit 32 + j of the segment);
+// -32 < lo <= hi < 32.  a[x] holds op over [x, x + len), doubled while
+// 2 len <= n, then widened to n; the bits past 95 only reach windows no
+// output reads.
+template <bool kOr>
+__device__ __forceinline__ uint32_t window(uint32_t l, uint32_t c, uint32_t r,
+                                           int lo, int hi) {
+  const int n = hi - lo + 1;
+  uint32_t a0 = l, a1 = c, a2 = r;
+  int len = 1;
+  while (len < n) {
+    const int s = 2 * len <= n ? len : n - len;
+    const uint32_t b0 = __funnelshift_r(a0, a1, s);
+    const uint32_t b1 = __funnelshift_r(a1, a2, s);
+    const uint32_t b2 = a2 >> s;
+    a0 = kOr ? a0 | b0 : a0 & b0;
+    a1 = kOr ? a1 | b1 : a1 & b1;
+    a2 = kOr ? a2 | b2 : a2 & b2;
+    len += s;
+  }
+  return lo <= 0 ? __funnelshift_l(a0, a1, -lo) : __funnelshift_r(a1, a2, lo);
+}
+
+// The op of the runs over rows of `src` (pitch words, a pad word a side):
+// output word i of the row whose SE row dy reads src row `row0 + dy`.
+template <bool kOr>
+__device__ __forceinline__ uint32_t morph_word(const uint32_t* src, int pitch,
+                                               int row0, int i,
+                                               const SeRuns& runs) {
+  uint32_t acc = kOr ? 0u : 0xffffffffu;
+  for (int q = 0; q < runs.n; ++q) {
+    const uint32_t* p = src + (row0 + runs.dy[q]) * pitch + 1 + i;
+    const uint32_t v = window<kOr>(p[-1], p[0], p[1], runs.lo[q], runs.hi[q]);
+    acc = kOr ? acc | v : acc & v;
+  }
+  return acc;
+}
+
+// Sum of the set bit positions of m.
+__device__ __forceinline__ uint32_t bit_positions(uint32_t m) {
+  return __popc(m & 0xaaaaaaaau) + 2 * __popc(m & 0xccccccccu) +
+         4 * __popc(m & 0xf0f0f0f0u) + 8 * __popc(m & 0xff00ff00u) +
+         16 * __popc(m & 0xffff0000u);
+}
+
+// Packed prefix contribution of the set bits of m in word j.
+__device__ __forceinline__ uint32_t packed_bits(uint32_t m, int j,
+                                                int shift) {
+  const uint32_t n = __popc(m);
+  return ((n * 32u * j + bit_positions(m)) << shift) + n;
+}
+
+// Grid (ceil(H / kBandRows), T); kOpenThreads threads.
+template <int V>
+__global__ void __launch_bounds__(kOpenThreads)
+    open_tail_kernel(const uint8_t* __restrict__ a,
+                     const uint8_t* __restrict__ b,
+                     const uint8_t* __restrict__ keep,
+                     uint8_t* __restrict__ out, int32_t* __restrict__ pref,
+                     int H, int W, int shift, SeRuns runs, int r) {
+  extern __shared__ __align__(16) uint32_t words[];
+  const int nw = (W + 31) / 32;
+  const int pitch = nw + 2;
+  const int n_in = kBandRows + 4 * r;   // input rows y0 - 2r ..
+  const int n_ero = kBandRows + 2 * r;  // eroded rows y0 - r ..
+  uint32_t* in_bits = words;
+  uint32_t* ero = in_bits + n_in * pitch;
+  uint32_t* dil = ero + n_ero * pitch;         // kBandRows x (nw + 1)
+  uint32_t* wpre = dil + kBandRows * (nw + 1);  // kBandRows x (nw + 1)
+  const int y0 = blockIdx.x * kBandRows;
+  const size_t frame = (size_t)blockIdx.y * H * W;
+  const int tid = threadIdx.x;
+  const uint32_t tail = W % 32 ? (1u << (W % 32)) - 1 : 0xffffffffu;
+
+  // Pack: 1 outside the image (the erode's pad).
+  for (int i = tid; i < n_in * pitch; i += kOpenThreads) {
+    const int row = i / pitch;
+    const int j = i - row * pitch - 1;
+    const int gy = y0 - 2 * r + row;
+    uint32_t v = 0xffffffffu;
+    if (j >= 0 && j < nw && gy >= 0 && gy < H) {
+      const size_t o = frame + (size_t)gy * W;
+      v = load_word<V>(a + o, b == nullptr ? nullptr : b + o,
+                       keep == nullptr ? nullptr : keep + o, 32 * j, W);
+    }
+    in_bits[i] = v;
+  }
+  __syncthreads();
+  // Erode: 0 outside the image (the dilate's pad).
+  for (int i = tid; i < n_ero * pitch; i += kOpenThreads) {
+    const int row = i / pitch;
+    const int j = i - row * pitch - 1;
+    const int gy = y0 - r + row;
+    uint32_t v = 0;
+    if (j >= 0 && j < nw && gy >= 0 && gy < H) {
+      v = morph_word<false>(in_bits, pitch, row + r, j, runs);
+      if (j == nw - 1) v &= tail;
+    }
+    ero[i] = v;
+  }
+  __syncthreads();
+  // Dilate, and each word's packed total.
+  for (int i = tid; i < kBandRows * (nw + 1); i += kOpenThreads) {
+    const int row = i / (nw + 1);
+    const int j = i - row * (nw + 1);
+    uint32_t v = 0;
+    if (j < nw && y0 + row < H) {
+      v = morph_word<true>(ero, pitch, row + r, j, runs);
+      if (j == nw - 1) v &= tail;
+    }
+    dil[i] = v;
+    wpre[i] = packed_bits(v, j, shift);
+  }
+  __syncthreads();
+  // Exclusive scan of each row's word totals.
+  if (tid < kBandRows) {
+    uint32_t* p = wpre + tid * (nw + 1);
+    uint32_t run = 0;
+    for (int j = 0; j <= nw; ++j) {
+      const uint32_t v = p[j];
+      p[j] = run;
+      run += v;
+    }
+  }
+  __syncthreads();
+  // A warp a row: the binary bytes and the prefixes.
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const uint32_t below = (1u << lane) - 1;  // lane 0: none
+  for (int row = warp; row < kBandRows && y0 + row < H; row += kOpenWarps) {
+    const uint32_t* d = dil + row * (nw + 1);
+    const uint32_t* wp = wpre + row * (nw + 1);
+    const size_t o = frame + (size_t)(y0 + row) * W;
+    for (int x = V * lane; x < W; x += 32 * V) {
+      const uint32_t bits = d[x >> 5] >> (x & 31);
+      uint8_t* dst = out + o + x;
+      if constexpr (V == 16) {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(bytes4(bits & 0xf), bytes4((bits >> 4) & 0xf),
+                       bytes4((bits >> 8) & 0xf), bytes4((bits >> 12) & 0xf));
+      } else if constexpr (V == 4) {
+        *reinterpret_cast<uint32_t*>(dst) = bytes4(bits & 0xf);
+      } else {
+        *dst = (bits & 1) ? 255 : 0;
+      }
+    }
+    int32_t* p = pref + (frame / W + y0 + row) * (size_t)(W + 1);
+    for (int X = lane; X <= W; X += 32) {
+      const int j = X >> 5;
+      p[X] = (int32_t)(wp[j] + packed_bits(d[j] & below, j, shift));
+    }
   }
 }
 
@@ -709,7 +912,7 @@ size_t morph_smem(const SeRuns& runs, int ksize, size_t elem) {
   return elem * pyramid_levels(runs) * (kTileH + 2 * r) * (kTileW + 2 * r);
 }
 
-template <bool kMax, bool kSubtract, typename S = uint8_t>
+template <bool kMax, bool kSubtract, typename S>
 cudaError_t launch_morph(const uint8_t* in, const uint8_t* sub_src,
                          uint8_t* out, const SeRuns& runs, int ksize, int T,
                          int H, int W, cudaStream_t stream) {
@@ -751,8 +954,7 @@ cudaError_t launch_dual_morph(const uint8_t* in_a, const uint8_t* in_b,
   return launched();
 }
 
-cudaError_t launch_threshold(const uint8_t* in, const uint8_t* merge_r,
-                             const uint8_t* keep, uint8_t* out, int T, int H,
+cudaError_t launch_threshold(const uint8_t* in, uint8_t* out, int T, int H,
                              int W, int k, int C, int noise_thresh,
                              cudaStream_t stream) {
   const size_t smem = thr_smem(k);
@@ -760,8 +962,8 @@ cudaError_t launch_threshold(const uint8_t* in, const uint8_t* merge_r,
   if (err != cudaSuccess) return err;
   const dim3 grid((W + kThrTW - 1) / kThrTW, (H + kThrTH - 1) / kThrTH, T);
   threshold_kernel<<<grid, kThrThreads, smem, stream>>>(
-      in, merge_r, keep, out, H, W, k, C, noise_thresh,
-      aligned16(in, out, merge_r, keep, W));
+      in, out, H, W, k, C, noise_thresh,
+      aligned16(in, out, W));
   return launched();
 }
 
@@ -861,30 +1063,52 @@ cudaError_t launch_tophat_fused(const uint8_t* in, uint8_t* out,
   const dim3 grid((W + 16 * p.tq - 1) / (16 * p.tq), (H + p.th - 1) / p.th,
                   T);
   tophat_kernel<<<grid, kTopThreads, smem, stream>>>(
-      in, out, H, W, aligned16(in, out, nullptr, nullptr, W), p);
+      in, out, H, W, aligned16(in, out, W), p);
   return launched();
 }
 
-// The tail both merge entries share: binary = open(merged) with the
-// ellipse runs (erode into `eroded`, dilate into `bin`; the erode's 255
-// fill outside the image is the reference's pad of the merged input), then
-// the packed row prefixes of binary into pref.
-cudaError_t launch_open_prefix(const uint8_t* merged, uint8_t* eroded,
-                               uint8_t* bin, int32_t* pref, const SeRuns& se,
-                               int open_k, int T, int H, int W, int shift,
+template <int V>
+cudaError_t launch_open_tail_v(const uint8_t* a, const uint8_t* b,
+                               const uint8_t* keep, uint8_t* bin,
+                               int32_t* pref, const SeRuns& se, int r, int T,
+                               int H, int W, int shift, size_t smem,
                                cudaStream_t s) {
-  cudaError_t err =
-      launch_morph<false, false>(merged, nullptr, eroded, se, open_k, T, H, W,
-                                 s);
+  cudaError_t err = allow_smem(open_tail_kernel<V>, smem);
   if (err != cudaSuccess) return err;
-  err = launch_morph<true, false>(eroded, nullptr, bin, se, open_k, T, H, W,
-                                  s);
-  if (err != cudaSuccess) return err;
-  const int n_rows = T * H;
-  const int threads = 256;
-  const int blocks = (n_rows * 32 + threads - 1) / threads;
-  row_prefix_kernel<<<blocks, threads, 0, s>>>(bin, pref, n_rows, W, shift);
+  const dim3 grid((H + kBandRows - 1) / kBandRows, T);
+  open_tail_kernel<V><<<grid, kOpenThreads, smem, s>>>(a, b, keep, bin, pref,
+                                                       H, W, shift, se, r);
   return launched();
+}
+
+// The tail every merge entry ends with, one launch of open_tail_kernel:
+// binary = open((a | b) & keep) with the ellipse runs (b, keep may be
+// null), and its packed row prefixes.  The runs must lie within
+// [-kOpenMaxR, kOpenMaxR] both ways.
+cudaError_t launch_open_tail(const uint8_t* a, const uint8_t* b,
+                             const uint8_t* keep, uint8_t* bin, int32_t* pref,
+                             const SeRuns& se, int open_k, int T, int H,
+                             int W, int shift, cudaStream_t s) {
+  const int r = open_k / 2;
+  if (r > kOpenMaxR) return cudaErrorInvalidValue;
+  for (int q = 0; q < se.n; ++q) {
+    if (se.dy[q] < -r || se.dy[q] > r || se.lo[q] < -kOpenMaxR ||
+        se.hi[q] > kOpenMaxR)
+      return cudaErrorInvalidValue;
+  }
+  const size_t smem = open_smem(r, W);
+  if (smem > (size_t)227 * 1024) return cudaErrorInvalidValue;
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+      reinterpret_cast<uintptr_t>(keep) | reinterpret_cast<uintptr_t>(bin);
+  if (W % 16 == 0 && bits % 16 == 0)
+    return launch_open_tail_v<16>(a, b, keep, bin, pref, se, r, T, H, W,
+                                  shift, smem, s);
+  if (W % 4 == 0 && bits % 4 == 0)
+    return launch_open_tail_v<4>(a, b, keep, bin, pref, se, r, T, H, W,
+                                 shift, smem, s);
+  return launch_open_tail_v<1>(a, b, keep, bin, pref, se, r, T, H, W, shift,
+                               smem, s);
 }
 
 }  // namespace
@@ -964,62 +1188,65 @@ int lt_cross_threshold(const void* img, void* out, int T, int H, int W,
                        int ksize, int C, int noise_thresh, void* stream) {
   if (ksize < 1 || T < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_threshold(static_cast<const uint8_t*>(img), nullptr,
-                               nullptr, static_cast<uint8_t*>(out), T, H, W,
-                               ksize, C, noise_thresh,
+  return (int)launch_threshold(static_cast<const uint8_t*>(img),
+                               static_cast<uint8_t*>(out), T, H, W, ksize, C,
+                               noise_thresh,
                                static_cast<cudaStream_t>(stream));
 }
 
 // binary = open(((r_th | thr(b_feat, kb, Cb)) & keep) as 0/255, ellipse
 // open_k); pref = packed exclusive row prefixes of binary, (T, H, W+1).
-// keep may be null.  scratch0 / scratch1 hold the merged and the eroded
-// images.
+// keep may be null.  b_th holds the threshold: two launches, the merge in
+// the tail's load (as lt_merge_open's).
 int lt_thr_merge_open(const void* r_th, const void* b_feat, const void* keep,
-                      void* out, void* pref, void* scratch0, void* scratch1,
-                      const void* runs, int n_runs, int open_k, int T, int H,
-                      int W, int kb, int Cb, int shift, void* stream) {
+                      void* out, void* pref, void* b_th, const void* runs,
+                      int n_runs, int open_k, int T, int H, int W, int kb,
+                      int Cb, int shift, void* stream) {
   SeRuns se;
   if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
       open_k < 1 || kb < 1 || T < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint8_t* merged = static_cast<uint8_t*>(scratch0);
-  cudaError_t err = launch_threshold(
-      static_cast<const uint8_t*>(b_feat), static_cast<const uint8_t*>(r_th),
-      static_cast<const uint8_t*>(keep), merged, T, H, W, kb, Cb, -1, s);
+  uint8_t* bt = static_cast<uint8_t*>(b_th);
+  cudaError_t err = launch_threshold(static_cast<const uint8_t*>(b_feat), bt,
+                                     T, H, W, kb, Cb, -1, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_open_prefix(merged, static_cast<uint8_t*>(scratch1),
-                                 static_cast<uint8_t*>(out),
-                                 static_cast<int32_t*>(pref), se, open_k, T,
-                                 H, W, shift, s);
+  return (int)launch_open_tail(
+      static_cast<const uint8_t*>(r_th), bt, static_cast<const uint8_t*>(keep),
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(pref), se, open_k, T,
+      H, W, shift, s);
 }
 
 // binary = open(((r_th | b_th) & keep) as 0/255, ellipse open_k); pref as
-// in lt_thr_merge_open.  keep may be null.  scratch0 / scratch1 hold the
-// merged and the eroded images.
+// in lt_thr_merge_open.  keep may be null.  One launch: the merge is the
+// tail's load.
 int lt_merge_open(const void* r_th, const void* b_th, const void* keep,
-                  void* out, void* pref, void* scratch0, void* scratch1,
-                  const void* runs, int n_runs, int open_k, int T, int H,
-                  int W, int shift, void* stream) {
+                  void* out, void* pref, const void* runs, int n_runs,
+                  int open_k, int T, int H, int W, int shift, void* stream) {
   SeRuns se;
   if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
       open_k < 1 || T < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint8_t* merged = static_cast<uint8_t*>(scratch0);
-  const size_t n = (size_t)T * H * W;
-  const int threads = 256;
-  const size_t want = (n + threads - 1) / threads;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  merge_kernel<<<blocks, threads, 0, s>>>(
+  return (int)launch_open_tail(
       static_cast<const uint8_t*>(r_th), static_cast<const uint8_t*>(b_th),
-      static_cast<const uint8_t*>(keep), merged, n);
-  cudaError_t err = launched();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_open_prefix(merged, static_cast<uint8_t*>(scratch1),
-                                 static_cast<uint8_t*>(out),
-                                 static_cast<int32_t*>(pref), se, open_k, T,
-                                 H, W, shift, s);
+      static_cast<const uint8_t*>(keep), static_cast<uint8_t*>(out),
+      static_cast<int32_t*>(pref), se, open_k, T, H, W, shift,
+      static_cast<cudaStream_t>(stream));
+}
+
+// binary = open(merged) as 0/255 and its prefixes: the tail alone, one
+// launch.
+int lt_open_prefix(const void* merged, void* out, void* pref,
+                   const void* runs, int n_runs, int open_k, int T, int H,
+                   int W, int shift, void* stream) {
+  SeRuns se;
+  if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
+      open_k < 1 || T < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_open_tail(
+      static_cast<const uint8_t*>(merged), nullptr, nullptr,
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(pref), se, open_k, T,
+      H, W, shift, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -40,10 +40,10 @@ _D = ctypes.c_double
 SIGNATURES = {
     "lt_tophat": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lt_cross_threshold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "lt_thr_merge_open": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _P),
-    "lt_merge_open": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _P),
+    "lt_thr_merge_open": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P),
+    "lt_merge_open": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lt_open_prefix": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lt_adaptive_mean": (_P, _P, _I, _I, _I, _I, _I, _P),
     "lt_channel_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P),

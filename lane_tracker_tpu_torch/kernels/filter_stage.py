@@ -17,7 +17,9 @@ Replaced TPU kernels (lane_tracker_tpu/kernels/filter_stage2.py), attempt 1:
   VPU sweeps; here the riders are separate launches of the cross-threshold
   kernel, which keeps running arm sums at any arm length.
 * ``thr_merge_open``  <- ``thr_merge_open_pallas2`` (B cross threshold,
-  (R | B) & keep, 5x5 elliptical open, packed row prefixes).
+  (R | B) & keep, 5x5 elliptical open, packed row prefixes): the
+  threshold kernel, then the open + prefix tail kernel with the merge in
+  its load; two launches.
 
 The second attempt's 'neighborhood' filter, and the bilateral filter's
 route for ``ksize_b + 1 > 64``:
@@ -25,8 +27,8 @@ route for ``ksize_b + 1 > 64``:
 * ``adaptive_mean``   <- ``adaptive_mean_pallas2`` (``cv2.adaptiveThreshold``
   MEAN_C / BINARY, replicate border, odd k; csrc/adaptive_mean.cu).
 * ``merge_open``      <- ``merge_open_pallas2`` ((r | b) & keep, 5x5
-  elliptical open, packed row prefixes; the open + prefix tail is the one
-  ``lt_thr_merge_open`` runs).
+  elliptical open, packed row prefixes): one launch of the tail kernel
+  ``lt_thr_merge_open`` ends with, the merge in its load.
 * ``bilateral_threshold`` <- ``bilateral_threshold_pallas2`` (the standalone
   cross threshold, optionally the noise keep-mask; the riders' kernel).
 
@@ -47,8 +49,10 @@ top of each source: the kernels are shared-memory and issue bound.  The
 tophat keeps four pixels a word (min/max by Hopper's DPX on two 16-bit
 lanes) and widens one plane of window min/max through the ellipse's
 distinct half-widths, erode and dilate in one launch; the threshold keeps
-running arm sums; the 5x5 open reads a pow2 window pyramid; the adaptive
-mean reads an integral image.
+running arm sums; the open + prefix tail keeps 32 binary pixels a word
+(the open as ANDs and ORs of shifted words, the prefixes from popcounts);
+the probes' tophats read a pow2 window pyramid; the adaptive mean reads an
+integral image.
 ``kernel_launches()`` reads the library's own count of kernel launches.
 """
 
@@ -113,6 +117,9 @@ ADAPTIVE_MEAN_MAX_K = 209
 TOPHAT_MAX_K = 63
 TOPHAT_MAX_STEPS = 40
 THRESHOLD_MAX_K = 128
+# The open + prefix tail takes odd k whose half-width one neighbour word of
+# 32 pixels covers.
+OPEN_MAX_K = 63
 LAUNCHES = {name: 0 for name in REPLACES}
 
 
@@ -166,6 +173,14 @@ def _tophat_k(ksize) -> int:
     return k
 
 
+def _open_k(ksize) -> int:
+    k = int(ksize)
+    if k % 2 != 1 or not 1 <= k <= OPEN_MAX_K:
+        raise ValueError(f"the open + prefix kernel needs an odd ksize in "
+                         f"[1, {OPEN_MAX_K}], got {ksize}")
+    return k
+
+
 def _threshold_k(ksize) -> int:
     k = int(ksize)
     if not 1 <= k <= THRESHOLD_MAX_K:
@@ -195,13 +210,52 @@ def _launch_tophat(img: torch.Tensor, ksize: int) -> torch.Tensor:
     return out
 
 
-def _open_prefix_buffers(like: torch.Tensor):
-    """(binary, packed prefixes, merged scratch, eroded scratch) for the
-    merge + open + prefix tail of a (T, H, W) uint8 batch."""
+def _prefix_buffer(like: torch.Tensor) -> torch.Tensor:
+    """The (T, H, W + 1) int32 packed prefixes of a (T, H, W) batch."""
     T, H, W = like.shape
-    pref = torch.empty((T, H, W + 1), dtype=torch.int32, device=like.device)
-    return (torch.empty_like(like), pref, torch.empty_like(like),
-            torch.empty_like(like))
+    return torch.empty((T, H, W + 1), dtype=torch.int32, device=like.device)
+
+
+def _launch_open_prefix(merged: torch.Tensor, open_k: int) -> tuple:
+    """The open + prefix tail alone, one launch: (binary, packed
+    prefixes) of a merged 0/255 image."""
+    T, H, W = merged.shape
+    out, pref = torch.empty_like(merged), _prefix_buffer(merged)
+    runs = _runs_table(int(open_k))
+    _check(load_library().lt_open_prefix(
+        merged.data_ptr(), out.data_ptr(), pref.data_ptr(), runs.ctypes.data,
+        len(runs), int(open_k), T, H, W, _count_shift(W), _stream()),
+        "lt_open_prefix")
+    return out, pref
+
+
+def _launch_thr_merge_open(r_th, b_feat, keep, kb, Cb, open_k) -> tuple:
+    """The threshold into a scratch image, then the tail with the merge in
+    its load: two launches."""
+    T, H, W = r_th.shape
+    out, pref = torch.empty_like(r_th), _prefix_buffer(r_th)
+    b_th = torch.empty_like(r_th)
+    runs = _runs_table(int(open_k))
+    _check(load_library().lt_thr_merge_open(
+        r_th.data_ptr(), b_feat.data_ptr(),
+        None if keep is None else keep.data_ptr(), out.data_ptr(),
+        pref.data_ptr(), b_th.data_ptr(), runs.ctypes.data, len(runs),
+        int(open_k), T, H, W, int(kb), int(Cb), _count_shift(W), _stream()),
+        "lt_thr_merge_open")
+    return out, pref
+
+
+def _launch_merge_open(r_th, b_th, keep, open_k) -> tuple:
+    """The tail with the merge in its load: one launch."""
+    T, H, W = r_th.shape
+    out, pref = torch.empty_like(r_th), _prefix_buffer(r_th)
+    runs = _runs_table(int(open_k))
+    _check(load_library().lt_merge_open(
+        r_th.data_ptr(), b_th.data_ptr(),
+        None if keep is None else keep.data_ptr(), out.data_ptr(),
+        pref.data_ptr(), runs.ctypes.data, len(runs), int(open_k), T, H, W,
+        _count_shift(W), _stream()), "lt_merge_open")
+    return out, pref
 
 
 def _launch_threshold(img: torch.Tensor, k: int, C: int,
@@ -330,21 +384,13 @@ def thr_merge_open(r_th: torch.Tensor, b_feat: torch.Tensor, kb: int,
     """open_k ellipse opening of ``((r_th | thr(b_feat, kb, Cb)) & keep)``
     as 0/255, plus its packed exclusive row prefixes (T, H, W + 1) int32
     with ``shift = (W + 1).bit_length()``.  Returns (binary, RowPrefixes).
-    kb at most THRESHOLD_MAX_K on the card."""
+    kb at most THRESHOLD_MAX_K and open_k odd, at most OPEN_MAX_K, on the
+    card (the twin takes any)."""
     imgs = (r_th, b_feat) if keep is None else (r_th, b_feat, keep)
     if not _on_cuda(*imgs):
         return thr_merge_open_plain(r_th, b_feat, kb, Cb, keep, open_k)
-    kb = _threshold_k(kb)
-    T, H, W = r_th.shape
-    out, pref, scratch0, scratch1 = _open_prefix_buffers(r_th)
-    runs = _runs_table(int(open_k))
-    _check(load_library().lt_thr_merge_open(
-        r_th.data_ptr(), b_feat.data_ptr(),
-        None if keep is None else keep.data_ptr(),
-        out.data_ptr(), pref.data_ptr(), scratch0.data_ptr(),
-        scratch1.data_ptr(), runs.ctypes.data, len(runs), int(open_k),
-        T, H, W, int(kb), int(Cb), _count_shift(W), _stream()),
-        "lt_thr_merge_open")
+    kb, open_k = _threshold_k(kb), _open_k(open_k)
+    out, pref = _launch_thr_merge_open(r_th, b_feat, keep, kb, Cb, open_k)
     LAUNCHES["thr_merge_open"] += 1
     return out, RowPrefixes(packed=pref)
 
@@ -391,19 +437,12 @@ def merge_open(r_th: torch.Tensor, b_th: torch.Tensor,
                keep: torch.Tensor | None = None, open_k: int = 5):
     """open_k ellipse opening of ``((r_th | b_th) & keep)`` as 0/255, plus
     its packed exclusive row prefixes (T, H, W + 1) int32.  Returns
-    (binary, RowPrefixes)."""
+    (binary, RowPrefixes).  open_k odd, at most OPEN_MAX_K, on the card
+    (the twin takes any)."""
     imgs = (r_th, b_th) if keep is None else (r_th, b_th, keep)
     if not _on_cuda(*imgs):
         return merge_open_plain(r_th, b_th, keep, open_k)
-    T, H, W = r_th.shape
-    out, pref, scratch0, scratch1 = _open_prefix_buffers(r_th)
-    runs = _runs_table(int(open_k))
-    _check(load_library().lt_merge_open(
-        r_th.data_ptr(), b_th.data_ptr(),
-        None if keep is None else keep.data_ptr(),
-        out.data_ptr(), pref.data_ptr(), scratch0.data_ptr(),
-        scratch1.data_ptr(), runs.ctypes.data, len(runs), int(open_k),
-        T, H, W, _count_shift(W), _stream()), "lt_merge_open")
+    out, pref = _launch_merge_open(r_th, b_th, keep, _open_k(open_k))
     LAUNCHES["merge_open"] += 1
     return out, RowPrefixes(packed=pref)
 

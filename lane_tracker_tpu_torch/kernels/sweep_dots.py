@@ -11,10 +11,11 @@ Every kind adds ``sum(scr[0:8, 0:128])``; out[t] is that total in f32.
 
 * ``sweep_dots(x, tri, kind)`` -> (out (T, 1, 1) f32, swept (T, R, C) bf16):
   on CUDA tensors one launch of ``lt_sweep_dots`` (csrc/sweep_dots.cu: the
-  products on the tensor cores, wmma bf16 fragments), adding one to
-  ``LAUNCHES["sweep_dots"]``; on CPU tensors ``sweep_dots_plain``.  swept is
-  the scratch after the kernel (the raw frame for ``dots``), returned so the
-  sweep half can be held exactly.
+  sweeps in registers, the products on the tensor cores as asynchronous
+  wgmma from shared memory, tri^T by the strip^T in m64nNTk16 tiles),
+  adding one to ``LAUNCHES["sweep_dots"]``; on CPU tensors
+  ``sweep_dots_plain``.  swept is the scratch after the kernel (the raw
+  frame for ``dots``), returned so the sweep half can be held exactly.
 * ``sweep_dots_plain``: the same sweeps in bf16, the products and sums in
   float64, out rounded once to f32.  Against it the kernel's swept is
   exact, its out exact for ``sweeps`` (every partial sum of bf16 values
@@ -47,8 +48,10 @@ N_BLOCKS = 3  # row blocks at rows 0, 8, 16
 BLOCK_STEP = 8
 UNSWEPT = 8
 CORNER = (8, 128)
-TILE = 16  # the wmma tile
+TILE = 16  # the wgmma depth: block, KP and col0 are multiples of it
+M_TILE = 64  # wgmma's rows: NP (tri's columns) is a multiple of it
 STRIP = 32  # columns of one CTA
+MAX_ROWS = 32 * 19  # a warp's 32 lanes hold 19 rows each for the sweeps
 
 
 def reset_launches() -> None:
@@ -76,16 +79,21 @@ def _validate(x, tri, kind, block, col0, sweeps) -> None:
                          f"{tri.dtype}")
     _, rows, cols = x.shape
     kp, n = tri.shape
-    for name, v, least in (("block", block, TILE), ("KP", kp, TILE),
-                           ("NP", n, TILE), ("col0", col0, 0)):
-        if v % TILE or v < least:
-            raise ValueError(f"{name} = {v}: not a multiple of {TILE} (the "
+    for name, v, least, tile in (("block", block, TILE, TILE),
+                                 ("KP", kp, TILE, TILE),
+                                 ("NP", n, M_TILE, M_TILE),
+                                 ("col0", col0, 0, TILE)):
+        if v % tile or v < least:
+            raise ValueError(f"{name} = {v}: not a multiple of {tile} (the "
                              f"tensor-core tile) of at least {least}")
     need = (N_BLOCKS - 1) * BLOCK_STEP + block
     if rows < need or cols < col0 + kp:
         raise ValueError(
             f"the products read rows 0..{need} and columns {col0}.."
             f"{col0 + kp} of a ({rows}, {cols}) frame")
+    if rows > MAX_ROWS:
+        raise ValueError(f"{rows} rows: the sweeps hold at most {MAX_ROWS} "
+                         f"rows of a column in one warp's registers")
     if sweeps < 0:
         raise ValueError(f"sweeps = {sweeps} < 0")
 
@@ -116,9 +124,9 @@ def sweep_dots(x: torch.Tensor, tri: torch.Tensor, kind: str, *,
                block: int = BLOCK, col0: int = COL0,
                sweeps: int = SWEEPS) -> tuple:
     """Probe 6's kernel on x (T, R, C) and tri (KP, NP), both bf16:
-    (out (T, 1, 1) f32, swept (T, R, C) bf16).  block, KP, NP and col0 are
-    multiples of 16; the products read rows 0..16 + block and columns
-    col0..col0 + KP of each frame."""
+    (out (T, 1, 1) f32, swept (T, R, C) bf16).  block, KP and col0 are
+    multiples of 16, NP of 64, R at most 608; the products read rows
+    0..16 + block and columns col0..col0 + KP of each frame."""
     _validate(x, tri, kind, block, col0, sweeps)
     if x.device.type == "cpu":
         return sweep_dots_plain(x, tri, kind, block=block, col0=col0,
@@ -127,9 +135,9 @@ def sweep_dots(x: torch.Tensor, tri: torch.Tensor, kind: str, *,
         raise ValueError(f"no kernel for devices {x.device}, {tri.device}")
     if not (x.is_contiguous() and tri.is_contiguous()):
         raise ValueError("CUDA kernel inputs must be contiguous")
-    if tri.data_ptr() % 32:
-        raise ValueError("tri must start 32-byte aligned (a wmma fragment "
-                         "load's alignment)")
+    if tri.data_ptr() % 16:
+        raise ValueError("tri must start 16-byte aligned (the kernel copies "
+                         "it in 16-byte pieces)")
     t, rows, cols = x.shape
     out = torch.empty((t, 1, 1), dtype=torch.float32, device=x.device)
     swept = torch.empty_like(x)

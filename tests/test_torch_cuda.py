@@ -14,11 +14,15 @@ and of the fail16 chunk (every 16th frame black, so the second attempt
 runs) on the card equal the CPU run's.  The fused channel stage also
 equals the unfused kernels, at tile heights from 1 row to the tallest.
 The redesigned tophat (k = 1, 3, 5, 29, 55, 63) and cross threshold (k =
-1, 15, 35, 65, plain, with the noise mask, through the merge epilogue and
-as riders) equal their twins on ragged shapes (W = 1, 3, 5, 67, 673 and
+1, 15, 35, 65, plain, with the noise mask, as thr_merge_open's first
+launch and as riders) equal their twins on ragged shapes (W = 1, 3, 5, 67, 673 and
 672, H below k, T = 1 and 64, data off 16-byte alignment), give the same
 bits twice, and launch as many kernels as the library's launchers count;
-too large a k is refused before any launch.
+too large a k is refused before any launch.  The bit-packed merge + open
++ prefix tail (open_k = 1, 3, 5, 29, 63) equals the twins on the same
+ragged shapes and at the 'fast' width (1080), with and without keep, off
+16-byte alignment; the library counts 2 launches for thr_merge_open and 1
+for merge_open.
 The morphology probes' kernels (every runnable shift-chain variant, the
 staged tophat in uint8, bf16 and f32 at k=29 and k=55, the dual tophat)
 equal their twins exactly, at full size and on ragged blocks, with rolls
@@ -252,7 +256,7 @@ def test_threshold_equals_twin_on_ragged_shapes(cuda, shape, k):
     for kp, kp_g in ((keep, keep_g), (None, None)):
         want = fs.thr_merge_open_plain(r_th, img, k, 5, kp)
         got, n = _counted(lambda: fs.thr_merge_open(r_g, x, k, 5, kp_g))
-        assert n == 4  # threshold + merge, erode, dilate, prefixes
+        assert n == 2  # the threshold, the merge + open + prefix tail
         _same(got[0].cpu(), want[0])
         _same(got[1].packed.cpu(), want[1].packed)
     riders = [(x, k, 5, -1), (x, k, 8, 140)]
@@ -263,6 +267,40 @@ def test_threshold_equals_twin_on_ragged_shapes(cuda, shape, k):
         _same(g_.cpu(), w)
 
 
+@pytest.mark.parametrize("k", [1, 3, 5, 29, 63])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES + [(2, 45, 1080)])
+def test_open_tail_equals_twin_on_ragged_shapes(cuda, shape, k):
+    g = torch.Generator().manual_seed(sum(shape) + k)
+    r_th = (torch.rand(shape, generator=g) < 0.7).to(torch.uint8) * 255
+    b_th = torch.randint(0, 3, shape, dtype=torch.uint8, generator=g)
+    keep = (torch.rand(shape, generator=g) < 0.98).to(torch.uint8) * 255
+    r_g, b_g, keep_g = r_th.to(cuda), b_th.to(cuda), keep.to(cuda)
+    for kp, kp_g in ((keep, keep_g), (None, None)):
+        want = fs.merge_open_plain(r_th, b_th, kp, k)
+        got, n = _counted(lambda: fs.merge_open(r_g, b_g, kp_g, k))
+        assert n == 1
+        _same(got[0].cpu(), want[0])
+        _same(got[1].packed.cpu(), want[1].packed)
+        again = fs.merge_open(_misaligned(r_g), _misaligned(b_g),
+                              None if kp_g is None else _misaligned(kp_g), k)
+        _same(again[0], got[0])
+        _same(again[1].packed, got[1].packed)
+    merged = torch.where((r_th > 0) | (b_th > 0), 255, 0).to(torch.uint8)
+    out, pref = fs._launch_open_prefix(merged.to(cuda), k)
+    want = fs.merge_open_plain(r_th, b_th, None, k)
+    _same(out.cpu(), want[0])
+    _same(pref.cpu(), want[1].packed)
+
+
+def test_merge_entries_launch_counts(cuda):
+    """thr_merge_open: the threshold and the tail with the merge in its
+    load, 2 launches; merge_open: that tail alone, 1."""
+    x = _stripes((2, 60, 96), 3).to(cuda)
+    n_thr = _counted(lambda: fs.thr_merge_open(x, x, 15, 5, x, open_k=5))[1]
+    n_mo = _counted(lambda: fs.merge_open(x, x, x, open_k=5))[1]
+    assert (n_thr, n_mo) == (2, 1)
+
+
 def test_filter_kernels_reject_large_k_before_launch(cuda):
     x = torch.zeros((1, 64, 64), dtype=torch.uint8, device=cuda)
     fs.reset_launches()
@@ -271,6 +309,9 @@ def test_filter_kernels_reject_large_k_before_launch(cuda):
                lambda: fs.tophat_ellipse(x, 30),
                lambda: fs.bilateral_threshold(x, fs.THRESHOLD_MAX_K + 1, 5),
                lambda: fs.thr_merge_open(x, x, fs.THRESHOLD_MAX_K + 1, 5),
+               lambda: fs.thr_merge_open(x, x, 5, 5, open_k=fs.OPEN_MAX_K + 2),
+               lambda: fs.merge_open(x, x, open_k=fs.OPEN_MAX_K + 2),
+               lambda: fs.merge_open(x, x, open_k=4),
                lambda: fs.tophat_riders(
                    x, 29, [(x, fs.THRESHOLD_MAX_K + 1, 5, -1)])):
         with pytest.raises(ValueError, match="ksize"):
@@ -468,12 +509,12 @@ def test_tophat_staged_and_dual_equal_twins(cuda, shape):
 # ---- probe 6 (kernels/sweep_dots.py) and probe 11 (kernels/tile_gather.py)
 # ----
 
-# (frame, tri, block, col0): the probe's full size, and a ragged frame
-# whose last strip is 22 columns wide and whose products start and end
-# inside strips.
+# (frame, tri, block, col0): the probe's full size (tiles of 184 rows),
+# and a ragged frame whose last strip is 22 columns wide and whose
+# products start and end inside strips (tiles of 8 rows).
 OVERLAP = {"full": ((sd.T, sd.ROWS, sd.COLS), (sd.KP, sd.NP), sd.BLOCK,
                     sd.COL0),
-           "ragged": ((3, 61, 150), (96, 48), 32, 16)}
+           "ragged": ((3, 61, 150), (96, 64), 32, 16)}
 
 
 @pytest.mark.parametrize("kind", list(sd.KINDS))

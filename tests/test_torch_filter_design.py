@@ -5,11 +5,16 @@
 the widening plan, the walkers).  Here each model equals its plain twin
 exactly on random ragged inputs, for every k the wrappers take: odd k in
 1..63 for the tophat (at several output tiles, buffers starting as random
-bytes), k in 1..65 for the threshold (plain, with the noise keep-mask, and
-with the merge epilogue).  The tophat model also equals JAX's
+bytes), k in 1..65 for the threshold (plain and with the noise
+keep-mask).  The tophat model also equals JAX's
 ``tophat_pallas2`` in interpret mode at k=29 and 55, in
-tests/test_torch_filter_kernels.py.  The wrappers' limits on the card are
-checked too, and that the CPU twins take any k.
+tests/test_torch_filter_kernels.py.  The bit-packed merge + open + prefix
+tail's model equals ``merge_open_plain`` (binary and packed prefixes) for
+every odd open_k in 1..63, with and without keep, at W = 672, 1080 and 101
+(no multiple of 16 or 32), H below a band's 32 rows and across bands, and
+``thr_merge_open_plain`` as the tail (the merge in its load) of the
+threshold model's output.  The wrappers' limits on the card are checked too, and that the
+CPU twins take any k.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ import jax.numpy as jnp
 
 from tests.torch_filter_models import (
     half_widths,
+    open_tail_model,
     threshold_model,
     tophat_model,
     tophat_steps,
@@ -31,6 +37,10 @@ from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.ops.threshold import cross_threshold
 
 TOPHAT_K = list(range(1, fs.TOPHAT_MAX_K + 1, 2))
+OPEN_K = list(range(1, fs.OPEN_MAX_K + 1, 2))
+# (T, H, W): the corridor's width with H below a band, the 'fast' width
+# across two bands, a width no multiple of 16 or 32 across three.
+OPEN_SHAPES = [(1, 20, 672), (1, 40, 1080), (2, 70, 101)]
 # (tile width, tile height): the planner's extremes and a middle one.
 TILES = [(64, 8), (128, 48), (256, 16)]
 
@@ -80,20 +90,75 @@ def test_threshold_model_equals_twin(k):
     # Flat regions around 120 so hits and misses both occur.
     img = (img // 4 + 100).astype(np.uint8)
     rng = np.random.default_rng(k)
-    merge_r = (rng.random(img.shape) < 0.2).astype(np.uint8) * 255
-    keep = (rng.random(img.shape) < 0.8).astype(np.uint8) * 255
     t = torch.from_numpy(img)
     C = int(rng.integers(-6, 6))
-    for nt, mr, kp in ((-1, None, None), (110, None, None),
-                       (-1, merge_r, keep), (-1, merge_r, None)):
+    for nt in (-1, 110):
         want = cross_threshold(t, k, C, nt)
-        if mr is not None:
-            hit = (want > 0) | torch.from_numpy(mr > 0)
-            if kp is not None:
-                hit &= torch.from_numpy(kp > 0)
-            want = torch.where(hit, 255, 0).to(torch.uint8)
-        got = threshold_model(img, k, C, nt, mr, kp)
+        got = threshold_model(img, k, C, nt)
         np.testing.assert_array_equal(got, want.numpy(), err_msg=f"k={k}")
+
+
+def _blobs(rng, shape, noise=0.002):
+    """0/255 masks of random rectangles, some past the edges, sparse
+    flipped pixels in the left half, and a full-height block on the right
+    edge: every opening up to k=63 keeps some pixels and removes others."""
+    T, H, W = shape
+    x = np.zeros(shape, np.uint8)
+    for t in range(T):
+        for _ in range(6):
+            h, w = int(rng.integers(1, H + 1)), int(rng.integers(1, W + 1))
+            y, c = int(rng.integers(-h // 2, H)), int(rng.integers(-w // 2, W))
+            x[t, max(y, 0):y + h, max(c, 0):c + w] = 255
+        x[t, :, :W // 2][rng.random((H, W // 2)) < noise] ^= 255
+        x[t, :, W - W // 3:] = 255
+    return x
+
+
+def _keep(rng, shape):
+    """255 but for sparse zeros in the left half."""
+    keep = np.full(shape, 255, np.uint8)
+    half = keep[..., :shape[-1] // 2]
+    half[rng.random(half.shape) < 0.003] = 0
+    return keep
+
+
+@pytest.mark.parametrize("k", OPEN_K)
+def test_open_tail_model_equals_twin(k):
+    """Every odd open_k the card takes, with and without keep; b's nonzero
+    bytes are not only 255 (the merge tests nonzero)."""
+    rng = np.random.default_rng(1000 + k)
+    for shape in OPEN_SHAPES:
+        a = _blobs(rng, shape)
+        b = _blobs(rng, shape) // rng.integers(1, 255, shape).astype(np.uint8)
+        keep = _keep(rng, shape)
+        for kp in (keep, None):
+            want = fs.merge_open_plain(
+                torch.from_numpy(a), torch.from_numpy(b),
+                None if kp is None else torch.from_numpy(kp), k)
+            got = open_tail_model(a, b, kp, k)
+            assert want[0].any() and not want[0].all()
+            np.testing.assert_array_equal(got[0], want[0].numpy(),
+                                          err_msg=f"k={k} {shape}")
+            np.testing.assert_array_equal(got[1], want[1].packed.numpy(),
+                                          err_msg=f"k={k} {shape}")
+
+
+@pytest.mark.parametrize("kb,open_k", [(35, 5), (5, 3), (65, 63)])
+def test_open_tail_model_is_thr_merge_open_tail(kb, open_k):
+    """lt_thr_merge_open's two launches: the tail, merging R and keep in
+    its load, of the threshold model's output equals the twin."""
+    rng = np.random.default_rng(kb)
+    for shape in OPEN_SHAPES[::2]:
+        b_feat = rng.integers(90, 140, shape).astype(np.uint8)
+        r_th = _blobs(rng, shape)
+        keep = _keep(rng, shape)
+        got = open_tail_model(r_th, threshold_model(b_feat, kb, 2), keep,
+                              open_k)
+        want = fs.thr_merge_open_plain(
+            torch.from_numpy(r_th), torch.from_numpy(b_feat), kb, 2,
+            torch.from_numpy(keep), open_k)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        np.testing.assert_array_equal(got[1], want[1].packed.numpy())
 
 
 def _no_launch(*args, **kwargs):
@@ -149,4 +214,26 @@ def test_threshold_wrapper_rejects_k_before_launch(k, monkeypatch):
         fs.tophat_riders(x, 29, [(x, k, 5, -1)])
     with pytest.raises(ValueError, match="ksize"):
         fs.thr_merge_open(x, x, k, 5)
+    assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}
+
+
+@pytest.mark.parametrize("k", [0, 2, 30, fs.OPEN_MAX_K + 2])
+def test_open_wrappers_reject_k_before_launch(k, monkeypatch):
+    """On the card, an even open_k or one above 63 (a half-width past one
+    neighbour word) is refused before any launch, by merge_open and by
+    thr_merge_open; on the CPU the twins answer at every k >= 1."""
+    x = torch.from_numpy(_ragged(k + 3, T=2))
+    if k >= 1:
+        want = fs.merge_open_plain(x, x, None, k)
+        got = fs.merge_open(x, x, None, k)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].packed, want[1].packed)
+        got = fs.thr_merge_open(x, x, 5, 2, None, k)
+        assert torch.equal(got[0], fs.thr_merge_open_plain(x, x, 5, 2, None,
+                                                           k)[0])
+    _as_if_on_card(monkeypatch)
+    with pytest.raises(ValueError, match="ksize"):
+        fs.merge_open(x, x, None, k)
+    with pytest.raises(ValueError, match="ksize"):
+        fs.thr_merge_open(x, x, 5, 2, None, k)
     assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}

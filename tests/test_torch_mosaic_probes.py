@@ -234,7 +234,7 @@ def test_probe_path_runs_on_cpu_at_a_small_size():
     tg.reset_launches()
     rows = mosaic.run("cpu", h=24, w=48, k=4, tophat_t=1,
                       tophat_hw=(40, 72), dual_t=1,
-                      overlap_shape=(1, 48, 160), overlap_dims=(16, 64, 32))
+                      overlap_shape=(1, 48, 160), overlap_dims=(16, 64, 64))
     names = [mosaic.row_name(r) for r in rows]
     assert names == [v.name for v in sc.VARIANTS] + [
         "tophat29", "tophat55", "tophat29_bf16", "tophat55_bf16",

@@ -11,9 +11,13 @@ plain twin) on the same ``default_rng(0)`` input.  Tolerance: exact for
 ``sweeps`` (the sum of bf16 values of that size is exact in f32 and in
 float64); relative 1e-5 for ``dots`` and ``both``, where JAX sums the f32
 products in f32 and the twin in float64.  The twin's sweeps also equal a
-numpy model that rounds each f32 sum to bf16 by hand.  The CUDA kernel is
-held against the twin on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+numpy model that rounds each f32 sum to bf16 by hand.  The kernel's wgmma
+tile plan (tests/torch_filter_models.py's ``sweep_dots_tiles``) covers
+each (block row, K column, tri column) product exactly once, at the
+probe's size and on ragged shapes, and the float64 sum of its tiles'
+products plus the corner equals the twin's out within ``sd.RTOL``.  The
+CUDA kernel is held against the twin on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import contextlib
@@ -31,6 +35,7 @@ import lane_tracker_tpu.utils.timing as timing
 
 from lane_tracker_tpu_torch.kernels import sweep_dots as sd
 from lane_tracker_tpu_torch.probes import mosaic
+from torch_filter_models import sweep_dots_products, sweep_dots_tiles
 from torch_scripts import in_trace_order, load_script, recording_pallas_call
 
 SMALL = {"T": 2, "ROWS": 48, "COLS": 256, "BLOCK": 32, "KP": 128, "NP": 128}
@@ -120,10 +125,62 @@ def test_twin_sweeps_equal_numpy_model():
     assert np.array_equal(want[:, -sd.UNSWEPT:], x.float().numpy()[:, -8:])
 
 
+# (frame, tri, block, col0): the probe's frame width and row block (tiles
+# of 184 rows) at a reduced product depth and width, and a ragged frame
+# whose last strip is 22 columns wide and whose products start and end
+# inside strips (tiles of 8 rows).
+PLANS = {"probe": ((2, 400, 1280), (96, 128), sd.BLOCK, sd.COL0),
+         "ragged": ((3, 61, 150), (96, 64), 32, 16)}
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_tile_plan_covers_each_product_once(case):
+    (_, _, cols), (kp, n), block, col0 = PLANS[case]
+    tiles = sweep_dots_tiles(cols, col0, kp, n, block)
+    count = np.zeros((sd.N_BLOCKS, block, kp, n), np.uint8)
+    for _, _, mt, k0, j, n0, nt in tiles:
+        count[j, n0:n0 + nt, k0 - col0:k0 - col0 + 16,
+              64 * mt:64 * (mt + 1)] += 1
+    assert (count == 1).all()
+
+
+def test_tile_plan_at_full_size_is_one_product_of_partitions():
+    """At (32, 600, 1280), KP = NP = 1152: the m tiles, K steps and each
+    block's n tiles partition their ranges, and the plan is their product
+    with no tile twice (a dense count would take 1.5 G cells)."""
+    tiles = sweep_dots_tiles(sd.COLS, sd.COL0, sd.KP, sd.NP, sd.BLOCK)
+    assert len(set(tiles)) == len(tiles)
+    ms = sorted({mt for _, _, mt, *_ in tiles})
+    ks = sorted({k0 for _, _, _, k0, *_ in tiles})
+    ns = sorted({(n0, nt) for *_, n0, nt in tiles})
+    assert ms == list(range(sd.NP // 64))
+    assert ks == list(range(sd.COL0, sd.COL0 + sd.KP, 16))
+    assert ns == [(0, 184), (184, 184)]
+    assert len(tiles) == len(ms) * len(ks) * sd.N_BLOCKS * len(ns)
+    assert {g for _, g, mt, *_ in tiles} == {0, 1}
+    assert all(mt % 2 == g for _, g, mt, *_ in tiles)
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_tile_plan_sum_equals_twin(case):
+    (t, h, w), (kp, n), block, col0 = PLANS[case]
+    x, tri = sd.make_inputs(t, h, w, kp, n)
+    want, swept = sd.sweep_dots_plain(x, tri, "both", block=block,
+                                      col0=col0)
+    scr = swept.double().numpy()
+    got = sweep_dots_products(
+        scr, tri.double().numpy(), sweep_dots_tiles(w, col0, kp, n, block),
+        col0) + scr[:, :8, :128].sum((1, 2))
+    np.testing.assert_allclose(got, want.double().view(-1).numpy(),
+                               rtol=sd.RTOL, atol=0)
+
+
 BAD = {  # (frame, tri, block, col0): each breaks one rule
     "block_not_16": ((1, 64, 256), (128, 128), 24, 64),
     "kp_not_16": ((1, 64, 256), (120, 128), 32, 64),
     "np_not_16": ((1, 64, 256), (128, 136), 32, 64),
+    "np_not_64": ((1, 64, 256), (128, 96), 32, 64),
+    "rows_long": ((1, 609, 256), (128, 128), 32, 64),
     "col0_not_16": ((1, 64, 256), (128, 128), 32, 8),
     "rows_short": ((1, 47, 256), (128, 128), 32, 64),
     "cols_short": ((1, 64, 191), (128, 128), 32, 64),
@@ -152,8 +209,8 @@ def test_wrapper_rejects_kind_and_dtype():
 
 
 def test_full_size_shapes_pass_validation():
-    """368, 1152 and 1152 are 23, 72 and 72 tiles of 16 and fit the
-    (600, 1280) frame: the probe's own call validates."""
+    """368 and 1152 are 23 and 72 tiles of 16, 1152 is 18 of 64, and
+    they fit the (600, 1280) frame: the probe's own call validates."""
     x = torch.empty((1, sd.ROWS, sd.COLS), dtype=torch.bfloat16,
                     device="meta")
     tri = torch.empty((sd.KP, sd.NP), dtype=torch.bfloat16, device="meta")

@@ -1,4 +1,4 @@
-"""Numpy models of the tophat and cross-threshold kernels' decompositions.
+"""Numpy models of the port's kernels' decompositions.
 
 Each model follows its CUDA kernel (lane_tracker_tpu_torch/csrc/
 filter_stage.cu) step for step: the same tiles, halos, fills, shared
@@ -13,6 +13,12 @@ that holds a model equal to the plain twin for every k the wrapper takes
 checks the decomposition and the index arithmetic the kernel shares with
 it; what the model cannot see (the word and quad bookkeeping inside one
 instruction) the card-only tests check against the twin.
+
+The merge + open + prefix tail's model packs 32 binary pixels a word as the
+kernel does (uint64 arrays hold the 32-bit words; funnel shifts, fills,
+bands and popcount prefixes as in open_tail_kernel).  Probe 6's model lists
+the wgmma tiles sweep_dots_kernel issues and sums their products in
+float64.
 """
 
 from __future__ import annotations
@@ -169,7 +175,7 @@ def _morph(bufs, steps, op, nrows, pitch, r, r16, orows, obytes, init):
 THR_TW, THR_TH, THR_THREADS = 128, 128, 256
 
 
-def threshold_model(img, k, C, noise_thresh=-1, merge_r=None, keep=None):
+def threshold_model(img, k, C, noise_thresh=-1):
     """The bilateral cross threshold as threshold_kernel computes it:
     (THR_TH, THR_TW) tiles; a zero-padded strip; row walkers (two per
     row, 64 columns each) keep the left and right arm sums and leave the
@@ -222,13 +228,177 @@ def threshold_model(img, k, C, noise_thresh=-1, merge_r=None, keep=None):
                             hit |= v < noise_thresh
                         gy_, n = y0 + y, min(tw, W - x0)
                         if gy_ < H:
-                            o = slice(x0, x0 + n)
-                            if merge_r is not None:
-                                hit[:n] |= merge_r[z, gy_, o] != 0
-                            if keep is not None:
-                                hit[:n] &= keep[z, gy_, o] != 0
-                            out[z, gy_, o] = np.where(hit[:n], 255, 0)
+                            out[z, gy_, x0:x0 + n] = np.where(hit[:n], 255,
+                                                              0)
                         if y + 1 < ys + seg_v:
                             up += v - col[y]
                             down += col[k + y + k + 1] - col[k + y + 1]
     return out
+
+
+# ---- merge + open + prefix tail (lt_merge_open, lt_thr_merge_open's second
+# launch, lt_open_prefix: open_tail_kernel) ----
+
+BAND_ROWS = 32
+OPEN_MAX_R = 31
+_M32 = np.uint64(0xFFFFFFFF)
+_POPC8 = np.array([bin(i).count("1") for i in range(256)], np.uint64)
+# Bit b of a mask is set where bit j of b is: the column sum of a word's
+# set bits is sum_j 2^j popc(m & mask_j).
+_PLANE_MASKS = (0xAAAAAAAA, 0xCCCCCCCC, 0xF0F0F0F0, 0xFF00FF00, 0xFFFF0000)
+
+
+def _popc(x):
+    x = x.astype(np.uint64)
+    return sum(_POPC8[(x >> np.uint64(8 * i)) & np.uint64(0xFF)]
+               for i in range(4))
+
+
+def _fsr(lo, hi, s):
+    """__funnelshift_r: bits [s, s + 32) of hi:lo."""
+    return (((hi << np.uint64(32)) | lo) >> np.uint64(s)) & _M32
+
+
+def _fsl(lo, hi, s):
+    """__funnelshift_l: bits [32 - s, 64 - s) of hi:lo."""
+    return ((((hi << np.uint64(32)) | lo) << np.uint64(s)) >> np.uint64(32)
+            & _M32)
+
+
+def pack_words(rows: np.ndarray, fill: int) -> np.ndarray:
+    """(n, W) bools as (n, ceil(W / 32)) words, bit b of word i column
+    32 i + b; bits past W are ``fill``."""
+    n, W = rows.shape
+    nw = -(-W // 32)
+    bits = np.full((n, 32 * nw), bool(fill))
+    bits[:, :W] = rows
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (bits.reshape(n, nw, 32) * weights).sum(-1, dtype=np.uint64)
+
+
+def window(l, c, r, lo, hi, op):
+    """Bit j: op over bits j + lo .. j + hi of the 96-bit segment (l, c, r)
+    around c, by the kernel's doubling steps."""
+    n = hi - lo + 1
+    a0, a1, a2 = l, c, r
+    length = 1
+    while length < n:
+        s = length if 2 * length <= n else n - length
+        b0, b1, b2 = _fsr(a0, a1, s), _fsr(a1, a2, s), a2 >> np.uint64(s)
+        a0, a1, a2 = op(a0, b0), op(a1, b1), op(a2, b2)
+        length += s
+    return _fsl(a0, a1, -lo) if lo <= 0 else _fsr(a1, a2, lo)
+
+
+def morph_words(src, row0, runs, op, init):
+    """Each output word of rows row0 (SE row dy reads src row row0 + dy;
+    src rows carry a pad word a side): op over the runs' windows."""
+    nw = src.shape[1] - 2
+    acc = np.full((len(row0), nw), init, np.uint64)
+    for dy, (lo, hi) in runs:
+        s = src[row0 + dy]
+        acc = op(acc, window(s[:, :nw], s[:, 1:nw + 1], s[:, 2:], lo, hi, op))
+    return acc
+
+
+def packed_bits(m, j, shift):
+    """Packed prefix contribution ((count * 32 j + column sum) << shift) +
+    count of the set bits of words m in word columns j, mod 2^32."""
+    n = _popc(m)
+    pos = sum(np.uint64(1 << i) * _popc(m & np.uint64(mask))
+              for i, mask in enumerate(_PLANE_MASKS))
+    return (((n * np.uint64(32) * j + pos) << np.uint64(shift)) + n) & _M32
+
+
+def open_tail_model(a, b=None, keep=None, k=5):
+    """(binary, packed prefixes) of open((a | b) & keep) as open_tail_kernel
+    computes them: BAND_ROWS-row bands of 32-pixel words, the input packed
+    with 2r + 2r halo rows (1 outside: the erode's pad), the eroded rows
+    (0 outside: the dilate's pad), the dilated rows, popcount prefixes."""
+    T, H, W = a.shape
+    runs = ellipse_runs(k)
+    r = k // 2
+    assert k % 2 == 1 and r <= OPEN_MAX_R
+    nw = -(-W // 32)
+    shift = (W + 1).bit_length()
+    tail = np.uint64((1 << (W % 32)) - 1 if W % 32 else 0xFFFFFFFF)
+    n_in, n_ero = BAND_ROWS + 4 * r, BAND_ROWS + 2 * r
+    binary = np.zeros((T, H, W), np.uint8)
+    pref = np.zeros((T, H, W + 1), np.int32)
+    X = np.arange(W + 1)
+    jx, below = X >> 5, (np.uint64(1) << (X & 31).astype(np.uint64)) - 1
+    for z in range(T):
+        merged = a[z] != 0
+        if b is not None:
+            merged |= b[z] != 0
+        if keep is not None:
+            merged &= keep[z] != 0
+        for y0 in range(0, H, BAND_ROWS):
+            gy = y0 - 2 * r + np.arange(n_in)
+            inside = (gy >= 0) & (gy < H)
+            in_bits = np.full((n_in, nw + 2), 0xFFFFFFFF, np.uint64)
+            in_bits[inside, 1:nw + 1] = pack_words(merged[gy[inside]], 1)
+            gy = y0 - r + np.arange(n_ero)
+            inside = (gy >= 0) & (gy < H)
+            e = morph_words(in_bits, np.arange(n_ero) + r, runs,
+                            np.bitwise_and, 0xFFFFFFFF)
+            e[:, nw - 1] &= tail
+            ero = np.zeros((n_ero, nw + 2), np.uint64)
+            ero[inside, 1:nw + 1] = e[inside]
+            rows = min(BAND_ROWS, H - y0)
+            dil = np.zeros((BAND_ROWS, nw + 1), np.uint64)
+            dil[:rows, :nw] = morph_words(ero, np.arange(rows) + r, runs,
+                                          np.bitwise_or, 0)
+            dil[:rows, nw - 1] &= tail
+            tot = packed_bits(dil, np.arange(nw + 1, dtype=np.uint64), shift)
+            wpre = (np.cumsum(tot, 1) - tot) & _M32
+            d = dil[:rows]
+            bit = (d[:, np.arange(W) >> 5]
+                   >> (np.arange(W) & 31).astype(np.uint64)) & np.uint64(1)
+            binary[z, y0:y0 + rows] = np.where(bit == 1, 255, 0)
+            p = (wpre[:rows, jx] + packed_bits(d[:, jx] & below,
+                                               jx.astype(np.uint64), shift))
+            pref[z, y0:y0 + rows] = (p & _M32).astype(np.uint32).view(np.int32)
+    return binary, pref
+
+
+# ---- probe 6's products (lt_sweep_dots: sweep_dots_kernel) ----
+
+SD_STRIP, SD_K, SD_M, SD_WARPGROUPS = 32, 16, 64, 2
+SD_BLOCKS, SD_BLOCK_STEP = 3, 8
+
+
+def sweep_dots_tiles(cols, col0, kp, n, block) -> list:
+    """The wgmma products sweep_dots_kernel issues, in its loop order:
+    (strip, warpgroup, m tile, first K column, block j, first row n0 of the
+    block, tile width nt).  Strip s takes its 16-column K steps inside
+    [col0, col0 + kp); warpgroup g its m tiles g, g + 2, ...; each step
+    every block's rows in tiles of nt (184 where it divides the block,
+    else 8)."""
+    nt = 184 if block % 184 == 0 else 8
+    tiles = []
+    for s in range(-(-cols // SD_STRIP)):
+        c0 = s * SD_STRIP
+        steps = [c0 + SD_K * q for q in range(SD_STRIP // SD_K)
+                 if col0 <= c0 + SD_K * q and c0 + SD_K * (q + 1) <= col0 + kp]
+        for g in range(SD_WARPGROUPS):
+            for mt in range(g, n // SD_M, SD_WARPGROUPS):
+                for k0 in steps:
+                    for j in range(SD_BLOCKS):
+                        for n0 in range(0, block, nt):
+                            tiles.append((s, g, mt, k0, j, n0, nt))
+    return tiles
+
+
+def sweep_dots_products(scr: np.ndarray, tri: np.ndarray, tiles,
+                        col0: int) -> np.ndarray:
+    """Each frame's sum, in float64, of every tile's product: tri's K rows
+    [k0, k0 + 16) - col0 and m tile's 64 columns (A, M-major) by the swept
+    strip's block rows [8 j + n0, + nt) at those columns (B, K-major)."""
+    total = np.zeros(scr.shape[0])
+    for _, _, mt, k0, j, n0, nt in tiles:
+        a = tri[k0 - col0:k0 - col0 + SD_K, SD_M * mt:SD_M * (mt + 1)]
+        rows = SD_BLOCK_STEP * j + n0
+        b = scr[:, rows:rows + nt, k0:k0 + SD_K]
+        total += b.sum(1) @ a.sum(1)
+    return total
