@@ -68,10 +68,12 @@ Phases (each raises at the first failure; nothing is skipped):
    launches): equal to its twin.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
-   per-kernel times against the plain twins with CUDA events; rows 1-3
-   and 5 launch by launch (each tophat and threshold entry alone, the open
-   + prefix tail of rows 3 and 5 alone and row 5's whole call, each with
-   its own bound, ``launches_ms`` in the row's entry); the
+   per-kernel times against the plain twins with CUDA events; rows 1-5
+   and the fused stage launch by launch (each tophat and threshold entry
+   alone, the open + prefix tail of rows 3 and 5 alone and row 5's whole
+   call, the adaptive mean at k=15 and k=35, the fused stage's R, B + noise
+   and pyr calls, each with its own bound, ``launches_ms`` in the row's
+   entry); the
    probes' rows, each timed once (us per pass of each shift chain, ms per frame of
    each tophat row and of probe 6's kinds, ns per rep of probe 11's
    gathers), with their bounds and the shared-memory traffic of each
@@ -79,7 +81,7 @@ Phases (each raises at the first failure; nothing is skipped):
    kernels line (probe 6's with the batched ``torch.matmul`` of its
    products as ``library_ms``, beside the ``dots`` row's own ms as
    ``library_of`` / ``library_of_ms``: the library computes that row's
-   products, not all three kinds); the fused stage at several tile heights
+   products, not all three kinds); the fused stage at several tiles
    against the unfused kernels (scripts/mosaic_probe7.py's study on this
    card); the banded warp against the two-stage warp; and a profile of one
    fail16 chunk per mode read through its ``lt.*`` ranges.
@@ -289,14 +291,17 @@ def sass_count(lib_path, kernel, opcode):
 
 
 def single_launches(f, f2, r, b, r_feat, b_feat, r_th, keep, r_am, b_am):
-    """Rows 1-3 and 5 launch by launch: (row, launch, work, call), each
-    call one launch of that entry alone on the main path's input, through
-    the library's C interface, not counted; work is its (bytes, (operations,
-    their type), ...).  Row 3's second launch is the tail with its merge
-    ((r | b_th) & keep) in the load, row 5's whole call the tail with (r |
-    b); lt_open_prefix is the tail alone on each row's merged image."""
+    """Rows 1-5 and the fused stage's launch by launch: (row, launch, work,
+    call), each call one launch of that entry alone on the main path's
+    input, through the library's C interface, not counted; work is its
+    (bytes, (operations, their type), ...).  Row 3's second launch is the
+    tail with its merge ((r | b_th) & keep) in the load, row 5's whole call
+    the tail with (r | b); lt_open_prefix is the tail alone on each row's
+    merged image.  Row 4: the adaptive mean at the fallback's two k; the
+    fused stage: R, B with the noise mask, and the pyr entry's R."""
     import torch
 
+    from lane_tracker_tpu_torch.kernels import channel_fused as cf
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
 
     N = r.numel()
@@ -327,6 +332,21 @@ def single_launches(f, f2, r, b, r_feat, b_feat, r_th, keep, r_am, b_am):
         return (f"lt_merge_open k={k}, {n_in} inputs", work,
                 lambda: fs._launch_merge_open(*merge, k))
 
+    def adaptive(img, k, C):
+        return (f"lt_adaptive_mean k={k}", (2 * N, (N * ADAPTIVE_OPS, i32)),
+                lambda: fs._launch_adaptive_mean(img, k, C))
+
+    def fused(tag, img, kt, kb, C, noise=None):
+        n_out, ops = 1, tophat_ops(kt)
+        if noise:
+            n_out, ops = 2, ops + NOISE_OPS
+        return (f"lt_channel_stage {tag} kt={kt} kb={kb}"
+                + (f" noise kn={noise[0]}" if noise else ""),
+                ((1 + n_out) * N, (N * ops, u8),
+                 (N * n_out * THRESHOLD_OPS, i32)),
+                lambda: cf._launch(img, kt, kb, C, noise, None))
+
+    noise = (f.ksize_noise, f.C_noise, f.noise_thresh)
     b_th = fs.bilateral_threshold_plain(b_feat, f.ksize_b, f.C_b)
     merged3 = torch.where(((r_th > 0) | (b_th > 0)) & (keep > 0), 255,
                           0).to(torch.uint8)
@@ -342,6 +362,12 @@ def single_launches(f, f2, r, b, r_feat, b_feat, r_th, keep, r_am, b_am):
         ("thr_merge_open", *tail(f.open_k, merged=merged3)),
         ("merge_open", *tail(f2.open_k, merged=merged5)),
         ("merge_open", *tail(f2.open_k, merge=(r_am, b_am, None))),
+        ("adaptive_mean", *adaptive(r, f2.ksize_r, -f2.C_r)),
+        ("adaptive_mean", *adaptive(b, f2.ksize_b, -f2.C_b)),
+        ("channel_stage", *fused("R", r, f.tophat_r, f.ksize_r, f.C_r)),
+        ("channel_stage", *fused("B", b, f.tophat_b, f.ksize_b, f.C_b,
+                                 noise)),
+        ("channel_stage_pyr", *fused("R", r, f.tophat_r, f.ksize_r, f.C_r)),
     ]
 
 
@@ -694,11 +720,11 @@ def main(argv):
              "channel_stage_pyr": [cf.channel_stage_pyr(r, *r_args)]}
     torch.cuda.synchronize()
     fused_launches = dict(cf.LAUNCHES)
+    Wc = r.shape[-1]
     print(f"[fused] channel_stage R {r_args}, B {b_args} noise {noise}, "
-          f"channel_stage_pyr R at {tuple(r.shape)}: tiles of "
-          f"{cf.resolve_block(H, *r_args[:2])} (R), "
-          f"{cf.resolve_block(H, *b_args[:2], noise[0])} (B) and "
-          f"{cf.resolve_block(H, *r_args[:2], tallest=True)} (pyr) rows; "
+          f"channel_stage_pyr R at {tuple(r.shape)}: tiles (columns, rows) "
+          f"{cf.tile(H, Wc, *r_args[:2])} (R and pyr), "
+          f"{cf.tile(H, Wc, *b_args[:2], noise[0])} (B); "
           f"launches {fused_launches}")
     check(fused_launches == FUSED_LAUNCHES,
           f"the fused path did not launch {FUSED_LAUNCHES}")
@@ -1048,8 +1074,10 @@ def main(argv):
     del chain_in
 
     # scripts/mosaic_probe7.py's study on this card: the fused stage at
-    # several tile heights against the unfused kernels on the same inputs,
-    # in turns (unfused, each height, each height back, unfused).
+    # several tiles against the unfused kernels on the same inputs, in
+    # turns (unfused, each tile, each tile back, unfused): the planned
+    # tile, then rows asked of 32, 64, H/4 and H/2, each clamped to what
+    # fits at the width that suits it.
     study = (
         ("R", r, r_args, None,
          lambda: fs.bilateral_threshold(fs.tophat_ellipse(r, f.tophat_r),
@@ -1061,25 +1089,24 @@ def main(argv):
     )
     for tag_s, x, args, nz, unfused_fn in study:
         kn = nz[0] if nz else 0
-        heights = []
-        for want_h in (32, 64, H // 3, H // 2, H):
-            got_h = cf.resolve_block(H, *args[:2], kn, want_h)
-            if got_h not in heights:
-                heights.append(got_h)
-        order = ["unfused", *heights, *heights[::-1], "unfused"]
+        asked = {}
+        for want_h in (None, 32, 64, H // 4, H // 2):
+            got = cf.tile(H, x.shape[-1], *args[:2], kn, want_h)
+            asked.setdefault(got, want_h)
+        order = ["unfused", *asked, *list(asked)[::-1], "unfused"]
         times = {}
-        for h_ in order:
-            fn = unfused_fn if h_ == "unfused" else (
-                lambda h_=h_: cf.channel_stage(x, *args, noise=nz, block=h_))
-            times.setdefault(h_, []).append(cuda_ms(fn, 5))
-        for h_, ts in times.items():
-            what = "unfused kernels" if h_ == "unfused" else (
-                f"fused, tiles of {h_} x 32")
+        for key in order:
+            fn = unfused_fn if key == "unfused" else (
+                lambda h_=asked[key]: cf.channel_stage(x, *args, noise=nz,
+                                                       block=h_))
+            times.setdefault(key, []).append(cuda_ms(fn, 5))
+        for key, ts in times.items():
+            what = "unfused kernels" if key == "unfused" else (
+                f"fused, tiles of {key[1]} x {key[0]}"
+                + (" (planned)" if asked[key] is None else ""))
             runs = ", ".join(f"{t:.3f}" for t in ts)
             print(f"[study] {tag_s} at {tuple(x.shape)}: {what}: "
                   f"{sum(ts) / len(ts):.3f} ms (runs {runs}) ({card})")
-        print(f"[study] {tag_s}: heights asked 32, 64, H/3, H/2, H "
-              f"(H = {H}), clamped to what fits: {heights}")
 
     # The banded warp at T=64 against the two-stage warp of the same pairs.
     warp_times = {}

@@ -26,7 +26,7 @@ BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
 SOURCES = ("filter_stage.cu", "adaptive_mean.cu", "channel_stage.cu",
            "resample_mxu2.cu", "shift_chain.cu", "sweep_dots.cu",
            "tile_gather.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tophat.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,7 +47,7 @@ SIGNATURES = {
     "lt_adaptive_mean": (_P, _P, _I, _I, _I, _I, _I, _P),
     "lt_channel_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P),
-    "lt_channel_stage_max_block": (_I, _I, _I),
+    "lt_channel_stage_plan": (_P, _I, _I, _I, _I, _I, _I, _I),
     "lt_banded_pass2": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lt_tophat_staged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lt_dual_tophat": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,

@@ -12,17 +12,18 @@ tracker itself runs the unfused kernels (kernels/filter_stage.py).
 * ``channel_stage_pyr`` <- ``channel_stage_pyr_pallas2`` (:264): the same
   function without the noise mask.  The TPU kernel differs only in how it
   sums windows (pyramids instead of band matmuls) and in its full-height
-  blocks, so it launches the same CUDA kernel, with the tallest tile that
-  fits as its default; it counts its own launches.
+  blocks, so it launches the same CUDA kernel with the same tile plan; it
+  counts its own launches.
 
 Both take (T, H, W) or (H, W) uint8.  On CUDA tensors they launch
 ``lt_channel_stage`` (csrc/channel_stage.cu, built at first use by
 kernels/build.py) on the current stream, or raise; on CPU tensors they run
 the plain twin, ``tophat_ellipse`` then ``cross_threshold``
-(ops/morphology.py, ops/threshold.py).  ``block`` is the number of output
-rows one CTA's tile covers (``channel_stage``: ``DEFAULT_BLOCK``; the pyr
-entry: the tallest tile), clamped to the image height and to what fits
-the card's shared memory (``resolve_block``); the twins ignore it.
+(ops/morphology.py, ops/threshold.py).  A CTA covers a tile of 64 to 256
+columns by ``block`` rows; the host plans the tile (``tile``): by default
+the one of the fewest estimated shared-memory accesses that fits a CTA,
+else ``block`` rows clamped to the image height and to what fits, at the
+width that suits them.  The twins ignore ``block``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from lane_tracker_tpu_torch.kernels.filter_stage import (
     _on_cuda,
     _runs_table,
     _stream,
+    _tophat_k,
 )
 from lane_tracker_tpu_torch.ops.morphology import tophat_ellipse
 from lane_tracker_tpu_torch.ops.threshold import cross_threshold
@@ -44,8 +46,6 @@ SOURCE = {"channel_stage": _SRC, "channel_stage_pyr": _SRC}
 _TPU = "scripts/channel_fused_postmortem.py:"
 REPLACES = {"channel_stage": _TPU + "379", "channel_stage_pyr": _TPU + "264"}
 LAUNCHES = {name: 0 for name in REPLACES}
-# Output rows of a tile when ``channel_stage`` is not given a block.
-DEFAULT_BLOCK = 64
 
 
 def reset_launches() -> None:
@@ -53,28 +53,31 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def max_block(kt: int, kb: int, kn: int = 0) -> int:
-    """The tallest tile whose shared memory fits one CTA on the current
-    CUDA device, for tophat kt, threshold kb and noise arms kn (0: no
-    noise)."""
-    return int(load_library().lt_channel_stage_max_block(
-        int(kt), int(kb), int(kn)))
-
-
-def resolve_block(H: int, kt: int, kb: int, kn: int = 0,
-                  block: int | None = None, tallest: bool = False) -> int:
-    """The tile height a launch uses: ``block`` (None: the tallest tile if
-    ``tallest``, else ``DEFAULT_BLOCK``) clamped to H and to
-    ``max_block``."""
-    fit = max_block(kt, kb, kn)
-    if fit < 1:
+def tile(H: int, W: int, kt: int, kb: int, kn: int = 0,
+         block: int | None = None) -> tuple:
+    """(columns, rows) of the tile a launch on an H x W frame uses, for
+    tophat kt, threshold kb and noise arms kn (0: no noise): the planned
+    tile, or ``block`` rows clamped to H and to what fits the current
+    CUDA device's shared memory."""
+    want = _block(block)
+    runs = _runs_table(_tophat_k(kt))
+    packed = int(load_library().lt_channel_stage_plan(
+        runs.ctypes.data, len(runs), int(kt), int(kb), int(kn), int(H),
+        int(W), want))
+    if packed < 0:
         raise RuntimeError(f"no tile of the fused channel stage (kt={kt}, "
                            f"kb={kb}, kn={kn}) fits this device's shared "
                            "memory")
-    want = (fit if tallest else DEFAULT_BLOCK) if block is None else int(block)
-    if want < 1:
+    return packed >> 16, packed & 0xFFFF
+
+
+def _block(block) -> int:
+    """The entry's block argument: 0 for the planned tile."""
+    if block is None:
+        return 0
+    if int(block) < 1:
         raise ValueError(f"block must be >= 1, got {block}")
-    return max(1, min(want, int(H), fit))
+    return int(block)
 
 
 def channel_stage_plain(img: torch.Tensor, kt: int, kb: int, C: int, *,
@@ -88,21 +91,22 @@ def channel_stage_plain(img: torch.Tensor, kt: int, kb: int, C: int, *,
     return th, cross_threshold(img, kn, Cn, nthr)
 
 
-def _launch(img: torch.Tensor, kt, kb, C, noise, block, tallest):
+def _launch(img: torch.Tensor, kt, kb, C, noise, block):
     squeeze = img.dim() == 2
     x = img[None] if squeeze else img
     T, H, W = x.shape
     kn, Cn, nthr = (int(v) for v in noise) if noise else (0, 0, -1)
     if noise and kn < 1:
         raise ValueError(f"noise needs kn >= 1, got {noise}")
-    b = resolve_block(H, kt, kb, kn, block, tallest)
+    want = _block(block)
     th = torch.empty_like(x)
     keep = torch.empty_like(x) if noise else None
-    runs = _runs_table(int(kt))
+    runs = _runs_table(_tophat_k(kt))
     _check(load_library().lt_channel_stage(
         x.data_ptr(), th.data_ptr(), None if keep is None else keep.data_ptr(),
         runs.ctypes.data, len(runs), int(kt), int(kb), int(C), kn, Cn, nthr,
-        b, T, H, W, _stream()), "lt_channel_stage")
+        want, T, H, W, _stream()),
+        "lt_channel_stage")
     if squeeze:
         th = th[0]
         keep = None if keep is None else keep[0]
@@ -123,7 +127,7 @@ def channel_stage(img: torch.Tensor, kt: int, kb: int, C: int, *,
     ``(img < nthr) | cross_threshold(img, kn, Cn)``."""
     if not _is_cuda(img):
         return channel_stage_plain(img, kt, kb, C, noise=noise)
-    out = _launch(img, kt, kb, C, noise, block, tallest=False)
+    out = _launch(img, kt, kb, C, noise, block)
     LAUNCHES["channel_stage"] += 1
     return out
 
@@ -136,10 +140,10 @@ def channel_stage_pyr_plain(img: torch.Tensor, kt: int, kb: int, C: int, *,
 
 def channel_stage_pyr(img: torch.Tensor, kt: int, kb: int, C: int, *,
                       block: int | None = None) -> torch.Tensor:
-    """``cross_threshold(tophat(img, kt), kb, C)`` as 0/255, by default in
-    the tallest tiles that fit."""
+    """``cross_threshold(tophat(img, kt), kb, C)`` as 0/255: the same
+    kernel and tile plan as ``channel_stage`` without the noise mask."""
     if not _is_cuda(img):
         return channel_stage_pyr_plain(img, kt, kb, C)
-    out = _launch(img, kt, kb, C, None, block, tallest=True)
+    out = _launch(img, kt, kb, C, None, block)
     LAUNCHES["channel_stage_pyr"] += 1
     return out

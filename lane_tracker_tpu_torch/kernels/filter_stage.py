@@ -106,9 +106,9 @@ REPLACES = {
 # Staging types of ``tophat_staged`` (beside ``tophat_ellipse``'s uint8) and
 # their codes in lt_tophat_staged.
 STAGING = {torch.bfloat16: 1, torch.float32: 2}
-# Shared memory of the adaptive-mean kernel's (32 + k)^2 int32 integral
-# image must fit the 227 KB a block can take on the H100.
-ADAPTIVE_MEAN_MAX_K = 209
+# The adaptive-mean kernel keeps row sums of k pixels in uint16 lanes
+# (csrc/adaptive_mean.cu kAdaptiveMaxK): odd k up to 127 on the card.
+ADAPTIVE_MEAN_MAX_K = 127
 # The tophat kernel takes odd k (OpenCV's ellipse is then symmetric about
 # its centre row) with at most 64 SE rows (csrc/common.cuh kMaxRuns), in
 # at most 40 widening steps (kTopMaxSteps); the threshold kernel's staged
@@ -258,6 +258,15 @@ def _launch_merge_open(r_th, b_th, keep, open_k) -> tuple:
     return out, pref
 
 
+def _launch_adaptive_mean(img: torch.Tensor, k: int, C: int) -> torch.Tensor:
+    T, H, W = img.shape
+    out = torch.empty_like(img)
+    _check(load_library().lt_adaptive_mean(
+        img.data_ptr(), out.data_ptr(), T, H, W, int(k), int(C), _stream()),
+        "lt_adaptive_mean")
+    return out
+
+
 def _launch_threshold(img: torch.Tensor, k: int, C: int,
                       noise_thresh: int) -> torch.Tensor:
     T, H, W = img.shape
@@ -405,18 +414,19 @@ def adaptive_mean_plain(img: torch.Tensor, ksize: int, C: int) -> torch.Tensor:
 
 def adaptive_mean(img: torch.Tensor, ksize: int, C: int) -> torch.Tensor:
     """``cv2.adaptiveThreshold(img, 255, MEAN_C, BINARY, ksize, C)``: 255
-    where ``img - round(box mean) > -C``, replicate border; ksize odd."""
+    where ``img - round(box mean) > -C``, replicate border; ksize odd, at
+    most ADAPTIVE_MEAN_MAX_K on the card (the twin takes any odd k, as
+    JAX's kernel does)."""
     k = int(ksize)
-    if k % 2 != 1 or not 1 <= k <= ADAPTIVE_MEAN_MAX_K:
-        raise ValueError(f"adaptive mean threshold needs an odd ksize in "
-                         f"[1, {ADAPTIVE_MEAN_MAX_K}], got {ksize}")
+    if k % 2 != 1 or k < 1:
+        raise ValueError(f"adaptive mean threshold needs an odd ksize >= 1, "
+                         f"got {ksize}")
     if not _on_cuda(img):
         return adaptive_mean_plain(img, k, C)
-    T, H, W = img.shape
-    out = torch.empty_like(img)
-    _check(load_library().lt_adaptive_mean(
-        img.data_ptr(), out.data_ptr(), T, H, W, k, int(C), _stream()),
-        "lt_adaptive_mean")
+    if k > ADAPTIVE_MEAN_MAX_K:
+        raise ValueError(f"the adaptive-mean kernel needs an odd ksize in "
+                         f"[1, {ADAPTIVE_MEAN_MAX_K}], got {ksize}")
+    out = _launch_adaptive_mean(img, k, C)
     LAUNCHES["adaptive_mean"] += 1
     return out
 

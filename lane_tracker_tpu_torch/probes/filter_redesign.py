@@ -1,9 +1,11 @@
 """The redesigned kernels against an earlier checkout's, on the card.
 
 Rows 3 and 5 of the filter (``thr_merge_open``, ``merge_open``: the
-merge + open + prefix tail as one bit-packed kernel) and probe 6's
-``sweep_dots`` (the products on wgmma) were redesigned for the H100.  This
-study builds another checkout's kernels from that checkout's own sources
+merge + open + prefix tail as one bit-packed kernel), probe 6's
+``sweep_dots`` (the products on wgmma), row 4's ``adaptive_mean`` (row
+and column walkers of running sums) and the fused channel stage
+(``lt_channel_stage``: the tophat's widening plane over wide tiles) were
+redesigned for the H100.  This study builds another checkout's kernels from that checkout's own sources
 and times both on the same inputs, in turns (earlier, this, this,
 earlier), so that one call on one card compares them:
 
@@ -12,14 +14,24 @@ earlier), so that one call on one card compares them:
 
 It needs CUDA and prints one JSON row per measurement:
 
-* ``sass``: the opcode counts of ``open_tail_kernel`` and
-  ``sweep_dots_kernel`` in this checkout's library (``cuobjdump
+* ``sass``: the opcode counts of ``open_tail_kernel``,
+  ``sweep_dots_kernel``, ``adaptive_mean_kernel`` and
+  ``channel_stage_kernel`` in this checkout's library (``cuobjdump
   --dump-sass``);
 * ``row``: the filter wrappers of the main path (``tophat_ellipse`` k=29
   and ``tophat_riders`` k=55, unchanged, as a control of the spread;
   ``thr_merge_open`` k=35 with keep) on the corridor channels of the 64
-  stills (assets/stills_720p.npz), and the second attempt's
-  ``merge_open`` on its two adaptive thresholds, 10 calls a run;
+  stills (assets/stills_720p.npz), the second attempt's ``merge_open`` on
+  its two adaptive thresholds and ``adaptive_mean`` at its k=15 and k=35
+  (each launch alone, the two, and each on one frame as 'cond' calls
+  it), 10 calls a run;
+* ``fused``: ``channel_stage`` on R, on LAB-B with the noise mask, and
+  ``channel_stage_pyr`` on R, at this checkout's planned tiles and the
+  earlier checkout's defaults (tiles of 64 rows by 32 columns; the pyr
+  entry the tallest that fits);
+* ``part``: this checkout alone, where the fused stage's time goes: B
+  without the noise mask, B and R under a 1-pixel threshold, and the
+  unfused ``lt_tophat`` at both k;
 * ``sweep_dots``: probe 6's three kinds at the probe's size;
 * ``filter_stage``: the whole attempt-1 filter (``ops.filters.
   filter_stage``, the ``lt.filter`` range of a chunk) on the fail16
@@ -27,10 +39,9 @@ It needs CUDA and prints one JSON row per measurement:
 
 Every output of the earlier kernels must equal this checkout's (probe 6's
 ``out`` within ``sweep_dots.RTOL``), or the study raises.  The earlier
-checkout's ``lt_tophat`` takes a scratch image for its eroded pass, and
-its merge entries take two scratch images (the merged and the eroded
-image; the interfaces before the tail's redesign); a checkout whose
-interfaces differ otherwise cannot be compared.
+checkout's entries must take this checkout's arguments (those of commit
+e30059c and later); its fused stage's ``block`` is the rows of a 32-column
+tile, which ``earlier_channel_stage`` passes.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import numpy as np
 import torch
 
 from lane_tracker_tpu_torch.calib.io import load_calibration_npz
+from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.kernels import sweep_dots as sd
 from lane_tracker_tpu_torch.kernels.build import build, find_nvcc
@@ -110,47 +122,11 @@ def other_library(tree: pathlib.Path):
 
 def on_library(lib):
     """A context in which the filter-stage and probe 6 wrappers launch
-    ``lib``'s entries, its ``lt_tophat`` given a scratch image and its
-    merge entries two."""
-
-    def tophat(img, ksize):
-        T_, H, W = img.shape
-        out, scratch = torch.empty_like(img), torch.empty_like(img)
-        runs = fs._runs_table(int(ksize))
-        fs._check(lib.lt_tophat(
-            img.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            runs.ctypes.data, len(runs), int(ksize), T_, H, W, fs._stream()),
-            "lt_tophat")
-        return out
-
-    def merge_entry(name, r_th, other, keep, open_k, *thr):
-        T_, H, W = r_th.shape
-        out, pref = torch.empty_like(r_th), fs._prefix_buffer(r_th)
-        s0, s1 = torch.empty_like(r_th), torch.empty_like(r_th)
-        runs = fs._runs_table(int(open_k))
-        fs._check(getattr(lib, name)(
-            r_th.data_ptr(), other.data_ptr(),
-            None if keep is None else keep.data_ptr(), out.data_ptr(),
-            pref.data_ptr(), s0.data_ptr(), s1.data_ptr(), runs.ctypes.data,
-            len(runs), int(open_k), T_, H, W, *map(int, thr),
-            fs._count_shift(W), fs._stream()), name)
-        return out, pref
-
-    def thr_merge_open(r_th, b_feat, keep, kb, Cb, open_k):
-        return merge_entry("lt_thr_merge_open", r_th, b_feat, keep, open_k,
-                           kb, Cb)
-
-    def merge_open(r_th, b_th, keep, open_k):
-        return merge_entry("lt_merge_open", r_th, b_th, keep, open_k)
-
+    ``lib``'s entries (the earlier checkout's interfaces are this one's)."""
     stack = contextlib.ExitStack()
     for mod in (fs, sd):
         stack.enter_context(mock.patch.object(mod, "load_library",
                                               lambda: lib))
-    for name, fn in (("_launch_tophat", tophat),
-                     ("_launch_thr_merge_open", thr_merge_open),
-                     ("_launch_merge_open", merge_open)):
-        stack.enter_context(mock.patch.object(fs, name, fn))
     return stack
 
 
@@ -173,22 +149,43 @@ def _equal(got, want, rtol) -> bool:
     return True
 
 
-def in_turns(fn, lib, reps=REPS, rtol=0.0) -> dict:
-    """{"ms", "earlier_ms"}: fn on this checkout's kernels and on ``lib``'s,
-    earlier, this, this, earlier; the outputs must be equal (float32
-    outputs within rtol where it is given)."""
-    with on_library(lib):
-        want = [t.clone() for t in _flat(fn())]
+def in_turns(fn, lib, reps=REPS, rtol=0.0, earlier=None) -> dict:
+    """{"ms", "earlier_ms"}: fn on this checkout's kernels and on ``lib``'s
+    (or ``earlier``, the same function called on ``lib``'s entries
+    directly), earlier, this, this, earlier; the outputs must be equal
+    (float32 outputs within rtol where it is given)."""
+    def run_earlier(n):
+        if earlier is not None:
+            return cuda_ms(earlier, n) if n else earlier()
+        with on_library(lib):
+            return cuda_ms(fn, n) if n else fn()
+
+    want = [t.clone() for t in _flat(run_earlier(0))]
     if not _equal(_flat(fn()), want, rtol):
         raise RuntimeError("the earlier kernels' output differs")
     times = {"ms": [], "earlier_ms": []}
     for key in ("earlier_ms", "ms", "ms", "earlier_ms"):
-        if key == "earlier_ms":
-            with on_library(lib):
-                times[key].append(cuda_ms(fn, reps))
-        else:
-            times[key].append(cuda_ms(fn, reps))
+        times[key].append(run_earlier(reps) if key == "earlier_ms"
+                          else cuda_ms(fn, reps))
     return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def earlier_channel_stage(lib, img, kt, kb, C, noise=None, tallest=False):
+    """The earlier checkout's ``lt_channel_stage`` at its wrapper's default
+    tile: 64 rows (the pyr entry: the tallest that fits) by 32 columns."""
+    T_, H, W = img.shape
+    kn, Cn, nthr = noise if noise else (0, 0, -1)
+    fit = int(lib.lt_channel_stage_max_block(int(kt), int(kb), int(kn)))
+    block = max(1, min(fit if tallest else 64, H, fit))
+    th = torch.empty_like(img)
+    keep = torch.empty_like(img) if noise else None
+    runs = fs._runs_table(int(kt))
+    fs._check(lib.lt_channel_stage(
+        img.data_ptr(), th.data_ptr(), None if keep is None else
+        keep.data_ptr(), runs.ctypes.data, len(runs), int(kt), int(kb),
+        int(C), kn, Cn, nthr, block, T_, H, W, fs._stream()),
+        "lt_channel_stage")
+    return th if keep is None else (th, keep)
 
 
 def main(argv=None) -> int:
@@ -210,7 +207,8 @@ def main(argv=None) -> int:
     lib_path, nvcc_s, _ = build()
     lib, other_s = other_library(args.parent.resolve())
     emit({"build_s": nvcc_s, "earlier_build_s": other_s})
-    for kernel in ("open_tail_kernel", "sweep_dots_kernel"):
+    for kernel in ("open_tail_kernel", "sweep_dots_kernel",
+                   "adaptive_mean_kernel", "channel_stage_kernel"):
         emit({"sass": kernel, "opcodes": opcode_counts(lib_path, kernel)})
 
     with np.load(REPO / "assets" / "stills_720p.npz") as z:
@@ -237,9 +235,58 @@ def main(argv=None) -> int:
             r_th, b_feat, f.ksize_b, f.C_b, keep, open_k=f.open_k),
         "merge_open": lambda: fs.merge_open(r_am, b_am, open_k=f2.open_k),
     }
+    am = [(r, f2.ksize_r, -f2.C_r), (b, f2.ksize_b, -f2.C_b)]
+    for args in am:
+        rows[f"adaptive_mean k={args[1]}"] = (
+            lambda args=args: fs.adaptive_mean(*args))
+    rows["adaptive_mean, both"] = lambda: [fs.adaptive_mean(*a) for a in am]
     for name, fn in rows.items():
         emit({"row": name, "shape": list(r.shape), **in_turns(fn, lib)})
+    # 'cond' runs the fallback on one failing frame at a time.
+    for x, k, C in am:
+        x1 = x[:1].contiguous()
+        emit({"row": f"adaptive_mean k={k}", "shape": list(x1.shape),
+              **in_turns(lambda x1=x1, k=k, C=C: fs.adaptive_mean(x1, k, C),
+                         lib)})
     del r_am, b_am
+    noise = (f.ksize_noise, f.C_noise, f.noise_thresh)
+    W_ = r.shape[-1]
+    fused = {
+        "channel_stage R": (
+            lambda: cf.channel_stage(r, f.tophat_r, f.ksize_r, f.C_r),
+            lambda: earlier_channel_stage(lib, r, f.tophat_r, f.ksize_r,
+                                          f.C_r),
+            cf.tile(r.shape[1], W_, f.tophat_r, f.ksize_r)),
+        "channel_stage B + noise": (
+            lambda: cf.channel_stage(b, f.tophat_b, f.ksize_b, f.C_b,
+                                     noise=noise),
+            lambda: earlier_channel_stage(lib, b, f.tophat_b, f.ksize_b,
+                                          f.C_b, noise),
+            cf.tile(r.shape[1], W_, f.tophat_b, f.ksize_b, noise[0])),
+        "channel_stage_pyr R": (
+            lambda: cf.channel_stage_pyr(r, f.tophat_r, f.ksize_r, f.C_r),
+            lambda: earlier_channel_stage(lib, r, f.tophat_r, f.ksize_r,
+                                          f.C_r, tallest=True),
+            cf.tile(r.shape[1], W_, f.tophat_r, f.ksize_r)),
+    }
+    # Where the fused stage's time goes (this tree alone, planned tiles):
+    # B without its noise mask and each channel under a 1-pixel threshold
+    # (its tophat with almost no threshold halo), beside the unfused
+    # tophats.
+    parts = {
+        "channel_stage B, no noise": (b, f.tophat_b, f.ksize_b, f.C_b),
+        "channel_stage B, kb=1": (b, f.tophat_b, 1, f.C_b),
+        "channel_stage R, kb=1": (r, f.tophat_r, 1, f.C_r),
+    }
+    for name, (x, kt, kb, C) in parts.items():
+        emit({"part": name, "tile": list(cf.tile(x.shape[1], W_, kt, kb)),
+              "ms": cuda_ms(lambda: cf.channel_stage(x, kt, kb, C), REPS)})
+    for x, kt in ((r, f.tophat_r), (b, f.tophat_b)):
+        emit({"part": f"lt_tophat k={kt}",
+              "ms": cuda_ms(lambda: fs.tophat_ellipse(x, kt), REPS)})
+    for name, (fn, earlier, tile) in fused.items():
+        emit({"fused": name, "shape": list(r.shape), "tile": list(tile),
+              **in_turns(fn, lib, reps=3, earlier=earlier)})
     x, tri = sd.make_inputs(device="cuda")
     for kind in sd.KINDS:
         emit({"sweep_dots": kind, "shape": list(x.shape),

@@ -292,6 +292,40 @@ def test_open_tail_equals_twin_on_ragged_shapes(cuda, shape, k):
     _same(pref.cpu(), want[1].packed)
 
 
+@pytest.mark.parametrize("k", [1, 3, 15, 35, 127])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_adaptive_mean_equals_twin_on_ragged_shapes(cuda, shape, k):
+    """The redesigned adaptive mean (replicate clamp at ragged edges, byte
+    staging where W % 16 != 0 or the data is misaligned) equals its twin
+    at every k up to the kernel's limit, one launch a call."""
+    img = _stripes(shape, sum(shape) + k)
+    want = fs.adaptive_mean_plain(img, k, -5)
+    x = img.to(cuda)
+    fs.reset_launches()
+    got = fs.adaptive_mean(x, k, -5)
+    assert fs.LAUNCHES["adaptive_mean"] == 1
+    _same(got.cpu(), want)
+    _same(fs.adaptive_mean(_misaligned(x), k, -5), got)
+    for C in (300, -300, 7):  # idelta past +-256 decides every pixel
+        _same(fs.adaptive_mean(x, k, C).cpu(), fs.adaptive_mean_plain(img, k, C))
+
+
+@pytest.mark.parametrize("T", [1, 64])
+def test_adaptive_mean_tile_rows_fill_the_card(cuda, T):
+    """At T=1 ('cond') and T=64 (the batched fallback) on the corridor's
+    (1100, 672) frames, both path ks equal the twin; the host's tile
+    height is tests/torch_filter_models.py's adaptive_mean_rows."""
+    from torch_filter_models import adaptive_mean_rows
+
+    img = _stripes((T, 1100, 672), T)
+    x = img.to(cuda)
+    for k in (F2.ksize_r, F2.ksize_b):
+        _same(fs.adaptive_mean(x, k, -5).cpu(),
+              fs.adaptive_mean_plain(img, k, -5))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert adaptive_mean_rows(T, 1100, 672, sms) == (32 if T == 1 else 128)
+
+
 def test_merge_entries_launch_counts(cuda):
     """thr_merge_open: the threshold and the tail with the merge in its
     load, 2 launches; merge_open: that tail alone, 1."""
@@ -313,7 +347,8 @@ def test_filter_kernels_reject_large_k_before_launch(cuda):
                lambda: fs.merge_open(x, x, open_k=fs.OPEN_MAX_K + 2),
                lambda: fs.merge_open(x, x, open_k=4),
                lambda: fs.tophat_riders(
-                   x, 29, [(x, fs.THRESHOLD_MAX_K + 1, 5, -1)])):
+                   x, 29, [(x, fs.THRESHOLD_MAX_K + 1, 5, -1)]),
+               lambda: fs.adaptive_mean(x, fs.ADAPTIVE_MEAN_MAX_K + 2, 5)):
         with pytest.raises(ValueError, match="ksize"):
             fn()
     assert fs.kernel_launches() == n0
@@ -373,7 +408,11 @@ def _check_channel_stage(img):
     r_args = CHANNELS[0][:3]
     _same(cf.channel_stage(img[0], *r_args),
           cf.channel_stage_plain(img[0], *r_args))
-    assert cf.LAUNCHES == {"channel_stage": n + 1, "channel_stage_pyr": n}
+    kt, kb, C, noise = CHANNELS[1]
+    got = cf.channel_stage(_misaligned(img), kt, kb, C, noise=noise)
+    for g, w in zip(got, cf.channel_stage_plain(img, kt, kb, C, noise=noise)):
+        _same(g, w)
+    assert cf.LAUNCHES == {"channel_stage": n + 2, "channel_stage_pyr": n}
 
 
 def test_channel_stage_equals_twin_and_unfused_on_stills(setup):
@@ -384,9 +423,23 @@ def test_channel_stage_equals_twin_and_unfused_on_stills(setup):
 
 
 @pytest.mark.parametrize("shape", [(2, 77, 101), (3, 33, 64), (1, 300, 5),
-                                   (1, 20, 30)])
+                                   (1, 20, 30), (2, 37, 672), (1, 40, 673)])
 def test_channel_stage_equals_twin_on_ragged_random(cuda, shape):
     _check_channel_stage(_stripes(shape, sum(shape)).to(cuda))
+
+
+@pytest.mark.parametrize("block", [None, 1, 7, 96, 10 ** 6])
+@pytest.mark.parametrize("shape", [(1100, 672), (77, 101), (1, 5)])
+def test_channel_stage_tile_is_the_models(cuda, shape, block):
+    """The host's tile plan is tests/torch_filter_models.py's cs_plan (the
+    plan the CPU model is held to the twin with)."""
+    from torch_filter_models import cs_plan
+
+    H, W = shape
+    for kt, kb, _, noise in CHANNELS:
+        kn = noise[0] if noise else 0
+        p = cs_plan(kt, kb, kn, H, W, block or 0)
+        assert cf.tile(H, W, kt, kb, kn, block) == (16 * p["tq"], p["th"])
 
 
 @pytest.mark.parametrize("T,C,Ho,Ws,Wo", [(2, 2, 37, 150, 200),

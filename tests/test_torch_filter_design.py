@@ -13,8 +13,16 @@ tail's model equals ``merge_open_plain`` (binary and packed prefixes) for
 every odd open_k in 1..63, with and without keep, at W = 672, 1080 and 101
 (no multiple of 16 or 32), H below a band's 32 rows and across bands, and
 ``thr_merge_open_plain`` as the tail (the merge in its load) of the
-threshold model's output.  The wrappers' limits on the card are checked too, and that the
-CPU twins take any k.
+threshold model's output.  The adaptive mean's model (128-column tiles,
+replicate-clamped staging, uint16 row walkers, column walkers writing in
+place) equals ``adaptive_mean_plain`` for every odd k up to the kernel's
+127 at W = 672, 1080 and 101, T = 1 and 2, at the planned tile height and
+the tallest; the fused channel stage's model (cs_plan's tiles, the
+staged plane walked for the noise mask then refilled, the tophat of the
+threshold's read region, its walkers) equals ``channel_stage_plain`` for
+demo1's R and B + noise on ragged shapes, and its plan covers every
+output once with the halos the arms and the ellipse reach.  The wrappers'
+limits on the card are checked too, and that the CPU twins take any k.
 """
 
 import numpy as np
@@ -24,6 +32,11 @@ import torch
 import jax.numpy as jnp
 
 from tests.torch_filter_models import (
+    CS_THREADS,
+    adaptive_mean_model,
+    adaptive_mean_rows,
+    channel_stage_model,
+    cs_plan,
     half_widths,
     open_tail_model,
     threshold_model,
@@ -33,7 +46,9 @@ from tests.torch_filter_models import (
 
 from lane_tracker_tpu.ops import morphology as j_morph
 
+from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
+from lane_tracker_tpu_torch.tracker.config import PRESETS
 from lane_tracker_tpu_torch.ops.threshold import cross_threshold
 
 TOPHAT_K = list(range(1, fs.TOPHAT_MAX_K + 1, 2))
@@ -237,3 +252,88 @@ def test_open_wrappers_reject_k_before_launch(k, monkeypatch):
     with pytest.raises(ValueError, match="ksize"):
         fs.thr_merge_open(x, x, 5, 2, None, k)
     assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}
+
+
+ADAPTIVE_K = list(range(1, fs.ADAPTIVE_MEAN_MAX_K + 1, 2))
+# (T, H, W): the corridor's width, the 'fast' width, a width no multiple
+# of 16; T = 1 as 'cond' runs it.
+ADAPTIVE_SHAPES = [(1, 21, 672), (2, 19, 1080), (1, 37, 101)]
+
+
+@pytest.mark.parametrize("k", ADAPTIVE_K)
+def test_adaptive_mean_model_equals_twin(k):
+    """Every odd k the card takes, each shape at its planned tile height
+    (16 here) and the first at the tallest (128), with C past the
+    clamp on the last shape."""
+    rng = np.random.default_rng(2000 + k)
+    for i, shape in enumerate(ADAPTIVE_SHAPES):
+        img = _ragged(3000 + k + i, T=shape[0])
+        img = np.resize(img, shape).astype(np.uint8)
+        C = (-5, 4, 300)[i]
+        want = fs.adaptive_mean_plain(torch.from_numpy(img), k, C).numpy()
+        for th in {adaptive_mean_rows(*shape), 128} if i == 0 else {
+                adaptive_mean_rows(*shape)}:
+            got = adaptive_mean_model(img, k, C, th, rng)
+            np.testing.assert_array_equal(got, want, err_msg=f"k={k} {th}")
+
+
+def test_adaptive_mean_rows_fill_the_card():
+    """The fallback's batch takes 128-row tiles; 'cond''s T=1 frame the
+    tallest whose grid gives all 132 SMs a CTA."""
+    assert adaptive_mean_rows(64, 1100, 672) == 128
+    assert adaptive_mean_rows(1, 1100, 672) == 32
+    assert adaptive_mean_rows(1, 5, 5) == 16
+
+
+_F = PRESETS["demo1"].filter
+CS_CHANNELS = {
+    "R": (_F.tophat_r, _F.ksize_r, _F.C_r, None),
+    "B": (_F.tophat_b, _F.ksize_b, _F.C_b,
+          (_F.ksize_noise, _F.C_noise, _F.noise_thresh)),
+}
+
+
+@pytest.mark.parametrize("shape", [(2, 77, 101), (1, 20, 30), (1, 300, 5)])
+@pytest.mark.parametrize("chan", ["R", "B"])
+def test_channel_stage_model_equals_twin(chan, shape):
+    """demo1's arguments at the planned tile and at 7-row tiles, buffers
+    starting as random bytes."""
+    kt, kb, C, noise = CS_CHANNELS[chan]
+    rng = np.random.default_rng(sum(shape))
+    img = (_ragged(sum(shape), T=shape[0]) // 2 + 100).astype(np.uint8)
+    img = np.resize(img, shape).astype(np.uint8)
+    img[..., ::17] = 250  # bright columns: the tophat and arms both hit
+    want = cf.channel_stage_plain(torch.from_numpy(img), kt, kb, C,
+                                  noise=noise)
+    want = want if noise else (want,)
+    for block in (0, 7):
+        got = channel_stage_model(img, kt, kb, C, noise, block, rng)
+        got = got if noise else (got,)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=str(block))
+
+
+@pytest.mark.parametrize("block", [0, 1, 33, 10 ** 6])
+@pytest.mark.parametrize("shape", [(1100, 672), (1100, 1080), (77, 101)])
+def test_channel_stage_plan_covers_outputs_once(shape, block):
+    """The grid covers each output once; the staged halo reaches every
+    pixel the tophat of the threshold's read region and the noise arms
+    read; the buffers fit one CTA and the held quads its threads."""
+    H, W = shape
+    for kt, kb, _, noise in CS_CHANNELS.values():
+        kn = noise[0] if noise else 0
+        p = cs_plan(kt, kb, kn, H, W, block)
+        tw, th, r = 16 * p["tq"], p["th"], p["r"]
+        cover = np.zeros((H, W), int)
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                cover[y0:y0 + th, x0:x0 + tw] += 1
+        assert (cover == 1).all()
+        assert p["hy"] >= max(kb + 2 * r, kn)
+        assert 16 * p["hq"] >= max(16 * p["kbq"] + 2 * r, kn)
+        assert 16 * p["kbq"] >= kb
+        quads, _, smem, _ = p["shape"]
+        assert p["smem"] <= smem
+        thd, tqd = th + 2 * kb, p["tq"] + 2 * p["kbq"]
+        assert (thd + 2 * r) * (tqd + 2 * p["rq"]) <= quads * CS_THREADS
+        assert block == 0 or th == min(block, H) or th < block

@@ -169,7 +169,38 @@ def test_new_wrappers_run_twins_on_cpu_without_counting(patch):
     assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}
 
 
-@pytest.mark.parametrize("ksize", [14, 0, fs.ADAPTIVE_MEAN_MAX_K + 2])
-def test_adaptive_mean_rejects_bad_ksize(ksize):
+@pytest.mark.parametrize("ksize", [14, 0])
+def test_adaptive_mean_rejects_bad_ksize(ksize, monkeypatch):
+    """Even and zero k are refused on the CPU and, before any launch, on
+    the card."""
+    x = torch.zeros((1, 8, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="odd ksize"):
-        fs.adaptive_mean(torch.zeros((1, 8, 8), dtype=torch.uint8), ksize, 5)
+        fs.adaptive_mean(x, ksize, 5)
+    monkeypatch.setattr(fs, "_on_cuda", lambda *imgs: True)
+    monkeypatch.setattr(fs, "load_library", _no_library)
+    with pytest.raises(ValueError, match="odd ksize"):
+        fs.adaptive_mean(x, ksize, 5)
+
+
+def _no_library():
+    raise AssertionError("a kernel library was loaded for a refused k")
+
+
+def test_adaptive_mean_above_kernel_limit_on_cpu_equals_pallas(patch,
+                                                               monkeypatch):
+    """Past the card kernel's limit the CPU twin still answers, equal to
+    adaptive_mean_pallas2 (which takes any odd k) in interpret mode; the
+    card's branch refuses that k before any launch."""
+    k = fs.ADAPTIVE_MEAN_MAX_K + 2
+    r, _ = patch
+    small = np.ascontiguousarray(r[:1, :24, :40])
+    want = np.asarray(adaptive_mean_pallas2(small, k, 5, interpret=True))
+    got = fs.adaptive_mean(_t(small), k, 5)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < (want > 0).mean() < 1
+    monkeypatch.setattr(fs, "_on_cuda", lambda *imgs: True)
+    monkeypatch.setattr(fs, "load_library", _no_library)
+    fs.reset_launches()
+    with pytest.raises(ValueError, match="ksize"):
+        fs.adaptive_mean(_t(small), k, 5)
+    assert fs.LAUNCHES["adaptive_mean"] == 0

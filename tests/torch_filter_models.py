@@ -145,13 +145,14 @@ def tophat_model(img: np.ndarray, k: int, tw: int, th: int,
     return out
 
 
-def _morph(bufs, steps, op, nrows, pitch, r, r16, orows, obytes, init):
-    """One phase: the source plane (nrows x pitch bytes) in bufs[0];
-    returns the (orows, obytes) result at rows r.., bytes r16.."""
+def _morph(bufs, steps, op, nrows, pitch, r, r16, orows, obytes, init,
+           g=GUARD):
+    """One phase: the source plane (nrows x pitch bytes) in bufs[0] from
+    byte g on; returns the (orows, obytes) result at rows r.., bytes
+    r16.."""
     acc = np.full((orows, obytes), init, np.uint8)
     rows = np.arange(orows)[:, None] + r
     cols = np.arange(obytes)[None, :] + r16
-    g = GUARD
     src = 0
     for j, (s, lo, hi, need) in enumerate(steps):
         if j > 0:
@@ -402,3 +403,267 @@ def sweep_dots_products(scr: np.ndarray, tri: np.ndarray, tiles,
         b = scr[:, rows:rows + nt, k0:k0 + SD_K]
         total += b.sum(1) @ a.sum(1)
     return total
+
+
+# ---- adaptive mean threshold (lt_adaptive_mean: adaptive_mean_kernel) ----
+
+AM_TW, AM_THREADS, AM_GUARD = 128, 256, 16
+AM_SUM_PITCH = 2 * AM_TW + 8
+AM_MAX_K = 127
+AM_ROWS = (128, 64, 32, 16)
+
+
+def adaptive_mean_rows(T: int, H: int, W: int, sms: int = 132) -> int:
+    """The tile height the kernel's host picks: the tallest of AM_ROWS
+    whose grid gives each of ``sms`` SMs a CTA, else the shortest."""
+    cols = -(-W // AM_TW)
+    for th in AM_ROWS:
+        if T * cols * -(-H // th) >= sms:
+            return th
+    return AM_ROWS[-1]
+
+
+def adaptive_mean_model(img: np.ndarray, k: int, C: int, th: int,
+                        rng: np.random.Generator) -> np.ndarray:
+    """cv2's MEAN_C threshold as adaptive_mean_kernel computes it with
+    (th, 128) tiles: the staged plane (replicate-clamped, pitch an odd
+    number of words, after a guard) in a buffer of random bytes; row
+    walkers' uint16 sums started at the window of column -1 (its leaving
+    byte may be the guard's or the row before's: it cancels); column
+    walkers over quarter-height segments writing 0/255 in place (the last
+    slide reads a spare row); the outputs copied out."""
+    T, H, W = img.shape
+    assert k % 2 == 1 and 1 <= k <= AM_MAX_K
+    r = k // 2
+    kx = _round16(r)
+    ps = AM_TW + 2 * kx + 4
+    assert (ps // 4) % 2 == 1
+    rows = th + 2 * r
+    area = k * k
+    idelta = min(max(C, -256), 256)
+    mul, off = 2 * area, 2 * area * idelta - area
+    seg = th // (AM_THREADS // (AM_TW // 2))
+    out = np.zeros_like(img)
+    for z in range(T):
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, AM_TW):
+                buf = rng.integers(0, 256, AM_GUARD + rows * ps).astype(
+                    np.int64)
+                gy = np.clip(np.arange(y0 - r, y0 - r + rows), 0, H - 1)
+                gx = np.clip(np.arange(x0 - kx, x0 + AM_TW + kx), 0, W - 1)
+                plane = buf[AM_GUARD:].reshape(rows, ps)
+                plane[:, :AM_TW + 2 * kx] = img[z][gy[:, None], gx[None, :]]
+                flat = buf  # plane row i starts at AM_GUARD + i * ps
+                base = AM_GUARD + np.arange(rows) * ps
+                # Row walkers, all rows at once, one column a step.
+                s = sum(flat[base + kx + j] for j in range(-r - 1, r))
+                hs = np.zeros((rows, AM_TW), np.uint16)
+                for c in range(AM_TW):
+                    s = s + flat[base + kx + c + r] - flat[base + kx + c - 1 - r]
+                    assert s.max() < 1 << 16
+                    hs[:, c] = s
+                # Column walkers: pairs of columns, segments of seg rows;
+                # the last slide reads a spare row of random sums.
+                hs = np.vstack([hs, rng.integers(0, 1 << 16, (1, AM_TW))
+                                ]).astype(np.int64)
+                for ys in range(0, th, seg):
+                    v = hs[ys:ys + 2 * r + 1].sum(0)
+                    for y in range(ys, ys + seg):
+                        xs = plane[r + y, kx:kx + AM_TW]
+                        plane[r + y, kx:kx + AM_TW] = np.where(
+                            2 * v < mul * xs + off, 255, 0)
+                        v = v + hs[y + 2 * r + 1] - hs[y]
+                ys_, xs_ = min(th, H - y0), min(AM_TW, W - x0)
+                out[z, y0:y0 + ys_, x0:x0 + xs_] = plane[
+                    r:r + ys_, kx:kx + xs_]
+    return out
+
+
+# ---- fused channel stage (lt_channel_stage: channel_stage_kernel) ----
+
+CS_THREADS, CS_SEG, CS_MAX_ROWS = 512, 32, 1024
+CS_SMEM = 227 * 1024  # the H100's shared memory a block can opt in to
+# (quads a thread holds, CTAs an SM, shared memory a CTA, the planner's
+# weight of its accesses x 10): the kernel's kCsShapes.
+CS_SHAPES = ((8, 1, CS_SMEM, 10), (6, 2, 110 * 1024, 13))
+
+
+def cs_size(kt: int, kb: int, kn: int, tq: int, th: int) -> dict:
+    """The kernel's sizes (cs_size in csrc/channel_stage.cu) of a tile of
+    tq quads x th rows."""
+    r = kt // 2
+    rq = -(-r // 16)
+    kbq, knq = -(-kb // 16), -(-kn // 16)
+    p = dict(r=r, rq=rq, tq=tq, th=th, kb=kb, kn=kn, kbq=kbq,
+             hy=max(kb + 2 * r, kn), hq=max(kbq + 2 * rq, knq))
+    p["nrx"], p["nqx"] = th + 2 * p["hy"], tq + 2 * p["hq"]
+    p["pd"] = 16 * (tq + 2 * kbq) + 4
+    p["pn"] = 16 * (tq + 2 * knq) + 4
+    p["hbp"] = 16 * tq // CS_SEG + 1
+    p["bufs"] = 2 * 16 * (p["nrx"] * p["nqx"] + 2 * 3)
+    p["smem"] = p["bufs"] + 4 * th * p["hbp"]
+    return p
+
+
+def cs_fits(kt, kb, kn, tq, th, shape=CS_SHAPES[0]) -> bool:
+    p = cs_size(kt, kb, kn, tq, th)
+    thd, tqd = th + 2 * kb, tq + 2 * p["kbq"]
+    cap = shape[0] * CS_THREADS
+    return (p["smem"] <= shape[2]
+            and (thd + 2 * p["r"]) * (tqd + 2 * p["rq"]) <= cap
+            and thd * tqd <= cap and (thd + 1) * p["pd"] <= p["bufs"]
+            and (kn == 0
+                 or (th + 2 * kn + 1) * p["pn"] <= 16 * p["nrx"] * p["nqx"]))
+
+
+def cs_cost(kt, kb, kn, tq, th, H, W) -> int:
+    p = cs_size(kt, kb, kn, tq, th)
+    r, rq, n = p["r"], p["rq"], len(tophat_steps(kt))
+    thd, tqd = th + 2 * kb, tq + 2 * p["kbq"]
+    rows_e, nqe = thd + 2 * r, tqd + 2 * rq
+    tw = 16 * tq
+    nsy = -(-CS_THREADS // tw)
+
+    def walks(k):
+        return 6 * th * tw + 2 * k * (th * (tw // CS_SEG) + tw * nsy)
+
+    tile = (6 * n * ((thd + 4 * r) * p["nqx"] + rows_e * nqe)
+            + 2 * (2 * r + 1) * (rows_e * nqe + thd * tqd)
+            + p["nrx"] * p["nqx"] + walks(kb) + (walks(kn) if kn else 0))
+    return tile * -(-H // th) * -(-W // tw)
+
+
+def cs_plan(kt, kb, kn, H, W, block=0) -> dict:
+    """The kernel's tile and shape (cs_plan): for each shape and width,
+    block 0 the fewest rows of tiles that fit, as even as they go, else
+    block rows clamped to H and to what fits; of those the fewest
+    estimated accesses, weighted by the shape."""
+    best = None
+    for shape in CS_SHAPES:
+        for tq in (4, 8, 12, 16):
+            fit = 0
+            for h in range(1, CS_MAX_ROWS + 1):
+                if not cs_fits(kt, kb, kn, tq, h, shape):
+                    break
+                fit = h
+            if fit == 0:
+                continue
+            if block > 0:
+                th = min(block, H, fit)
+            else:
+                th = -(-H // -(-H // fit))
+            cost = cs_cost(kt, kb, kn, tq, th, H, W) * 10 // shape[3]
+            if best is None or cost < best[0]:
+                best = (cost, tq, th, shape)
+    assert best is not None
+    return {**cs_size(kt, kb, kn, best[1], best[2]), "shape": best[3]}
+
+
+def _cross_walk_model(plane, cy, cx, th, tw, k, C, nthr):
+    """Hits of cross_walk over a plane whose pixel (cy + y, cx + c) is the
+    tile's (y, c): row walkers of CS_SEG columns, column walkers of
+    ceil(th / nsy) rows, each with running arm sums."""
+    t_off = C * k
+    hbits = np.zeros((th, tw), bool)
+    rows = cy + np.arange(th)
+    for xs in range(0, tw, CS_SEG):
+        c0 = cx + xs
+        left = sum(plane[rows, c0 - j] for j in range(1, k + 1))
+        right = sum(plane[rows, c0 + j] for j in range(1, k + 1))
+        for x in range(CS_SEG):
+            c = c0 + x
+            v = plane[rows, c]
+            t = k * v - t_off
+            hbits[:, xs + x] = (left < t) & (right < t)
+            left = left + v - plane[rows, c - k]
+            right = right + plane[rows, c + k + 1] - plane[rows, c + 1]
+    hit = np.zeros((th, tw), bool)
+    nsy = -(-CS_THREADS // tw)
+    segh = -(-th // nsy)
+    cols = cx + np.arange(tw)
+    for ys in range(0, th, segh):
+        ye = min(ys + segh, th)
+        up = sum(plane[cy + ys - j, cols] for j in range(1, k + 1))
+        down = sum(plane[cy + ys + j, cols] for j in range(1, k + 1))
+        for y in range(ys, ye):
+            v = plane[cy + y, cols]
+            t = k * v - t_off
+            hit[y] = ((up < t) & (down < t)) | hbits[y] | (v < nthr)
+            up = up + v - plane[cy + y - k, cols]
+            down = (down + plane[cy + y + k + 1, cols]
+                    - plane[cy + y + 1, cols])
+    return hit
+
+
+def _outside(H, W, gy0, gx0, rows, cols):
+    gy = np.arange(gy0, gy0 + rows)[:, None]
+    gx = np.arange(gx0, gx0 + cols)[None, :]
+    return (gy < 0) | (gy >= H) | (gx < 0) | (gx >= W)
+
+
+def channel_stage_model(img, kt, kb, C, noise=None, block=0, rng=None):
+    """(th, keep) as channel_stage_kernel computes them with cs_plan's
+    tiles: the staged plane (0 outside with the noise mask, whose reach is
+    copied to a plane of odd-word pitch and walked for keep, then 255
+    outside; 255 outside without it) in random buffers;
+    the erode of the tophat region plus r, read from the plane at its
+    offset; the eroded region (0 outside) as the dilate's source; the
+    tophat plane x - open (0 outside, a random spare row and pad); its
+    cross threshold."""
+    T, H, W = img.shape
+    kn, Cn, nthr = noise if noise else (0, 0, -1)
+    p = cs_plan(kt, kb, kn, H, W, block)
+    r, rq, tq, th, kbq = p["r"], p["rq"], p["tq"], p["th"], p["kbq"]
+    hy, hq, nrx, nqx, pd = p["hy"], p["hq"], p["nrx"], p["nqx"], p["pd"]
+    tw, steps = 16 * tq, tophat_steps(kt)
+    thd, tqd = th + 2 * kb, tq + 2 * kbq
+    nre, nqe = thd + 2 * r, tqd + 2 * rq
+    size = 16 * nrx * nqx
+    out = np.zeros_like(img)
+    keep = np.zeros_like(img) if noise else None
+    for z in range(T):
+        x_img = img[z].astype(np.int64)
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                sy0, sx0 = y0 - hy, x0 - 16 * hq
+                out_s = _outside(H, W, sy0, sx0, nrx, 16 * nqx)
+                gy = np.clip(np.arange(sy0, sy0 + nrx), 0, H - 1)
+                gx = np.clip(np.arange(sx0, sx0 + 16 * nqx), 0, W - 1)
+                S = np.where(out_s, 0 if noise else 255,
+                             x_img[gy[:, None], gx[None, :]])
+                ys_, xs_ = min(th, H - y0), min(tw, W - x0)
+                if noise:
+                    knq, pn = -(-kn // 16), p["pn"]
+                    Nz = rng.integers(0, 256, (th + 2 * kn + 1, pn))
+                    c0 = 16 * (hq - knq)
+                    Nz[:th + 2 * kn, :pn - 4] = S[hy - kn:hy + th + kn,
+                                                  c0:c0 + pn - 4]
+                    hit = _cross_walk_model(Nz, kn, 16 * knq, th, tw, kn, Cn,
+                                            nthr)
+                    keep[z, y0:y0 + ys_, x0:x0 + xs_] = np.where(
+                        hit[:ys_, :xs_], 255, 0)
+                    S = np.where(out_s, 255, S)
+                bufs = [rng.integers(0, 256, size + 2 * GUARD).astype(
+                    np.uint8) for _ in range(2)]
+                bufs[0][GUARD:GUARD + size] = S.astype(np.uint8).reshape(-1)
+                base = 16 * ((hy - kb - 2 * r) * nqx + hq - kbq - 2 * rq)
+                acc = _morph(bufs, steps, np.minimum, nrx, 16 * nqx, r,
+                             16 * rq, nre, 16 * nqe, 255, g=GUARD + base)
+                e = np.where(_outside(H, W, y0 - kb - r,
+                                      x0 - 16 * (kbq + rq), nre, 16 * nqe),
+                             0, acc)
+                bufs[0][GUARD:GUARD + nre * 16 * nqe] = e.astype(
+                    np.uint8).reshape(-1)
+                dil = _morph(bufs, steps, np.maximum, nre, 16 * nqe, r,
+                             16 * rq, thd, 16 * tqd, 0).astype(np.int64)
+                out_d = _outside(H, W, y0 - kb, x0 - 16 * kbq, thd, 16 * tqd)
+                gy = np.clip(np.arange(y0 - kb, y0 - kb + thd), 0, H - 1)
+                gx = np.clip(np.arange(x0 - 16 * kbq, x0 - 16 * kbq
+                                       + 16 * tqd), 0, W - 1)
+                D = rng.integers(0, 256, (thd + 1, pd))
+                D[:thd, :16 * tqd] = np.where(
+                    out_d, 0, x_img[gy[:, None], gx[None, :]] - dil)
+                hit = _cross_walk_model(D, kb, 16 * kbq, th, tw, kb, C, -1)
+                out[z, y0:y0 + ys_, x0:x0 + xs_] = np.where(
+                    hit[:ys_, :xs_], 255, 0)
+    return out if keep is None else (out, keep)
