@@ -58,8 +58,9 @@ Phases (each raises at the first failure; nothing is skipped):
    k=29 and 55, f32 k=29, probe 5's rows) and probe 4's ``tophat_ellipse``
    rows on (32, 1100, 1080) must equal the plain tophat; ``dual_tophat`` on
    the T=128 warped R and LAB-B must equal two ``tophat_ellipse`` calls and
-   the twins, and the library's launch counter must show it in 2 kernel
-   launches, as two one-launch ``tophat_ellipse`` calls take.  Probe 6's ``sweep_dots`` (32, 600, 1280) bf16 in each kind (3
+   the twins.  The library's launch counter must show ``dual_tophat`` in 1
+   kernel launch for both problems, two ``tophat_ellipse`` calls in 2, and
+   each ``tophat_staged`` call in 1.  Probe 6's ``sweep_dots`` (32, 600, 1280) bf16 in each kind (3
    launches): swept equal to its twin's, out equal to the twin's for
    ``sweeps`` and within a relative 1e-4 of it (float64 sums) for ``dots``
    and ``both``; ``cuobjdump --dump-sass`` of the built library must show
@@ -155,7 +156,7 @@ PROBE_LAUNCHES = {"shift_chain": 63, "shift_chain_2d": 1, "tophat_staged": 3,
 PROBE_KERNELS = ("shift_chain", "shift_chain_2d", "tophat_staged",
                  "dual_tophat", "sweep_dots", "tile_gather")
 PROBE_REPS = 10
-DUAL_LAUNCHES = 2
+DUAL_LAUNCHES = 1
 LAUNCH_REPS = 10
 # int32 operations per element and rep of probe 11's chains: the add, one
 # address for each gather, the mask.
@@ -498,7 +499,7 @@ def main(argv):
     print(f"[build] {lib_path.name}: nvcc {nvcc_s:.1f} s, "
           f"build() {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if "ptxas info" in line:
+        if "ptxas info" in line or line.startswith("nvcc -c "):
             print(f"[build] {line.strip()}")
 
     # ---- 3. Frames ----
@@ -853,17 +854,22 @@ def main(argv):
     for name in PROBE_KERNELS:
         max_err[name] = max(row["max_abs_err"] for row in probe_rows
                             if row.get("kernel") == name)
-    # The dual tophat in 2 kernel launches, and two one-launch tophat_ellipse
-    # calls in 2, counted by the library's launchers on 8 warped frames.
+    # The dual tophat in 1 kernel launch, two one-launch tophat_ellipse calls
+    # in 2, and each staged tophat call in 1, counted by the library's
+    # launchers on 8 warped frames.
     r10, b10 = mosaic.warped_channels(8, "cuda")
     n_dual = counted_launches(lambda: fs.dual_tophat(r10, b10, 29, 55))
     n_sep = counted_launches(lambda: (fs.tophat_ellipse(r10, 29),
                                       fs.tophat_ellipse(b10, 55)))
+    n_staged = [counted_launches(lambda k=k, dt=dt: fs.tophat_staged(
+        r10, k, dt)) for _, k, dt in mosaic.PROBE5]
     print(f"[probes] kernel launches counted by the launchers: dual_tophat "
-          f"{n_dual}; two tophat_ellipse calls {n_sep}")
-    check(n_dual == DUAL_LAUNCHES and n_sep == 2,
-          f"the dual tophat did not take {DUAL_LAUNCHES} launches, or two "
-          "tophat_ellipse calls not 2")
+          f"{n_dual}; two tophat_ellipse calls {n_sep}; tophat_staged "
+          f"calls {n_staged}")
+    check(n_dual == DUAL_LAUNCHES and n_sep == 2
+          and n_staged == [1] * len(mosaic.PROBE5),
+          f"the dual tophat did not take {DUAL_LAUNCHES} launch, two "
+          "tophat_ellipse calls not 2, or a tophat_staged call not 1")
     del r10, b10
 
     # ---- 10. Timing (not gated) ----

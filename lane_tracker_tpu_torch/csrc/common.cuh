@@ -1,5 +1,6 @@
 // Shared constants, device functions and launch helpers of the port's
-// filter-stage kernels (filter_stage.cu, adaptive_mean.cu, channel_stage.cu).
+// filter-stage kernels (filter_stage.cu, tophat_staged.cu, dual_tophat.cu,
+// adaptive_mean.cu, channel_stage.cu).
 
 #pragma once
 
@@ -34,6 +35,19 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// cudaGetLastError() after a launch, counting the launch in
+// lt_filter_stage_launches if it was taken (filter_stage.cu; the launchers
+// of filter_stage.cu, tophat_staged.cu and dual_tophat.cu call it).
+cudaError_t filter_stage_launched();
+
+// Whether a kernel may move whole groups of n bytes (16: a u8 quad): W a
+// multiple of n and both images n-byte aligned.
+inline bool aligned(const void* a, const void* b, int W, int n = 16) {
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
+  return W % n == 0 && bits % n == 0;
 }
 
 inline dim3 tile_grid(int T, int H, int W) {

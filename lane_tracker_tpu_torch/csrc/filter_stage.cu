@@ -11,15 +11,10 @@
 //                         and keep, 5x5 elliptical open, packed row prefixes)
 //   lt_merge_open      <- merge_open_pallas2     ((r | b) & keep, the same
 //                         open and prefixes; the second attempt's last stage)
-// Two entries answer the morphology probes' questions with pow2-pyramid
-// tiles (morph_kernel):
-//   lt_tophat_staged   <- tophat_bf16 of scripts/mosaic_probe5.py (the tophat
-//                         with bf16 or f32 compute scratch): morph_kernel
-//                         staged in bf16 or f32 instead of uint8
-//   lt_dual_tophat     <- build_dual of scripts/mosaic_probe10.py (two
-//                         independent tophats, k=29 on R and k=55 on LAB-B,
-//                         in one kernel): one erode and one dilate launch
-//                         whose CTAs split between the two problems
+// The morphology probes' two tophats run the same tile (tophat_tile,
+// tophat.cuh) in sources of their own: tophat_staged.cu (lt_tophat_staged)
+// and dual_tophat.cu (lt_dual_tophat).  lt_tophat_plan gives the tile plan
+// of all three.
 // The merge + open + prefix tail is one kernel (open_tail_kernel) that both
 // merge entries launch, lt_merge_open with the merge in its load;
 // lt_open_prefix launches it alone.  The second attempt's adaptive mean
@@ -30,7 +25,8 @@
 // Plain C interface, loaded with ctypes: each entry launches on the stream it
 // is given, allocates nothing (the caller passes outputs and scratch) and
 // returns cudaGetLastError().  Images are (T, H, W) uint8, row-major,
-// contiguous.  lt_filter_stage_launches counts the kernels launched.
+// contiguous.  lt_filter_stage_launches counts the kernels launched, those
+// of tophat_staged.cu and dual_tophat.cu too.
 //
 // What bounds them on the H100: shared-memory traffic and issue slots for
 // the stencils, HBM bytes for the tail.  Each kernel reads its u8 inputs
@@ -44,178 +40,39 @@
 //   * The merge + open + prefix tail (open_tail_kernel): 32 binary pixels a
 //     word, the open as ANDs and ORs of funnel-shifted words, the prefixes
 //     from popcounts; see its notes.
-//   * The probes' pow2-pyramid tiles (morph_kernel): a 32x32 tile plus a
-//     k/2 halo (255 outside the image for erode, 0 for dilate), two shared
-//     reads per SE row; erode and dilate are two launches.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "tophat.cuh"
 
 namespace {
-
-using lt::allow_smem;
-using lt::held_quads;
-using lt::kTopGuard;
-using lt::kTopThreads;
-using lt::load_quad;
-using lt::morph_pass;
-using lt::quad_word;
-using lt::TophatPlan;
-using lt::tophat_steps;
-using lt::zero_outside;
-using lt::kTileH;
-using lt::kMaxRuns;
-using lt::kTileW;
-using lt::load_runs;
-using lt::op;
-using lt::SeRuns;
-using lt::tile_grid;
-
 long long g_launches = 0;  // lt_filter_stage_launches
+}  // namespace
 
-// cudaGetLastError() after a launch, counting the launch if it was taken.
-cudaError_t launched() {
+cudaError_t lt::filter_stage_launched() {
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++g_launches;
   return err;
 }
 
-// Whether a kernel may move whole 16-byte quads: W a multiple of 16 and
-// both images 16-byte aligned.
-bool aligned16(const void* a, const void* b, int W) {
-  const uintptr_t bits =
-      reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
-  return W % 16 == 0 && bits % 16 == 0;
-}
+namespace {
 
-// The type a morphology tile stages its pixels and builds its pyramid in:
-// uint8 (the production kernels), bf16 or f32 (scripts/mosaic_probe5.py's
-// question).  Pixels are 0..255, exact in all three, so the staging type
-// does not change the result.
-template <typename S>
-__device__ __forceinline__ S to_stage(uint8_t v) {
-  if constexpr (std::is_same_v<S, __nv_bfloat16>)
-    return __float2bfloat16_rn((float)v);
-  else return (S)v;
-}
-template <typename S>
-__device__ __forceinline__ uint8_t from_stage(S v) {
-  if constexpr (std::is_same_v<S, __nv_bfloat16>)
-    return (uint8_t)__bfloat162float(v);
-  else return (uint8_t)v;
-}
-template <bool kMax, typename S>
-__device__ __forceinline__ S stage_op(S a, S b) {
-  if constexpr (std::is_same_v<S, __nv_bfloat16>)
-    return kMax ? __hmax(a, b) : __hmin(a, b);
-  else if constexpr (std::is_same_v<S, float>)
-    return kMax ? fmaxf(a, b) : fminf(a, b);
-  else return op<kMax>(a, b);
-}
-
-// Erode (kMax=false, fill 255) or dilate (kMax=true, fill 0) by the SE
-// runs, one 32x32 output tile of frame z, staged in S.  With kSubtract the
-// output is sub_src - result (the tophat epilogue).  lev: the dynamic
-// shared memory, nlev planes of (32 + 2r)^2 S.
-template <typename S, bool kMax, bool kSubtract>
-__device__ __forceinline__ void morph_tile(const uint8_t* __restrict__ in,
-                                           const uint8_t* __restrict__ sub_src,
-                                           uint8_t* __restrict__ out, int H,
-                                           int W, const SeRuns& runs, int r,
-                                           int nlev, int z, S* lev) {
-  const int rows = kTileH + 2 * r;
-  const int cols = kTileW + 2 * r;
-  const int plane = rows * cols;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const size_t frame = (size_t)z * H * W;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const S fill = to_stage<S>(kMax ? 0 : 255);
-
-  for (int i = tid; i < plane; i += nthr) {
-    const int ly = i / cols;
-    const int lx = i - ly * cols;
-    const int gy = y0 - r + ly;
-    const int gx = x0 - r + lx;
-    lev[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                 ? to_stage<S>(in[frame + (size_t)gy * W + gx])
-                 : fill;
-  }
-  __syncthreads();
-  // Level j holds op over columns [c, c + 2^j) of its row.  Entries whose
-  // window runs off the tile are never read.
-  for (int j = 0; j + 1 < nlev; ++j) {
-    const S* a = lev + j * plane;
-    S* b = lev + (j + 1) * plane;
-    const int s = 1 << j;
-    for (int i = tid; i < plane; i += nthr) {
-      const int lx = i % cols;
-      b[i] = (lx + s < cols) ? stage_op<kMax>(a[i], a[i + s]) : a[i];
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < kTileW * kTileH; i += nthr) {
-    const int ly = i / kTileW;
-    const int lx = i - ly * kTileW;
-    const int gy = y0 + ly;
-    const int gx = x0 + lx;
-    if (gy >= H || gx >= W) continue;
-    S acc = fill;
-    for (int q = 0; q < runs.n; ++q) {
-      const int lo = runs.lo[q];
-      const int hi = runs.hi[q];
-      const int k = 31 - __clz(hi - lo + 1);
-      const S* row =
-          lev + k * plane + (ly + r + runs.dy[q]) * cols + (lx + r);
-      acc = stage_op<kMax>(acc, stage_op<kMax>(row[lo], row[hi - (1 << k) + 1]));
-    }
-    const size_t o = frame + (size_t)gy * W + gx;
-    const uint8_t res = from_stage(acc);
-    out[o] = kSubtract ? (uint8_t)(sub_src[o] - res) : res;
-  }
-}
-
-// One tile per CTA.  Grid: (ceil(W/32), ceil(H/32), T); block 32x8.
-template <typename S, bool kMax, bool kSubtract>
-__global__ void morph_kernel(const uint8_t* __restrict__ in,
-                             const uint8_t* __restrict__ sub_src,
-                             uint8_t* __restrict__ out, int H, int W,
-                             SeRuns runs, int r, int nlev) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  morph_tile<S, kMax, kSubtract>(in, sub_src, out, H, W, runs, r, nlev,
-                                 blockIdx.z, reinterpret_cast<S*>(smem_raw));
-}
-
-// Two independent problems of one frame shape in one launch
-// (scripts/mosaic_probe10.py's dual tophat): CTAs with blockIdx.z < T take
-// problem a (its frames, runs, halo and output), the rest problem b.  The
-// dynamic shared memory is sized for the larger.  Grid: (ceil(W/32),
-// ceil(H/32), 2T).
-template <bool kMax, bool kSubtract>
-__global__ void dual_morph_kernel(const uint8_t* __restrict__ in_a,
-                                  const uint8_t* __restrict__ in_b,
-                                  const uint8_t* __restrict__ sub_a,
-                                  const uint8_t* __restrict__ sub_b,
-                                  uint8_t* __restrict__ out_a,
-                                  uint8_t* __restrict__ out_b, int T, int H,
-                                  int W, SeRuns runs_a, SeRuns runs_b,
-                                  int r_a, int r_b, int nlev_a, int nlev_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int z = blockIdx.z;
-  if (z < T)
-    morph_tile<uint8_t, kMax, kSubtract>(in_a, sub_a, out_a, H, W, runs_a, r_a,
-                                         nlev_a, z, smem_raw);
-  else
-    morph_tile<uint8_t, kMax, kSubtract>(in_b, sub_b, out_b, H, W, runs_b, r_b,
-                                         nlev_b, z - T, smem_raw);
-}
+using lt::aligned;
+using lt::allow_smem;
+using lt::filter_stage_launched;
+using lt::kTopMaxQuads;
+using lt::kTopThreads;
+using lt::load_quad;
+using lt::load_runs;
+using lt::plane_guard;
+using lt::SeRuns;
+using lt::tophat_plan;
+using lt::tophat_smem;
+using lt::tophat_tile;
+using lt::TophatPlan;
+using lt::U8Lanes;
 
 // ---- The tophat (lt_tophat): one launch, the eroded tile in shared memory
 //
@@ -242,78 +99,21 @@ __global__ void dual_morph_kernel(const uint8_t* __restrict__ in_a,
 //   * Tiles sized for the halo: 64 to 256 columns by up to 256 rows, the
 //     tallest that fits two CTAs an SM, chosen by the host (tophat_plan)
 //     for the frame.
+// The tile is tophat_tile (tophat.cuh), which the probes' staged and dual
+// kernels (tophat_staged.cu, dual_tophat.cu) run too; the host's plan is
+// tophat_plan, beside it.
 // Two shared buffers, each the staged tile: the plane is widened from one
 // into the other, one barrier a step.  Reads that run off a row or off
 // the buffer (into a guard) only feed values whose window runs off the
 // staged region, which no output reads.
-
-constexpr int kTopMaxQuads = 6;    // accumulator quads a thread holds
-constexpr size_t kTopSmemTwo = 110 * 1024;  // two CTAs an SM
-
-// Bytes of the tophat's two buffers (each the staged tile, 2r rows and
-// 2 rq quads of halo a side, plus guards) for a tile of tq quads x th rows.
-size_t tophat_smem(int tq, int th, int r, int rq) {
-  return 2 * 16 * ((size_t)(th + 4 * r) * (tq + 4 * rq) + 2 * kTopGuard);
-}
 
 // Grid: (ceil(W / 16 tq), ceil(H / th), T); kTopThreads threads.
 __global__ void __launch_bounds__(kTopThreads, 2)
     tophat_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                   int H, int W, bool vec, TophatPlan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int r = p.r, rq = p.rq, tq = p.tq, th = p.th;
-  const int nqx = tq + 4 * rq, nrx = th + 4 * r;  // staged input
-  const int nqe = tq + 2 * rq, nre = th + 2 * r;  // eroded region
-  uint4* buf0 = reinterpret_cast<uint4*>(smem_raw) + kTopGuard;
-  uint4* buf1 = buf0 + (size_t)nrx * nqx + 2 * kTopGuard;
-  const int x0 = blockIdx.x * tq * 16;
-  const int y0 = blockIdx.y * th;
-  const size_t frame = (size_t)blockIdx.z * H * W;
-
-  for (int i = threadIdx.x; i < nrx * nqx; i += kTopThreads) {
-    const int row = i / nqx;
-    buf0[i] = load_quad(in + frame, H, W, y0 - 2 * r + row,
-                        x0 - 32 * rq + 16 * (i - row * nqx), 255u, vec);
-  }
-  __syncthreads();
-  int off[kTopMaxQuads];
-  uint4 acc[kTopMaxQuads];
-  int nq = held_quads(nre * nqe, nqe, nqx, r, rq, off);
-  morph_pass<false>(buf0, buf1, p, nqx, nre, off, acc, nq);
-  __syncthreads();
-  // The eroded region into buf0, rows of nqe quads, 0 outside the image.
-#pragma unroll
-  for (int j = 0; j < kTopMaxQuads; ++j) {
-    if (j >= nq) break;
-    const int m = threadIdx.x + j * kTopThreads;
-    const int row = m / nqe;
-    const int gy = y0 - r + row;
-    buf0[m] = zero_outside(acc[j], H, W, gy,
-                           x0 - 16 * rq + 16 * (m - row * nqe));
-  }
-  __syncthreads();
-  nq = held_quads(th * tq, tq, nqe, r, rq, off);
-  morph_pass<true>(buf0, buf1, p, nqe, th, off, acc, nq);
-  // out = img - open(img): bytewise with no borrow, as open <= img.
-#pragma unroll
-  for (int j = 0; j < kTopMaxQuads; ++j) {
-    if (j >= nq) break;
-    const int m = threadIdx.x + j * kTopThreads;
-    const int row = m / tq;
-    const int gy = y0 + row;
-    const int gx = x0 + 16 * (m - row * tq);
-    if (gy >= H || gx >= W) continue;
-    const uint4 x = load_quad(in + frame, H, W, gy, gx, 0u, vec);
-    const uint4& d = acc[j];
-    const uint4 o = make_uint4(x.x - d.x, x.y - d.y, x.z - d.z, x.w - d.w);
-    uint8_t* dst = out + frame + (size_t)gy * W + gx;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = o;
-    } else {
-      for (int b = 0; b < 16 && gx + b < W; ++b)
-        dst[b] = (uint8_t)(quad_word(o, b / 4) >> (8 * (b % 4)));
-    }
-  }
+  tophat_tile<U8Lanes, kTopMaxQuads>(in, out, H, W, vec, p, blockIdx.x,
+                                     blockIdx.y, blockIdx.z, smem_raw);
 }
 
 // ---- The cross threshold (lt_cross_threshold, lt_thr_merge_open) ----
@@ -693,60 +493,6 @@ __global__ void __launch_bounds__(kOpenThreads)
   }
 }
 
-// Pyramid levels a morphology tile needs for the SE's longest run.
-int pyramid_levels(const SeRuns& runs) {
-  int nlev = 1;
-  while ((1 << nlev) <= runs.max_run) ++nlev;
-  return nlev;
-}
-
-size_t morph_smem(const SeRuns& runs, int ksize, size_t elem) {
-  const int r = ksize / 2;
-  return elem * pyramid_levels(runs) * (kTileH + 2 * r) * (kTileW + 2 * r);
-}
-
-template <bool kMax, bool kSubtract, typename S>
-cudaError_t launch_morph(const uint8_t* in, const uint8_t* sub_src,
-                         uint8_t* out, const SeRuns& runs, int ksize, int T,
-                         int H, int W, cudaStream_t stream) {
-  const size_t smem = morph_smem(runs, ksize, sizeof(S));
-  cudaError_t err = allow_smem(morph_kernel<S, kMax, kSubtract>, smem);
-  if (err != cudaSuccess) return err;
-  morph_kernel<S, kMax, kSubtract><<<tile_grid(T, H, W), dim3(32, 8), smem,
-                                     stream>>>(
-      in, sub_src, out, H, W, runs, ksize / 2, pyramid_levels(runs));
-  return launched();
-}
-
-// out = img - open(img), staged in S: an erode launch and a dilate launch.
-template <typename S>
-cudaError_t launch_tophat(const uint8_t* x, uint8_t* eroded, uint8_t* out,
-                          const SeRuns& se, int ksize, int T, int H, int W,
-                          cudaStream_t s) {
-  cudaError_t err =
-      launch_morph<false, false, S>(x, nullptr, eroded, se, ksize, T, H, W, s);
-  if (err != cudaSuccess) return err;
-  return launch_morph<true, true, S>(eroded, x, out, se, ksize, T, H, W, s);
-}
-
-template <bool kMax, bool kSubtract>
-cudaError_t launch_dual_morph(const uint8_t* in_a, const uint8_t* in_b,
-                              const uint8_t* sub_a, const uint8_t* sub_b,
-                              uint8_t* out_a, uint8_t* out_b,
-                              const SeRuns& se_a, const SeRuns& se_b, int ka,
-                              int kb, int T, int H, int W, cudaStream_t s) {
-  const size_t sa = morph_smem(se_a, ka, 1);
-  const size_t sb = morph_smem(se_b, kb, 1);
-  const size_t smem = sa > sb ? sa : sb;
-  cudaError_t err = allow_smem(dual_morph_kernel<kMax, kSubtract>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid = tile_grid(2 * T, H, W);
-  dual_morph_kernel<kMax, kSubtract><<<grid, dim3(32, 8), smem, s>>>(
-      in_a, in_b, sub_a, sub_b, out_a, out_b, T, H, W, se_a, se_b, ka / 2,
-      kb / 2, pyramid_levels(se_a), pyramid_levels(se_b));
-  return launched();
-}
-
 cudaError_t launch_threshold(const uint8_t* in, uint8_t* out, int T, int H,
                              int W, int k, int C, int noise_thresh,
                              cudaStream_t stream) {
@@ -756,48 +502,8 @@ cudaError_t launch_threshold(const uint8_t* in, uint8_t* out, int T, int H,
   const dim3 grid((W + kThrTW - 1) / kThrTW, (H + kThrTH - 1) / kThrTH, T);
   threshold_kernel<<<grid, kThrThreads, smem, stream>>>(
       in, out, H, W, k, C, noise_thresh,
-      aligned16(in, out, W));
-  return launched();
-}
-
-// The tophat's plan for an odd ksize whose runs are symmetric (tophat_steps
-// in tophat.cuh), and its tiles for an H x W frame; -1 if the runs are not
-// so or the plan does not fit.
-int tophat_plan(const SeRuns& se, int ksize, int H, int W, TophatPlan* p) {
-  if (tophat_steps(se, ksize, p) != 0) return -1;
-  const int r = p->r;
-  const int n = p->nsteps;
-  // Tiles: of 64, 128, 192 or 256 columns, each with the tallest height
-  // (a multiple of 8, at most 256 and the frame's) whose buffers fit two
-  // CTAs an SM and whose quads the threads can hold (for every odd k up
-  // to 63 some height does); the one whose frame costs the fewest
-  // shared-memory quad accesses (an estimate of the widening steps' and
-  // the gathers').
-  long long best = -1;
-  const int hmax = (H + 7) / 8 * 8 < 256 ? (H + 7) / 8 * 8 : 256;
-  for (int tq = 4; tq <= 16; tq += 4) {
-    const long long nqx = tq + 4 * p->rq, nqe = tq + 2 * p->rq;
-    int th = 0;
-    for (int h = 8; h <= hmax; h += 8) {
-      if (tophat_smem(tq, h, r, p->rq) <= kTopSmemTwo &&
-          (h + 2 * r) * nqe <= kTopMaxQuads * kTopThreads &&
-          h * tq <= kTopMaxQuads * kTopThreads)
-        th = h;
-    }
-    if (th == 0) continue;
-    const long long rows_x = th + 4 * r, rows_e = th + 2 * r;
-    const long long tile = 6LL * n * (rows_x * nqx + rows_e * nqe) +
-                           2LL * (2 * r + 1) * (rows_e * nqe + th * tq) +
-                           rows_x * nqx;
-    const long long cost =
-        tile * ((H + th - 1) / th) * ((W + 16 * tq - 1) / (16 * tq));
-    if (best < 0 || cost < best) {
-      best = cost;
-      p->tq = tq;
-      p->th = th;
-    }
-  }
-  return best < 0 ? -1 : 0;
+      aligned(in, out, W));
+  return filter_stage_launched();
 }
 
 // img - open(img): one launch of tophat_kernel.
@@ -805,15 +511,17 @@ cudaError_t launch_tophat_fused(const uint8_t* in, uint8_t* out,
                                 const SeRuns& se, int ksize, int T, int H,
                                 int W, cudaStream_t stream) {
   TophatPlan p;
-  if (tophat_plan(se, ksize, H, W, &p) != 0) return cudaErrorInvalidValue;
+  int shape;
+  if (tophat_plan(se, ksize, 1, H, W, &p, &shape) != 0)
+    return cudaErrorInvalidValue;
   const size_t smem = tophat_smem(p.tq, p.th, p.r, p.rq);
   cudaError_t err = allow_smem(tophat_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((W + 16 * p.tq - 1) / (16 * p.tq), (H + p.th - 1) / p.th,
                   T);
   tophat_kernel<<<grid, kTopThreads, smem, stream>>>(
-      in, out, H, W, aligned16(in, out, W), p);
-  return launched();
+      in, out, H, W, aligned(in, out, W), p);
+  return filter_stage_launched();
 }
 
 template <int V>
@@ -827,7 +535,7 @@ cudaError_t launch_open_tail_v(const uint8_t* a, const uint8_t* b,
   const dim3 grid((H + kBandRows - 1) / kBandRows, T);
   open_tail_kernel<V><<<grid, kOpenThreads, smem, s>>>(a, b, keep, bin, pref,
                                                        H, W, shift, se, r);
-  return launched();
+  return filter_stage_launched();
 }
 
 // The tail every merge entry ends with, one launch of open_tail_kernel:
@@ -886,50 +594,26 @@ int lt_tophat(const void* img, void* out, void* scratch, const void* runs,
                                   W, static_cast<cudaStream_t>(stream));
 }
 
-// lt_tophat with the tiles staged, and their pyramids built, in another
-// type than uint8: stage 1 bf16, 2 f32.
-int lt_tophat_staged(const void* img, void* out, void* scratch,
-                     const void* runs, int n_runs, int ksize, int T, int H,
-                     int W, int stage, void* stream) {
+// The tophat's tile plan for an H x W frame with its planes at elem bytes
+// a pixel (1: lt_tophat and lt_dual_tophat; 2, 4: lt_tophat_staged): out
+// gets 6 int32 (tile columns, tile rows, tq, rq, the shape: 0 two CTAs an
+// SM, 1 one; shared bytes a CTA).
+int lt_tophat_plan(const void* runs, int n_runs, int ksize, int elem, int H,
+                   int W, void* out) {
   SeRuns se;
+  TophatPlan p;
+  int shape;
   if (load_runs(static_cast<const int*>(runs), n_runs, &se) != 0 ||
-      ksize < 1 || T < 1 || H < 1 || W < 1)
+      H < 1 || W < 1 || tophat_plan(se, ksize, elem, H, W, &p, &shape) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* x = static_cast<const uint8_t*>(img);
-  uint8_t* e = static_cast<uint8_t*>(scratch);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  switch (stage) {
-    case 1:
-      return (int)launch_tophat<__nv_bfloat16>(x, e, o, se, ksize, T, H, W, s);
-    case 2: return (int)launch_tophat<float>(x, e, o, se, ksize, T, H, W, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// Two tophats of one frame shape, a with ka and b with kb, in one erode
-// launch and one dilate launch.  scratch_a / scratch_b hold the eroded
-// images.
-int lt_dual_tophat(const void* a, const void* b, void* out_a, void* out_b,
-                   void* scratch_a, void* scratch_b, const void* runs_a,
-                   int n_runs_a, int ka, const void* runs_b, int n_runs_b,
-                   int kb, int T, int H, int W, void* stream) {
-  SeRuns se_a, se_b;
-  if (load_runs(static_cast<const int*>(runs_a), n_runs_a, &se_a) != 0 ||
-      load_runs(static_cast<const int*>(runs_b), n_runs_b, &se_b) != 0 ||
-      ka < 1 || kb < 1 || T < 1 || H < 1 || W < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* xa = static_cast<const uint8_t*>(a);
-  const uint8_t* xb = static_cast<const uint8_t*>(b);
-  uint8_t* ea = static_cast<uint8_t*>(scratch_a);
-  uint8_t* eb = static_cast<uint8_t*>(scratch_b);
-  cudaError_t err = launch_dual_morph<false, false>(
-      xa, xb, nullptr, nullptr, ea, eb, se_a, se_b, ka, kb, T, H, W, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_dual_morph<true, true>(
-      ea, eb, xa, xb, static_cast<uint8_t*>(out_a),
-      static_cast<uint8_t*>(out_b), se_a, se_b, ka, kb, T, H, W, s);
+  int* o = static_cast<int*>(out);
+  o[0] = 16 / elem * p.tq;
+  o[1] = p.th;
+  o[2] = p.tq;
+  o[3] = p.rq;
+  o[4] = shape;
+  o[5] = (int)tophat_smem(p.tq, p.th, p.r, p.rq, plane_guard(elem));
+  return 0;
 }
 
 // Bilateral cross threshold (optionally the noise keep-mask) of img.

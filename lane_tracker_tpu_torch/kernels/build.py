@@ -19,13 +19,14 @@ import pathlib
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
-SOURCES = ("filter_stage.cu", "adaptive_mean.cu", "channel_stage.cu",
-           "resample_mxu2.cu", "shift_chain.cu", "sweep_dots.cu",
-           "tile_gather.cu")
+SOURCES = ("filter_stage.cu", "tophat_staged.cu", "dual_tophat.cu",
+           "adaptive_mean.cu", "channel_stage.cu", "resample_mxu2.cu",
+           "shift_chain.cu", "sweep_dots.cu", "tile_gather.cu")
 HEADERS = ("common.cuh", "tophat.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -50,6 +51,7 @@ SIGNATURES = {
     "lt_channel_stage_plan": (_P, _I, _I, _I, _I, _I, _I, _I),
     "lt_banded_pass2": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lt_tophat_staged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lt_tophat_plan": (_P, _I, _I, _I, _I, _I, _P),
     "lt_dual_tophat": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
                        _I, _I, _P),
     "lt_shift_chain": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D,
@@ -90,7 +92,8 @@ def build() -> tuple:
     """Compile the sources if their library is missing.
 
     Returns (path, seconds spent compiling, nvcc's messages); seconds is 0
-    when an up-to-date library already existed.
+    when an up-to-date library already existed.  The messages end each
+    source's with a line of its own seconds ("nvcc -c <source>: <s> s").
     """
     out = library_path()
     if out.exists():
@@ -100,14 +103,22 @@ def build() -> tuple:
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{pathlib.Path(src).stem}.o" for src in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    try:
-        procs = [subprocess.Popen(
+
+    def compile_one(src, obj):
+        t = time.perf_counter()
+        res = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(SOURCES, objs)]
-        log = "".join(p.communicate()[0] for p in procs)
-        failed = [src for src, p in zip(SOURCES, procs) if p.returncode != 0]
+        return res, time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            done = list(pool.map(compile_one, SOURCES, objs))
+        log = "".join(f"{res.stdout}nvcc -c {src}: {sec:.1f} s\n"
+                      for src, (res, sec) in zip(SOURCES, done))
+        failed = [src for src, (res, _) in zip(SOURCES, done)
+                  if res.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         res = subprocess.run(

@@ -36,13 +36,14 @@ The morphology probes (lane_tracker_tpu_torch/probes/mosaic.py; the
 tracker runs neither):
 
 * ``tophat_staged`` <- ``tophat_bf16`` of scripts/mosaic_probe5.py (the
-  production tophat with bf16 or f32 compute scratch): ``lt_tophat`` with
-  its tiles staged in bf16 or f32 instead of uint8.  Pixels are 0..255,
-  exact in all three, so the twin is ``tophat_ellipse_plain``.
+  production tophat with bf16 or f32 compute scratch): one launch of
+  ``lt_tophat``'s tile with its shared planes in bf16 or f32 bit patterns
+  (2 or 4 bytes a pixel) instead of uint8.  Pixels are 0..255, exact in
+  all three, so the twin is ``tophat_ellipse_plain``.
 * ``dual_tophat`` <- ``build_dual``'s ``run`` of scripts/mosaic_probe10.py
-  (two independent tophats in one kernel): one erode and one dilate launch
-  of pow2-pyramid tiles, whose CTAs split between the two problems,
-  against the two launches of two ``tophat_ellipse`` calls.
+  (two independent tophats in one kernel): one launch over the tiles of
+  both problems, each at ``lt_tophat``'s plan for its k, against the two
+  launches of two ``tophat_ellipse`` calls.
 
 Bounds on the H100 and what the design does about them are noted at the
 top of each source: the kernels are shared-memory and issue bound.  The
@@ -51,8 +52,8 @@ lanes) and widens one plane of window min/max through the ellipse's
 distinct half-widths, erode and dilate in one launch; the threshold keeps
 running arm sums; the open + prefix tail keeps 32 binary pixels a word
 (the open as ANDs and ORs of shifted words, the prefixes from popcounts);
-the probes' tophats read a pow2 window pyramid; the adaptive mean reads an
-integral image.
+the probes' tophats run the tophat's tile; the adaptive mean keeps running
+sums.
 ``kernel_launches()`` reads the library's own count of kernel launches.
 """
 
@@ -89,8 +90,8 @@ SOURCE = {
     "adaptive_mean": _CSRC + "adaptive_mean.cu",
     "merge_open": _CSRC + "filter_stage.cu",
     "bilateral_threshold": _CSRC + "filter_stage.cu",
-    "tophat_staged": _CSRC + "filter_stage.cu",
-    "dual_tophat": _CSRC + "filter_stage.cu",
+    "tophat_staged": _CSRC + "tophat_staged.cu",
+    "dual_tophat": _CSRC + "dual_tophat.cu",
 }
 _TPU = "lane_tracker_tpu/kernels/filter_stage2.py:"
 REPLACES = {
@@ -109,9 +110,10 @@ STAGING = {torch.bfloat16: 1, torch.float32: 2}
 # The adaptive-mean kernel keeps row sums of k pixels in uint16 lanes
 # (csrc/adaptive_mean.cu kAdaptiveMaxK): odd k up to 127 on the card.
 ADAPTIVE_MEAN_MAX_K = 127
-# The tophat kernel takes odd k (OpenCV's ellipse is then symmetric about
-# its centre row) with at most 64 SE rows (csrc/common.cuh kMaxRuns), in
-# at most 40 widening steps (kTopMaxSteps); the threshold kernel's staged
+# The tophat kernels (``tophat_ellipse``, ``tophat_staged``, ``dual_tophat``)
+# take odd k (OpenCV's ellipse is then symmetric about its centre row) with
+# at most 64 SE rows (csrc/common.cuh kMaxRuns), in at most 40 widening
+# steps (kTopMaxSteps); the threshold kernel's staged
 # tile, (128 + 2k) rows of 128 + 2 round16(k) bytes, fits the 227 KB a
 # block can take up to k = 128.
 TOPHAT_MAX_K = 63
@@ -307,23 +309,44 @@ def tophat_staged_plain(img: torch.Tensor, ksize: int,
     return _tophat_plain(img, ksize)
 
 
+def _launch_staged(img: torch.Tensor, ksize: int, code: int) -> torch.Tensor:
+    """One launch of the staged tophat (lt_tophat_staged's ``stage``
+    code; its scratch argument unused)."""
+    T, H, W = img.shape
+    out = torch.empty_like(img)
+    runs = _runs_table(int(ksize))
+    _check(load_library().lt_tophat_staged(
+        img.data_ptr(), out.data_ptr(), None, runs.ctypes.data, len(runs),
+        int(ksize), T, H, W, int(code), _stream()), "lt_tophat_staged")
+    return out
+
+
 def tophat_staged(img: torch.Tensor, ksize: int,
                   dtype: torch.dtype) -> torch.Tensor:
-    """``tophat_ellipse`` with the kernel's tiles and pyramids in ``dtype``
-    (bfloat16 or float32) instead of uint8."""
+    """``tophat_ellipse`` with the kernel's shared planes in ``dtype``
+    (bfloat16 or float32) instead of uint8; ksize as ``tophat_ellipse``'s
+    on the card."""
     if dtype not in STAGING:
         raise ValueError(f"no staging type {dtype}; one of {list(STAGING)}")
     if not _on_cuda(img):
         return tophat_staged_plain(img, ksize, dtype)
-    T, H, W = img.shape
-    out, scratch = torch.empty_like(img), torch.empty_like(img)
-    runs = _runs_table(int(ksize))
-    _check(load_library().lt_tophat_staged(
-        img.data_ptr(), out.data_ptr(), scratch.data_ptr(), runs.ctypes.data,
-        len(runs), int(ksize), T, H, W, STAGING[dtype], _stream()),
-        "lt_tophat_staged")
+    out = _launch_staged(img, _tophat_k(ksize), STAGING[dtype])
     LAUNCHES["tophat_staged"] += 1
     return out
+
+
+def tophat_plan(ksize: int, H: int, W: int, elem: int = 1) -> dict:
+    """The tile the tophat kernels plan for an H x W frame with their
+    planes at ``elem`` bytes a pixel (1: ``tophat_ellipse`` and
+    ``dual_tophat``; 2 and 4: ``tophat_staged``'s bf16 and f32), from the
+    library: {tw, th, tq, rq, shape (0: two CTAs an SM, 1: one), smem}."""
+    runs = _runs_table(_tophat_k(ksize))
+    out = np.zeros(6, np.int32)
+    _check(load_library().lt_tophat_plan(
+        runs.ctypes.data, len(runs), int(ksize), int(elem), int(H), int(W),
+        out.ctypes.data), "lt_tophat_plan")
+    return dict(zip(("tw", "th", "tq", "rq", "shape", "smem"),
+                    map(int, out)))
 
 
 # ---- dual_tophat ---------------------------------------------------------
@@ -336,18 +359,18 @@ def dual_tophat_plain(a: torch.Tensor, b: torch.Tensor, ka: int, kb: int):
 
 def dual_tophat(a: torch.Tensor, b: torch.Tensor, ka: int, kb: int):
     """``(tophat_ellipse(a, ka), tophat_ellipse(b, kb))`` for two (T, H, W)
-    uint8 batches of one shape, both in one erode and one dilate launch."""
+    uint8 batches of one shape, both in one launch; ka and kb as
+    ``tophat_ellipse``'s ksize on the card."""
     if not _on_cuda(a, b):
         return dual_tophat_plain(a, b, ka, kb)
+    ka, kb = _tophat_k(ka), _tophat_k(kb)
     T, H, W = a.shape
     out_a, out_b = torch.empty_like(a), torch.empty_like(b)
-    sa, sb = torch.empty_like(a), torch.empty_like(b)
-    runs_a, runs_b = _runs_table(int(ka)), _runs_table(int(kb))
+    runs_a, runs_b = _runs_table(ka), _runs_table(kb)
     _check(load_library().lt_dual_tophat(
         a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
-        sa.data_ptr(), sb.data_ptr(), runs_a.ctypes.data, len(runs_a),
-        int(ka), runs_b.ctypes.data, len(runs_b), int(kb), T, H, W,
-        _stream()), "lt_dual_tophat")
+        None, None, runs_a.ctypes.data, len(runs_a), ka, runs_b.ctypes.data,
+        len(runs_b), kb, T, H, W, _stream()), "lt_dual_tophat")
     LAUNCHES["dual_tophat"] += 1
     return out_a, out_b
 

@@ -3,8 +3,10 @@
 Rows 3 and 5 of the filter (``thr_merge_open``, ``merge_open``: the
 merge + open + prefix tail as one bit-packed kernel), probe 6's
 ``sweep_dots`` (the products on wgmma), row 4's ``adaptive_mean`` (row
-and column walkers of running sums) and the fused channel stage
-(``lt_channel_stage``: the tophat's widening plane over wide tiles) were
+and column walkers of running sums), the fused channel stage
+(``lt_channel_stage``: the tophat's widening plane over wide tiles) and
+probes 5 and 10's ``tophat_staged`` and ``dual_tophat`` (the widening
+plane in bf16 or f32 lanes; both problems' tiles in one launch) were
 redesigned for the H100.  This study builds another checkout's kernels from that checkout's own sources
 and times both on the same inputs, in turns (earlier, this, this,
 earlier), so that one call on one card compares them:
@@ -15,9 +17,12 @@ earlier), so that one call on one card compares them:
 It needs CUDA and prints one JSON row per measurement:
 
 * ``sass``: the opcode counts of ``open_tail_kernel``,
-  ``sweep_dots_kernel``, ``adaptive_mean_kernel`` and
-  ``channel_stage_kernel`` in this checkout's library (``cuobjdump
-  --dump-sass``);
+  ``sweep_dots_kernel``, ``adaptive_mean_kernel``,
+  ``channel_stage_kernel``, ``tophat_kernel``, ``dual_tophat_kernel`` and
+  each ``staged_tophat_kernel`` instantiation (its lane format, quads a
+  thread and CTAs an SM in the name) in this checkout's library
+  (``cuobjdump --dump-sass``), and ``tophat_kernel``'s in the earlier
+  checkout's (``earlier: true``);
 * ``row``: the filter wrappers of the main path (``tophat_ellipse`` k=29
   and ``tophat_riders`` k=55, unchanged, as a control of the spread;
   ``thr_merge_open`` k=35 with keep) on the corridor channels of the 64
@@ -26,28 +31,42 @@ It needs CUDA and prints one JSON row per measurement:
   (each launch alone, the two, and each on one frame as 'cond' calls
   it), 10 calls a run;
 * ``fused``: ``channel_stage`` on R, on LAB-B with the noise mask, and
-  ``channel_stage_pyr`` on R, at this checkout's planned tiles and the
-  earlier checkout's defaults (tiles of 64 rows by 32 columns; the pyr
-  entry the tallest that fits);
+  ``channel_stage_pyr`` on R, each checkout at its planned tiles;
 * ``part``: this checkout alone, where the fused stage's time goes: B
   without the noise mask, B and R under a 1-pixel threshold, and the
   unfused ``lt_tophat`` at both k;
 * ``sweep_dots``: probe 6's three kinds at the probe's size;
+* ``tophat``: ``lt_tophat`` at k=29 and k=55 on probe 5's input,
+  (32, 1100, 1080) ``default_rng(1)`` frames;
+* ``staged``: probe 5's ``tophat_staged`` rows (bf16 k=29 and k=55, f32
+  k=29) on that input, with each row's tile plan and the shared bytes a
+  staged pixel;
+* ``dual``: probe 10's ``dual_tophat`` on its input, the warped R and
+  LAB-B of the stills cycled to 128 frames; ``dual_vs_separate``: this
+  checkout's dual (``ms``) in turns with this checkout's two
+  ``tophat_ellipse`` calls (``other_ms``, named by ``other``; no earlier
+  kernel runs in this row);
 * ``filter_stage``: the whole attempt-1 filter (``ops.filters.
   filter_stage``, the ``lt.filter`` range of a chunk) on the fail16
   chunk's channels (every 16th frame black).
 
+With ``--probes-only`` it times the ``tophat``, ``staged`` and ``dual``
+rows alone: the quick way to hold a patched copy of this checkout, as
+``--parent``, against this one.
+
 Every output of the earlier kernels must equal this checkout's (probe 6's
 ``out`` within ``sweep_dots.RTOL``), or the study raises.  The earlier
 checkout's entries must take this checkout's arguments (those of commit
-e30059c and later); its fused stage's ``block`` is the rows of a 32-column
-tile, which ``earlier_channel_stage`` passes.
+456ebbe and later); its staged and dual tophats may write their eroded
+images to the scratch arguments, which ``earlier_staged`` and
+``earlier_dual`` pass.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib.util
 import json
 import pathlib
@@ -78,6 +97,7 @@ _SASS_LINE = re.compile(
     r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
+@functools.lru_cache(maxsize=None)
 def sass_functions(path) -> dict:
     """{function: [opcode, ...]} of a cubin or shared library's SASS."""
     res = subprocess.run(
@@ -101,7 +121,7 @@ def opcode_counts(lib_path, kernel: str) -> dict:
     """{opcode: count} over the functions whose mangled name holds
     ``kernel``."""
     hist = {}
-    for name, ops in sass_functions(lib_path).items():
+    for name, ops in sass_functions(str(lib_path)).items():
         if kernel in name:
             for op in ops:
                 hist[op] = hist.get(op, 0) + 1
@@ -121,10 +141,11 @@ def other_library(tree: pathlib.Path):
 
 
 def on_library(lib):
-    """A context in which the filter-stage and probe 6 wrappers launch
-    ``lib``'s entries (the earlier checkout's interfaces are this one's)."""
+    """A context in which the filter-stage, fused-stage and probe 6
+    wrappers launch ``lib``'s entries (the earlier checkout's interfaces
+    are this one's)."""
     stack = contextlib.ExitStack()
-    for mod in (fs, sd):
+    for mod in (fs, sd, cf):
         stack.enter_context(mock.patch.object(mod, "load_library",
                                               lambda: lib))
     return stack
@@ -149,11 +170,14 @@ def _equal(got, want, rtol) -> bool:
     return True
 
 
-def in_turns(fn, lib, reps=REPS, rtol=0.0, earlier=None) -> dict:
+def in_turns(fn, lib, reps=REPS, rtol=0.0, earlier=None,
+             other=None) -> dict:
     """{"ms", "earlier_ms"}: fn on this checkout's kernels and on ``lib``'s
     (or ``earlier``, the same function called on ``lib``'s entries
     directly), earlier, this, this, earlier; the outputs must be equal
-    (float32 outputs within rtol where it is given)."""
+    (float32 outputs within rtol where it is given).  With ``other``, a
+    label, ``earlier`` is a comparator of this checkout's own: its time
+    is "other_ms" and the label "other"."""
     def run_earlier(n):
         if earlier is not None:
             return cuda_ms(earlier, n) if n else earlier()
@@ -163,29 +187,74 @@ def in_turns(fn, lib, reps=REPS, rtol=0.0, earlier=None) -> dict:
     want = [t.clone() for t in _flat(run_earlier(0))]
     if not _equal(_flat(fn()), want, rtol):
         raise RuntimeError("the earlier kernels' output differs")
-    times = {"ms": [], "earlier_ms": []}
-    for key in ("earlier_ms", "ms", "ms", "earlier_ms"):
-        times[key].append(run_earlier(reps) if key == "earlier_ms"
-                          else cuda_ms(fn, reps))
-    return {k: sum(v) / len(v) for k, v in times.items()}
+    key = "other_ms" if other else "earlier_ms"
+    times = {"ms": [], key: []}
+    for k in (key, "ms", "ms", key):
+        times[k].append(run_earlier(reps) if k == key else cuda_ms(fn, reps))
+    return {**{k: sum(v) / len(v) for k, v in times.items()},
+            **({"other": other} if other else {})}
 
 
-def earlier_channel_stage(lib, img, kt, kb, C, noise=None, tallest=False):
-    """The earlier checkout's ``lt_channel_stage`` at its wrapper's default
-    tile: 64 rows (the pyr entry: the tallest that fits) by 32 columns."""
+def earlier_staged(lib, img, k, code):
+    """The earlier checkout's ``lt_tophat_staged`` (stage code 1 bf16, 2
+    f32), with the scratch image it may use."""
     T_, H, W = img.shape
-    kn, Cn, nthr = noise if noise else (0, 0, -1)
-    fit = int(lib.lt_channel_stage_max_block(int(kt), int(kb), int(kn)))
-    block = max(1, min(fit if tallest else 64, H, fit))
-    th = torch.empty_like(img)
-    keep = torch.empty_like(img) if noise else None
-    runs = fs._runs_table(int(kt))
-    fs._check(lib.lt_channel_stage(
-        img.data_ptr(), th.data_ptr(), None if keep is None else
-        keep.data_ptr(), runs.ctypes.data, len(runs), int(kt), int(kb),
-        int(C), kn, Cn, nthr, block, T_, H, W, fs._stream()),
-        "lt_channel_stage")
-    return th if keep is None else (th, keep)
+    out, scratch = torch.empty_like(img), torch.empty_like(img)
+    runs = fs._runs_table(int(k))
+    fs._check(lib.lt_tophat_staged(
+        img.data_ptr(), out.data_ptr(), scratch.data_ptr(), runs.ctypes.data,
+        len(runs), int(k), T_, H, W, int(code), fs._stream()),
+        "lt_tophat_staged")
+    return out
+
+
+def earlier_dual(lib, a, b, ka, kb):
+    """The earlier checkout's ``lt_dual_tophat``, with its scratch
+    images."""
+    T_, H, W = a.shape
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    sa, sb = torch.empty_like(a), torch.empty_like(b)
+    runs_a, runs_b = fs._runs_table(int(ka)), fs._runs_table(int(kb))
+    fs._check(lib.lt_dual_tophat(
+        a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+        sa.data_ptr(), sb.data_ptr(), runs_a.ctypes.data, len(runs_a),
+        int(ka), runs_b.ctypes.data, len(runs_b), int(kb), T_, H, W,
+        fs._stream()), "lt_dual_tophat")
+    return out_a, out_b
+
+
+def probe_rows(lib, emit) -> None:
+    """The ``tophat``, ``staged``, ``dual`` and ``dual_vs_separate``
+    rows."""
+    from lane_tracker_tpu_torch.probes import mosaic
+
+    img = mosaic.probe_frames(mosaic.TOPHAT_T, "cuda")
+    for k in (29, 55):
+        emit({"tophat": f"lt_tophat k={k}", "shape": list(img.shape),
+              **in_turns(lambda k=k: fs.tophat_ellipse(img, k), lib)})
+    _, H, W = img.shape
+    for name, k, dtype in mosaic.PROBE5:
+        code = fs.STAGING[dtype]
+        plan = fs.tophat_plan(k, H, W, dtype.itemsize)
+        staged = ((plan["th"] + 4 * (k // 2))
+                  * (plan["tq"] + 4 * plan["rq"]) * 16 // dtype.itemsize)
+        emit({"staged": name, "shape": list(img.shape), "plan": plan,
+              "smem_bytes_per_staged_pixel": plan["smem"] / staged,
+              **in_turns(lambda k=k, dtype=dtype: fs.tophat_staged(
+                  img, k, dtype), lib,
+                  earlier=lambda k=k, code=code: earlier_staged(
+                      lib, img, k, code))})
+    del img
+    r, b = mosaic.warped_channels(mosaic.DUAL_T, "cuda")
+    ka, kb = mosaic.DUAL_K
+    emit({"dual": "dual_tophat", "shape": list(r.shape),
+          **in_turns(lambda: fs.dual_tophat(r, b, ka, kb), lib,
+                     earlier=lambda: earlier_dual(lib, r, b, ka, kb))})
+    emit({"dual_vs_separate": "dual_tophat", "shape": list(r.shape),
+          **in_turns(lambda: fs.dual_tophat(r, b, ka, kb), lib,
+                     earlier=lambda: (fs.tophat_ellipse(r, ka),
+                                      fs.tophat_ellipse(b, kb)),
+                     other="two tophat_ellipse calls")})
 
 
 def main(argv=None) -> int:
@@ -193,6 +262,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=pathlib.Path, required=True,
                     help="a checkout of the earlier package (git archive "
                     "<commit> lane_tracker_tpu_torch, unpacked)")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="time the tophat, staged and dual rows alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("filter_redesign needs a CUDA device")
@@ -207,9 +278,20 @@ def main(argv=None) -> int:
     lib_path, nvcc_s, _ = build()
     lib, other_s = other_library(args.parent.resolve())
     emit({"build_s": nvcc_s, "earlier_build_s": other_s})
+    # tophat_kernel by its mangled length prefix: the staged and dual
+    # kernels' names hold it too.
     for kernel in ("open_tail_kernel", "sweep_dots_kernel",
-                   "adaptive_mean_kernel", "channel_stage_kernel"):
+                   "adaptive_mean_kernel", "channel_stage_kernel",
+                   "13tophat_kernel", "dual_tophat_kernel"):
         emit({"sass": kernel, "opcodes": opcode_counts(lib_path, kernel)})
+    for name in sass_functions(str(lib_path)):
+        if "staged_tophat_kernel" in name:
+            emit({"sass": name, "opcodes": opcode_counts(lib_path, name)})
+    emit({"sass": "13tophat_kernel", "earlier": True,
+          "opcodes": opcode_counts(lib._name, "13tophat_kernel")})
+    if args.probes_only:
+        probe_rows(lib, emit)
+        return 0
 
     with np.load(REPO / "assets" / "stills_720p.npz") as z:
         stills = z["frames"]
@@ -252,22 +334,12 @@ def main(argv=None) -> int:
     noise = (f.ksize_noise, f.C_noise, f.noise_thresh)
     W_ = r.shape[-1]
     fused = {
-        "channel_stage R": (
-            lambda: cf.channel_stage(r, f.tophat_r, f.ksize_r, f.C_r),
-            lambda: earlier_channel_stage(lib, r, f.tophat_r, f.ksize_r,
-                                          f.C_r),
-            cf.tile(r.shape[1], W_, f.tophat_r, f.ksize_r)),
-        "channel_stage B + noise": (
-            lambda: cf.channel_stage(b, f.tophat_b, f.ksize_b, f.C_b,
-                                     noise=noise),
-            lambda: earlier_channel_stage(lib, b, f.tophat_b, f.ksize_b,
-                                          f.C_b, noise),
-            cf.tile(r.shape[1], W_, f.tophat_b, f.ksize_b, noise[0])),
-        "channel_stage_pyr R": (
-            lambda: cf.channel_stage_pyr(r, f.tophat_r, f.ksize_r, f.C_r),
-            lambda: earlier_channel_stage(lib, r, f.tophat_r, f.ksize_r,
-                                          f.C_r, tallest=True),
-            cf.tile(r.shape[1], W_, f.tophat_r, f.ksize_r)),
+        "channel_stage R": lambda: cf.channel_stage(r, f.tophat_r, f.ksize_r,
+                                                    f.C_r),
+        "channel_stage B + noise": lambda: cf.channel_stage(
+            b, f.tophat_b, f.ksize_b, f.C_b, noise=noise),
+        "channel_stage_pyr R": lambda: cf.channel_stage_pyr(
+            r, f.tophat_r, f.ksize_r, f.C_r),
     }
     # Where the fused stage's time goes (this tree alone, planned tiles):
     # B without its noise mask and each channel under a 1-pixel threshold
@@ -284,15 +356,16 @@ def main(argv=None) -> int:
     for x, kt in ((r, f.tophat_r), (b, f.tophat_b)):
         emit({"part": f"lt_tophat k={kt}",
               "ms": cuda_ms(lambda: fs.tophat_ellipse(x, kt), REPS)})
-    for name, (fn, earlier, tile) in fused.items():
-        emit({"fused": name, "shape": list(r.shape), "tile": list(tile),
-              **in_turns(fn, lib, reps=3, earlier=earlier)})
+    for name, fn in fused.items():
+        emit({"fused": name, "shape": list(r.shape),
+              **in_turns(fn, lib, reps=3)})
     x, tri = sd.make_inputs(device="cuda")
     for kind in sd.KINDS:
         emit({"sweep_dots": kind, "shape": list(x.shape),
               **in_turns(lambda kind=kind: sd.sweep_dots(x, tri, kind), lib,
                          rtol=sd.RTOL)})
     del x, tri
+    probe_rows(lib, emit)
     fail = chunk.clone()
     fail[::FAIL_EVERY] = 0
     rf, bf = warp_channels(fail, params)

@@ -21,11 +21,11 @@ under the reference's names and fields:
   divide) and ``ms_k_passes`` from CUDA events; the rejected variant
   prints ``error``;
 * probe 4's tophat rows, one per k (``lt_tophat``: the production
-  kernel, one launch over one widened plane of window min/max, not the
-  pyramid tiles), and probe 5's ``tophat_staged`` rows (the pyramid tiles staged in bf16
-  and f32) on
-  ``default_rng(1)`` frames (32, 1100, 1080): ``exact`` against the plain
-  tophat, ``ms_per_frame`` and ``ms`` (one call);
+  kernel, one launch over one widened plane of window min/max, u8 lanes),
+  and probe 5's ``tophat_staged`` rows (the same tile, one launch, its
+  planes in bf16 and f32 lanes) on ``default_rng(1)`` frames (32, 1100,
+  1080): ``exact`` against the plain tophat, ``ms_per_frame`` and ``ms``
+  (one call);
 * probe 10's rows on the warped R and LAB-B of the four stills
   (assets/stills_720p.npz) cycled to 128 frames, through the port's own
   'fast' warp (1080x1100): the two ``tophat_ellipse`` calls (k=29 on R,
@@ -51,9 +51,9 @@ under the reference's names and fields:
   at once, one CTA each, so ``ns_per_rep`` is the figure that means
   something here.
 
-Probe 10's ``separate_29_55`` row is two calls of the redesigned
-``lt_tophat``, one launch each, against ``dual_tophat``'s two launches of
-the pyramid tiles.  Probe 4's and probe 10's row-block choices (``b368``,
+Probe 10's ``separate_29_55`` row is two calls of ``lt_tophat``, one
+launch each, against ``dual_tophat``'s one launch over both problems'
+tiles.  Probe 4's and probe 10's row-block choices (``b368``,
 ``full``, ``half``, ``dual_H/2``, ``dual_H/3``) are VMEM tilings of the TPU
 kernels with no counterpart in the kernels here, so those rows print
 ``"block": "n/a"``, once per k (probe 4) and once for the dual (probe 10).

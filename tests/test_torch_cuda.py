@@ -24,16 +24,19 @@ ragged shapes and at the 'fast' width (1080), with and without keep, off
 16-byte alignment; the library counts 2 launches for thr_merge_open and 1
 for merge_open.
 The morphology probes' kernels (every runnable shift-chain variant, the
-staged tophat in uint8, bf16 and f32 at k=29 and k=55, the dual tophat)
-equal their twins exactly, at full size and on ragged blocks, with rolls
-and slices at least a line long; the rejected variant raises before any
-launch.  Probe 6's ``sweep_dots``, in every kind at full size and on a
-ragged frame: swept equal to the twin's, out equal for ``sweeps`` and
-within a relative 1e-4 of the float64 twin for ``dots`` and ``both`` (f32
-accumulation on the tensor cores), the same bits on a second call.  Probe
-11's ``tile_gather``: every op at both chain lengths equal to its twin.
-One launch per call.  ``timing.queued_ms`` times calls queued behind its
-spin kernel.
+staged tophat in bf16 and f32 at k = 3, 29, 55 and 63, the dual tophat
+at (29, 55) and (55, 29)) equal their twins exactly, at full size and on
+ragged blocks (W no multiple of 16, H no multiple of the tile, data off
+16-byte alignment), with rolls and slices at least a line long; the
+staged and dual tophats take one launch a call, and the library's tile
+plan for each lane width is tests/torch_filter_models.py's; the rejected
+variant raises before any launch.  Probe 6's ``sweep_dots``, in every
+kind at full size and on a ragged frame: swept equal to the twin's, out
+equal for ``sweeps`` and within a relative 1e-4 of the float64 twin for
+``dots`` and ``both`` (f32 accumulation on the tensor cores), the same
+bits on a second call.  Probe 11's ``tile_gather``: every op at both
+chain lengths equal to its twin.  One launch per call.
+``timing.queued_ms`` times calls queued behind its spin kernel.
 """
 
 import dataclasses
@@ -356,14 +359,14 @@ def test_filter_kernels_reject_large_k_before_launch(cuda):
 
 
 def test_dual_tophat_launch_count(cuda):
-    """The dual tophat (pyramid tiles) makes 2 kernel launches; two calls
-    of the one-launch tophat make 2 as well."""
+    """The dual tophat makes 1 kernel launch for both problems; two calls
+    of the one-launch tophat make 2."""
     a = _stripes((2, 60, 96), 1).to(cuda)
     b = _stripes((2, 60, 96), 2).to(cuda)
     _, n_dual = _counted(lambda: fs.dual_tophat(a, b, 29, 55))
     _, n_sep = _counted(lambda: (fs.tophat_ellipse(a, 29),
                                  fs.tophat_ellipse(b, 55)))
-    assert (n_dual, n_sep) == (2, 2)
+    assert (n_dual, n_sep) == (1, 2)
 
 
 CHANNELS = (  # (kt, kb, C, noise) of demo1's R and LAB-B channels
@@ -541,22 +544,50 @@ def test_shift_chain_rejects_before_launch(cuda):
     assert sc.LAUNCHES == {"shift_chain": 0, "shift_chain_2d": 0}
 
 
-@pytest.mark.parametrize("shape", [(2, 77, 101), (1, 300, 5), (3, 33, 64)])
+@pytest.mark.parametrize("shape", [(2, 77, 101), (1, 300, 5), (3, 33, 64),
+                                   (1, 40, 673), (2, 121, 672),
+                                   (64, 21, 67)])
 def test_tophat_staged_and_dual_equal_twins(cuda, shape):
+    """Ragged frames (W no multiple of 16, H no multiple of any tile) and
+    a view off 16-byte alignment; one launch a call."""
     a = _stripes(shape, sum(shape))
     b = _stripes(shape, sum(shape) + 1)
+    ag, bg = a.to(cuda), b.to(cuda)
     fs.reset_launches()
     n = 0
-    for k in (29, 55):
+    for k in (3, 29, 55, 63):
         for dtype in fs.STAGING:
-            _same(fs.tophat_staged(a.to(cuda), k, dtype).cpu(),
-                  fs.tophat_staged_plain(a, k, dtype))
-            n += 1
-    got = fs.dual_tophat(a.to(cuda), b.to(cuda), 29, 55)
-    for g, w in zip(got, fs.dual_tophat_plain(a, b, 29, 55)):
-        _same(g.cpu(), w)
+            got, launches = _counted(lambda: fs.tophat_staged(ag, k, dtype))
+            assert launches == 1
+            _same(got.cpu(), fs.tophat_staged_plain(a, k, dtype))
+            _same(fs.tophat_staged(_misaligned(ag), k, dtype), got)
+            n += 2
+    for ka, kb in ((29, 55), (55, 29)):
+        got, launches = _counted(lambda: fs.dual_tophat(ag, bg, ka, kb))
+        assert launches == 1
+        for g, w in zip(got, fs.dual_tophat_plain(a, b, ka, kb)):
+            _same(g.cpu(), w)
+        again = fs.dual_tophat(_misaligned(ag), bg, ka, kb)
+        _same(again[0], got[0])
+        _same(again[1], got[1])
+        _same(got[0], fs.tophat_ellipse(ag, ka))
+        _same(got[1], fs.tophat_ellipse(bg, kb))
     assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES} | {
-        "tophat_staged": n, "dual_tophat": 1}
+        "tophat_staged": n, "dual_tophat": 4, "tophat_ellipse": 4}
+
+
+@pytest.mark.parametrize("elem", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(1100, 1080), (1100, 672), (77, 101),
+                                   (5, 3)])
+def test_tophat_plan_is_the_models(cuda, shape, elem):
+    """The library's tile plan (lt_tophat_plan: tophat_ellipse's and both
+    dual problems' at elem 1, tophat_staged's bf16 and f32 at 2 and 4) is
+    tests/torch_filter_models.py's tophat_plan, whose CPU model the tests
+    hold to the twin."""
+    from torch_filter_models import tophat_plan
+
+    for k in (1, 3, 29, 55, 63):
+        assert fs.tophat_plan(k, *shape, elem) == tophat_plan(k, *shape, elem)
 
 
 # ---- probe 6 (kernels/sweep_dots.py) and probe 11 (kernels/tile_gather.py)

@@ -6,7 +6,12 @@ the widening plan, the walkers).  Here each model equals its plain twin
 exactly on random ragged inputs, for every k the wrappers take: odd k in
 1..63 for the tophat (at several output tiles, buffers starting as random
 bytes), k in 1..65 for the threshold (plain and with the noise
-keep-mask).  The tophat model also equals JAX's
+keep-mask).  The tophat's tile with its planes in u8, bf16 and f32 lanes
+(``lt_tophat``, ``lt_tophat_staged``) equals the twin at k = 3, 29 and 55
+at small tiles and at the planned one; the host planner's mirror fits
+each CTA shape for every odd k and lane width, and the dual tophat's grid
+(``lt_dual_tophat``) covers every output of both problems once, the
+larger k's tiles first.  The tophat model also equals JAX's
 ``tophat_pallas2`` in interpret mode at k=29 and 55, in
 tests/test_torch_filter_kernels.py.  The bit-packed merge + open + prefix
 tail's model equals ``merge_open_plain`` (binary and packed prefixes) for
@@ -33,14 +38,20 @@ import jax.numpy as jnp
 
 from tests.torch_filter_models import (
     CS_THREADS,
+    ELEMS,
+    TOP_SHAPES,
+    TOP_THREADS,
     adaptive_mean_model,
     adaptive_mean_rows,
     channel_stage_model,
     cs_plan,
+    dual_tiles,
     half_widths,
     open_tail_model,
+    plane_guard,
     threshold_model,
     tophat_model,
+    tophat_plan,
     tophat_steps,
 )
 
@@ -97,6 +108,71 @@ def test_tophat_model_equals_twin(k):
         want = fs.tophat_ellipse_plain(torch.from_numpy(img), k).numpy()
         got = tophat_model(img, k, tw, th, rng)
         np.testing.assert_array_equal(got, want, err_msg=f"k={k} {tw}x{th}")
+
+
+@pytest.mark.parametrize("k", [3, 29, 55])
+@pytest.mark.parametrize("elem", ELEMS)
+def test_tophat_model_equals_twin_in_each_lane_width(elem, k):
+    """The tile with its planes in u8, bf16 or f32 lanes (16, 8 or 4
+    pixels a quad): at four and eight quads by 8 and 48 rows, and at the
+    planned tile of the ragged frame."""
+    rng = np.random.default_rng(10 * k + elem)
+    P = 16 // elem
+    for i in range(3):
+        img = _ragged(1000 * elem + 10 * k + i, T=1 + i % 2)
+        T, H, W = img.shape
+        tiles = [(4 * P, 8), (8 * P, 48), tuple(
+            tophat_plan(k, H, W, elem)[key] for key in ("tw", "th"))]
+        want = fs.tophat_ellipse_plain(torch.from_numpy(img), k).numpy()
+        tw, th = tiles[i]
+        got = tophat_model(img, k, tw, th, rng, elem)
+        np.testing.assert_array_equal(got, want,
+                                      err_msg=f"k={k} elem={elem} {tw}x{th}")
+
+
+@pytest.mark.parametrize("elem", ELEMS)
+def test_tophat_plan_fits_its_shape(elem):
+    """For every odd k and frames from tiny to the probes' 1100 x 1080:
+    the plan's tile is whole quads, its buffers hold 2 elem bytes a staged
+    pixel and fit its CTA shape's shared memory, its threads hold the
+    eroded region and the tile; u8 takes two CTAs an SM (lt_tophat's
+    tiles: 192 x 160 at k=29, 128 x 104 at k=55 on the corridor)."""
+    for k in TOPHAT_K:
+        for H, W in ((1100, 1080), (1100, 672), (37, 101), (5, 3)):
+            p = tophat_plan(k, H, W, elem)
+            quads, _, limit = TOP_SHAPES[p["shape"]]
+            r, P = k // 2, 16 // elem
+            assert p["tw"] == P * p["tq"] and p["rq"] * P >= r
+            staged = (p["th"] + 4 * r) * (p["tq"] + 4 * p["rq"]) * P
+            assert p["smem"] - 2 * elem * staged == 64 * plane_guard(elem)
+            assert p["smem"] <= limit
+            cap = quads * TOP_THREADS
+            assert (p["th"] + 2 * r) * (p["tq"] + 2 * p["rq"]) <= cap
+            assert p["th"] * p["tq"] <= cap
+            assert elem > 1 or p["shape"] == 0
+    assert [tophat_plan(k, 1100, 672)[key] for k in (29, 55)
+            for key in ("tw", "th")] == [192, 160, 128, 104]
+
+
+@pytest.mark.parametrize("ks", [(29, 55), (55, 29), (3, 3), (63, 1)])
+@pytest.mark.parametrize("shape", [(2, 77, 101), (3, 1100, 1080),
+                                   (1, 5, 3)])
+def test_dual_grid_covers_each_output_once(shape, ks):
+    """Every output pixel of both problems lies in exactly one block's
+    tile, each problem's tiles in one run, the larger k's first."""
+    T, H, W = shape
+    ka, kb = ks
+    tiles = dual_tiles(ka, kb, T, H, W)
+    cover = np.zeros((2, T, H, W), int)
+    for prob, z, by, bx in tiles:
+        p = tophat_plan((ka, kb)[prob], H, W)
+        cover[prob, z, by * p["th"]:(by + 1) * p["th"],
+              bx * p["tw"]:(bx + 1) * p["tw"]] += 1
+    assert (cover == 1).all()
+    probs = [t[0] for t in tiles]
+    first = 1 if kb > ka else 0
+    n_first = probs.count(first)
+    assert probs == [first] * n_first + [1 - first] * (len(probs) - n_first)
 
 
 @pytest.mark.parametrize("k", range(1, 66))
@@ -191,8 +267,9 @@ def _as_if_on_card(monkeypatch):
 @pytest.mark.parametrize("k", [0, 2, 28, fs.TOPHAT_MAX_K + 2])
 def test_tophat_wrapper_rejects_k_before_launch(k, monkeypatch):
     """On the card, even k (asymmetric runs) and k above 63 are refused
-    before any launch.  On the CPU the twin answers at every k >= 1, equal
-    to JAX's tophat_ellipse (k = 0 is no ellipse: both refuse it)."""
+    before any launch, by every tophat entry (the staged and dual ones
+    too).  On the CPU the twin answers at every k >= 1, equal to JAX's
+    tophat_ellipse (k = 0 is no ellipse: both refuse it)."""
     img = _ragged(k, T=2)
     x = torch.from_numpy(img)
     if k >= 1:
@@ -209,6 +286,12 @@ def test_tophat_wrapper_rejects_k_before_launch(k, monkeypatch):
         fs.tophat_ellipse(x, k)
     with pytest.raises(ValueError, match="ksize"):
         fs.tophat_riders(x, k, [])
+    for dtype in fs.STAGING:
+        with pytest.raises(ValueError, match="ksize"):
+            fs.tophat_staged(x, k, dtype)
+    for ka, kb in ((k, 29), (29, k)):
+        with pytest.raises(ValueError, match="ksize"):
+            fs.dual_tophat(x, x, ka, kb)
     assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}
 
 

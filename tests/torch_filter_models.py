@@ -8,7 +8,11 @@ four words a 16-byte quad, little-endian, so a shift of a word by s pixels
 (``__funnelshift_r`` of two neighbours) is a shift of the buffer's bytes
 by s; the models work on those bytes.  The tophat's min/max runs on
 16-bit lanes with the pixels in their high bytes, which gives each byte's
-min/max whatever the low bytes hold; the model takes it per byte.  A test
+min/max whatever the low bytes hold; the model takes it per byte.  The
+staged tophat (lt_tophat_staged) keeps each pixel's bf16 or f32 bit
+pattern in 2- or 4-byte lanes, 8 or 4 pixels a quad, and takes min/max on
+the patterns as unsigned integers (DPX); its model works on those lanes
+(uint16 or uint32 views of buffers of random bytes).  A test
 that holds a model equal to the plain twin for every k the wrapper takes
 checks the decomposition and the index arithmetic the kernel shares with
 it; what the model cannot see (the word and quad bookkeeping inside one
@@ -27,9 +31,46 @@ import numpy as np
 
 from lane_tracker_tpu_torch.ops.morphology import ellipse_runs
 
-# ---- tophat (lt_tophat: tophat_kernel) ----
+# ---- tophat (lt_tophat: tophat_kernel; lt_tophat_staged; lt_dual_tophat) ----
 
-GUARD = 48  # bytes of guard before and after each buffer (12 words)
+GUARD = 48  # bytes of guard before and after each u8 buffer (3 quads)
+# Bytes a pixel of the tophat's planes: u8 (lt_tophat), bf16 and f32 bit
+# patterns (lt_tophat_staged), and each lane's numpy type.
+ELEMS = (1, 2, 4)
+LANES = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+TOP_THREADS = 512
+# The kernel's CTA shapes (kTopShapes in csrc/tophat.cuh): (quads a
+# thread holds, the planner's weight of its accesses x 10, shared memory a
+# CTA): two CTAs an SM, or one.
+TOP_SHAPES = ((6, 13, 110 * 1024), (10, 10, 227 * 1024))
+
+
+def plane_guard(elem: int) -> int:
+    """Guard quads before and after each buffer (plane_guard in
+    csrc/tophat.cuh): at least the quads a shift of 31 pixels reaches."""
+    return 3 if elem == 1 else 2 * elem
+
+
+def encode(x: np.ndarray, elem: int) -> np.ndarray:
+    """Pixels 0..255 as the lanes' patterns: u8, or the bf16 or f32 bit
+    pattern (bf16: the top half of the f32 one, exact for 8 bits)."""
+    if elem == 1:
+        return x.astype(np.uint8)
+    bits = x.astype(np.float32).view(np.uint32)
+    return (bits >> 16).astype(np.uint16) if elem == 2 else bits
+
+
+def decode(x: np.ndarray, elem: int) -> np.ndarray:
+    """The lanes' patterns back to u8 pixels."""
+    if elem == 1:
+        return x.astype(np.uint8)
+    bits = x.astype(np.uint32) << np.uint32(16) if elem == 2 else x
+    return bits.astype(np.uint32).view(np.float32).astype(np.uint8)
+
+
+def random_lanes(rng, n: int, elem: int) -> np.ndarray:
+    """n lanes of random bytes."""
+    return rng.integers(0, 256, n * elem).astype(np.uint8).view(LANES[elem])
 
 
 def half_widths(k: int) -> list:
@@ -75,82 +116,102 @@ def _round16(x):
     return -(-x // 16) * 16
 
 
-def tophat_tiles(k: int, H: int, W: int) -> tuple:
-    """(tile width, tile height) the kernel's host planner (tophat_plan in
-    csrc/filter_stage.cu) picks for an H x W frame."""
+def tophat_plan(k: int, H: int, W: int, elem: int = 1) -> dict:
+    """The kernel's host planner (tophat_plan in csrc/tophat.cuh) for
+    an H x W frame in planes of elem bytes a pixel: tiles of 4 to 16 elem
+    quads, each the tallest (a multiple of 8, at most 256) that fits the
+    shape; the fewest estimated shared-memory accesses, weighted by the
+    shape (u8: the two-CTA shape only).  {tw, th, tq, rq, shape, smem}."""
     r = k // 2
-    rq = _round16(r) // 16
+    P = 16 // elem
+    rq = -(-r // P)
     n = len(tophat_steps(k))
+    guard = plane_guard(elem)
     hmax = min(-(-H // 8) * 8, 256)
     best = None
-    for tq in (4, 8, 12, 16):
-        nqx, nqe = tq + 4 * rq, tq + 2 * rq
-        th = 0
-        for h in range(8, hmax + 1, 8):
-            smem = 2 * 16 * ((h + 4 * r) * nqx + 6)
-            if (smem <= 110 * 1024 and (h + 2 * r) * nqe <= 6 * 512
-                    and h * tq <= 6 * 512):
-                th = h
-        if th == 0:
-            continue
-        rows_x, rows_e = th + 4 * r, th + 2 * r
-        tile = (6 * n * (rows_x * nqx + rows_e * nqe)
-                + 2 * (2 * r + 1) * (rows_e * nqe + th * tq)
-                + rows_x * nqx)
-        cost = tile * -(-H // th) * -(-W // (16 * tq))
-        if best is None or cost < best[0]:
-            best = (cost, 16 * tq, th)
-    return best[1], best[2]
+    for sh, (quads, gain, limit) in enumerate(TOP_SHAPES[:1 if elem == 1
+                                                         else 2]):
+        cap = quads * TOP_THREADS
+        for tq in range(4, 16 * elem + 1, 4):
+            nqx, nqe = tq + 4 * rq, tq + 2 * rq
+            th = 0
+            for h in range(8, hmax + 1, 8):
+                smem = 2 * 16 * ((h + 4 * r) * nqx + 2 * guard)
+                if smem <= limit and (h + 2 * r) * nqe <= cap and h * tq <= cap:
+                    th = h
+            if th == 0:
+                continue
+            rows_x, rows_e = th + 4 * r, th + 2 * r
+            tile = (6 * n * (rows_x * nqx + rows_e * nqe)
+                    + 2 * (2 * r + 1) * (rows_e * nqe + th * tq)
+                    + rows_x * nqx)
+            cost = tile * -(-H // th) * -(-W // (P * tq))
+            if best is None or cost * best[1] < best[0] * gain:
+                best = (cost, gain, dict(
+                    tw=P * tq, th=th, tq=tq, rq=rq, shape=sh,
+                    smem=2 * 16 * ((th + 4 * r) * nqx + 2 * guard)))
+    return best[2]
+
+
+def tophat_tiles(k: int, H: int, W: int, elem: int = 1) -> tuple:
+    """(tile width, tile height) the kernel's host planner picks for an
+    H x W frame (tophat_plan)."""
+    p = tophat_plan(k, H, W, elem)
+    return p["tw"], p["th"]
 
 
 def tophat_model(img: np.ndarray, k: int, tw: int, th: int,
-                 rng: np.random.Generator) -> np.ndarray:
-    """img - open(img) with the k x k ellipse, as tophat_kernel computes
-    it with (tw, th) output tiles; buffers start as random bytes."""
+                 rng: np.random.Generator, elem: int = 1) -> np.ndarray:
+    """img - open(img) with the k x k ellipse, as tophat_tile computes it
+    with (tw, th) output tiles in planes of elem bytes a pixel (tw a
+    multiple of the 16 / elem pixels a quad); buffers start as random
+    bytes."""
     T, H, W = img.shape
     r = k // 2
-    r16 = _round16(r)
+    P = 16 // elem
+    rp = -(-r // P) * P  # the radius rounded up to quads, in pixels
+    g = plane_guard(elem) * P  # guard lanes
     steps = tophat_steps(k)
     out = np.zeros_like(img)
-    nrx, bx = th + 4 * r, tw + 4 * r16  # staged rows, row bytes
-    nre, be = th + 2 * r, tw + 2 * r16  # eroded rows, row bytes
+    nrx, bx = th + 4 * r, tw + 4 * rp  # staged rows, row lanes
+    nre, be = th + 2 * r, tw + 2 * rp  # eroded rows, row lanes
     size = nrx * bx
     for z in range(T):
         for y0 in range(0, H, th):
             for x0 in range(0, W, tw):
-                bufs = [rng.integers(0, 256, size + 2 * GUARD).astype(
-                    np.uint8) for _ in range(2)]
+                bufs = [random_lanes(rng, size + 2 * g, elem)
+                        for _ in range(2)]
                 # Stage: 255 outside the image.
                 gy = np.arange(y0 - 2 * r, y0 - 2 * r + nrx)[:, None]
-                gx = np.arange(x0 - 2 * r16, x0 - 2 * r16 + bx)[None, :]
+                gx = np.arange(x0 - 2 * rp, x0 - 2 * rp + bx)[None, :]
                 inside = (gy >= 0) & (gy < H) & (gx >= 0) & (gx < W)
                 x = np.full((nrx, bx), 255, np.uint8)
                 x[inside] = img[z][np.clip(gy, 0, H - 1),
                                    np.clip(gx, 0, W - 1)][inside]
-                bufs[0][GUARD:GUARD + size] = x.reshape(-1)
-                # Erode: acc over the eroded region (rows r.., bytes r16..).
-                acc = _morph(bufs, steps, np.minimum, nrx, bx, r, r16, nre,
-                             be, 255)
+                bufs[0][g:g + size] = encode(x, elem).reshape(-1)
+                # Erode: acc over the eroded region (rows r.., lanes rp..).
+                acc = _morph(bufs, steps, np.minimum, nrx, bx, r, rp, nre,
+                             be, encode(np.uint8(255), elem), g)
                 # E into buffer 0: 0 outside the image (the dilate's pad).
                 gy = np.arange(y0 - r, y0 - r + nre)[:, None]
-                gx = np.arange(x0 - r16, x0 - r16 + be)[None, :]
+                gx = np.arange(x0 - rp, x0 - rp + be)[None, :]
                 inside = (gy >= 0) & (gy < H) & (gx >= 0) & (gx < W)
-                bufs[0][GUARD:GUARD + nre * be] = np.where(
-                    inside, acc, 0).astype(np.uint8).reshape(-1)
-                dil = _morph(bufs, steps, np.maximum, nre, be, r, r16, th,
-                             tw, 0)
+                bufs[0][g:g + nre * be] = np.where(inside, acc, 0).reshape(-1)
+                dil = _morph(bufs, steps, np.maximum, nre, be, r, rp, th,
+                             tw, 0, g)
                 ys, xs = min(th, H - y0), min(tw, W - x0)
                 src = img[z, y0:y0 + ys, x0:x0 + xs]
-                out[z, y0:y0 + ys, x0:x0 + xs] = src - dil[:ys, :xs]
+                out[z, y0:y0 + ys, x0:x0 + xs] = src - decode(dil[:ys, :xs],
+                                                              elem)
     return out
 
 
 def _morph(bufs, steps, op, nrows, pitch, r, r16, orows, obytes, init,
            g=GUARD):
-    """One phase: the source plane (nrows x pitch bytes) in bufs[0] from
-    byte g on; returns the (orows, obytes) result at rows r.., bytes
-    r16.."""
-    acc = np.full((orows, obytes), init, np.uint8)
+    """One phase: the source plane (nrows x pitch lanes) in bufs[0] from
+    lane g on; returns the (orows, obytes) result at rows r.., lanes
+    r16.. (lanes are bytes for u8)."""
+    acc = np.full((orows, obytes), init, bufs[0].dtype)
     rows = np.arange(orows)[:, None] + r
     cols = np.arange(obytes)[None, :] + r16
     src = 0
@@ -169,6 +230,21 @@ def _morph(bufs, steps, op, nrows, pitch, r, r16, orows, obytes, init,
             for dd in (-d, d):
                 acc = op(acc, bufs[src][g + (rows + dd) * pitch + cols])
     return acc
+
+
+def dual_tiles(ka: int, kb: int, T: int, H: int, W: int) -> list:
+    """dual_tophat_kernel's grid: for each block index, the (problem,
+    frame, tile row, tile column) it decodes (tile_of), each problem at
+    its lt_tophat plan; the larger k's problem (0 for a, 1 for b) first."""
+    order = (1, 0) if kb > ka else (0, 1)
+    out = []
+    for prob in order:
+        p = tophat_plan((ka, kb)[prob], H, W)
+        gx, gy = -(-W // p["tw"]), -(-H // p["th"])
+        for t in range(T * gx * gy):
+            z, rem = divmod(t, gx * gy)
+            out.append((prob, z, *divmod(rem, gx)))
+    return out
 
 
 # ---- cross threshold (lt_cross_threshold: threshold_kernel) ----
