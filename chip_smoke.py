@@ -52,8 +52,10 @@ Phases (each raises at the first failure; nothing is skipped):
    before phase 10): ``mosaic.run`` at the probes' full sizes, with the
    counts set to 0 just before and read just after.  Every one of the 64
    runnable shift-chain variants (1104x1280, K=64) must equal its plain
-   twin with one launch of its kernel (63 of ``lt_shift_chain``, and
-   ``bf16_morph_chain8`` through ``lt_shift_chain_2d``), and
+   twin with one call of its kernel (63 of ``lt_shift_chain``, one kernel
+   launch each, and ``bf16_morph_chain8`` through ``lt_shift_chain_2d``,
+   whose call takes the kernel launches the library's plan says,
+   ``shift_chain.chain_plan``, counted by the library's launchers), and
    ``i16_sublane_slice_add_s17`` must be rejected; ``tophat_staged`` (bf16
    k=29 and 55, f32 k=29, probe 5's rows) and probe 4's ``tophat_ellipse``
    rows on (32, 1100, 1080) must equal the plain tophat; ``dual_tophat`` on
@@ -77,8 +79,8 @@ Phases (each raises at the first failure; nothing is skipped):
    entry); the
    probes' rows, each timed once (us per pass of each shift chain, ms per frame of
    each tophat row and of probe 6's kinds, ns per rep of probe 11's
-   gathers), with their bounds and the shared-memory traffic of each
-   chain's design per pass, summed into the probe kernels' entries of the
+   gathers), with their bounds and the shuffle and shared-memory traffic
+   of each chain's design per pass, summed into the probe kernels' entries of the
    kernels line (probe 6's with the batched ``torch.matmul`` of its
    products as ``library_ms``, beside the ``dots`` row's own ms as
    ``library_of`` / ``library_of_ms``: the library computes that row's
@@ -224,18 +226,44 @@ def chain_work(v, x, k):
             (n * v.n_passes(k) * sc.BODY_OPS[v.body], v.dtype))
 
 
-def chain_smem_per_pass(v, x):
-    """Bytes of shared memory (lt_shift_chain) or L2 (lt_shift_chain_2d)
-    one pass of the design moves: the design's cost, not the bound.  A
-    shift pass reads each element and its shifted neighbour(s) and writes
-    it back; the elementwise bodies stay in registers; an outer step of the
-    2-D chain reads 2 + 2 + 2 + 3 and writes 4 arrays."""
-    n = x.numel() * x.element_size()
-    if v.body == "morph_chain8":
-        return 13 * n
+def chain_traffic_per_pass(v, x):
+    """Bytes one pass of the design moves besides its registers (its cost,
+    not the bound), from the library's plan of the call
+    (``shift_chain.chain_plan``): {"shuffle": bytes of register words one
+    lane hands another, "shared": bytes of shared memory read and
+    written}.  A line in orbit order (one warp) shuffles one 32-bit word a
+    lane a pass; the probes' packed-u16 pair on a row of 32 runs shuffles
+    nine words a lane; the plain order writes a line's words (a roll's
+    twice where the line spans warps) and reads each neighbour back; the
+    elementwise bodies stay in registers; an outer step of the 2-D chain
+    (4 passes) reads and writes each word of its tiles' regions in shared
+    memory: the column rolls read x over a run and the 5 words below it
+    and write q, the row rolls read q over a run and the 9 rows above it,
+    read x and write it."""
+    from lane_tracker_tpu_torch.kernels import shift_chain as sc
+
+    h, w = x.shape
     if v.boundary is None:
-        return 0
-    return (len(v.shifts) + 2) * n
+        return {"shuffle": 0, "shared": 0}
+    plan = sc.chain_plan(v, h, w)
+    if v.body == "morph_chain8":
+        region = plan["tiles"] * plan["rh"] * plan["rww"] * 4
+        per_step = ((plan["run_w"] + 5) / plan["run_w"] + 1
+                    + (plan["run_h"] + 9) / plan["run_h"] + 2)
+        return {"shuffle": 0, "shared": per_step * region / 4}
+    n_lines, length = (h, w) if v.axis == 1 else (w, h)
+    packed = -(-n_lines // (4 // x.element_size()))
+    if (v.body == "packed" and v.shifts == (8, 9)
+            and length == 32 * plan["regs"]):
+        # the pair in registers: the previous lane's last nine words
+        return {"shuffle": packed * 32 * 9 * 4, "shared": 0}
+    if plan["mode"] != "orbit":
+        writes = 2 if plan["mode"] == "plain" and v.boundary == "circular" else 1
+        return {"shuffle": 0,
+                "shared": packed * (writes + len(v.shifts)) * length * 4}
+    # 8-bit lines pass in two halves, a word each a lane
+    halves = 2 if x.element_size() == 1 else 1
+    return {"shuffle": halves * packed * plan["lanes"] * 4, "shared": 0}
 
 
 def sweep_dots_work(kind):
@@ -871,6 +899,21 @@ def main(argv):
           f"the dual tophat did not take {DUAL_LAUNCHES} launch, two "
           "tophat_ellipse calls not 2, or a tophat_staged call not 1")
     del r10, b10
+    # The 2-D chain in the kernel launches the library's plan says, a
+    # single-axis chain in one, counted by the library's launchers.
+    morph = sc.BY_NAME["bf16_morph_chain8"]
+    roll = sc.BY_NAME["i32_lane_roll_add_s17"]
+    xm, xr = (sc.make_input(v, device="cuda") for v in (morph, roll))
+    n_2d = counted_launches(lambda: sc.shift_chain(xm, morph))
+    n_1d = counted_launches(lambda: sc.shift_chain(xr, roll))
+    want_2d = sc.chain_plan(morph)["launches"]
+    print(f"[probes] kernel launches a call, counted by the launchers: "
+          f"lt_shift_chain_2d {n_2d} ({morph.n_passes()} outer steps, "
+          f"{want_2d} launches planned); lt_shift_chain {n_1d}")
+    check(n_2d == want_2d and n_1d == 1,
+          f"lt_shift_chain_2d did not take {want_2d} kernel launches, or "
+          "lt_shift_chain not 1")
+    del xm, xr
 
     # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):
@@ -1020,7 +1063,7 @@ def main(argv):
 
     # Phase 11's kernels, timed once, in the probes' own rows: us per pass
     # of each chain (its time over K, as the probes divide) with its bound
-    # and the shared-memory traffic its design moves per pass, ms per frame
+    # and the shuffle and shared traffic its design moves per pass, ms per frame
     # of each tophat row with the bound of one call.  A kernel's entry in
     # the kernels line sums its rows: the 63 single-axis chains, the 2-D
     # chain, probe 5's three staged tophats, the dual tophat on the T=128
@@ -1045,7 +1088,7 @@ def main(argv):
             v = sc.BY_NAME[name]
             row["bound_ms"], row["bound_by"] = bound(
                 *chain_work(v, chain_in[name], sc.K))
-            row["smem_bytes_per_pass"] = chain_smem_per_pass(
+            row["traffic_per_pass"] = chain_traffic_per_pass(
                 v, chain_in[name])
         elif "k" in row:
             row["bound_ms"], row["bound_by"] = bound(
@@ -1066,17 +1109,28 @@ def main(argv):
             row["bound_ms"] for row in rows if row["bound_by"] == by))
         ms = sum(row.get("ms_k_passes", row.get("ms")) for row in rows)
         plain_ms = sum(row["plain_ms"] for row in rows)
+        extra = {}
+        if "events_ms_k_passes" in rows[0]:
+            # the chains' rows by CUDA events alone, as they were timed
+            # before the spin kernel, comparable with earlier runs
+            extra["events_ms"] = sum(row["events_ms_k_passes"]
+                                     for row in rows)
         lib = next((row for row in rows if "library_ms" in row), None)
         library_of = {} if lib is None else {
             "library_of": lib["kind"], "library_of_ms": lib["ms"]}
         print(f"[timing] {name}: kernel {ms:.3f} ms, plain twin "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) over "
               f"its {len(rows)} probe rows"
+              + ("" if not extra else
+                 f" (by CUDA events alone {extra['events_ms']:.3f} ms)")
               + ("" if lib is None else
                  f"; library {lib['library_ms']:.3f} ms against the "
                  f"{lib['kind']!r} row's {lib['ms']:.3f} ms") + f" ({card})")
+        extra.update(library_of)
+        if name == "shift_chain_2d":
+            extra["kernel_launches_a_call"] = n_2d
         add_kernel(name, ms, plain_ms, bound_ms, bound_by,
-                   lib and lib["library_ms"], **library_of)
+                   lib and lib["library_ms"], **extra)
     del chain_in
 
     # scripts/mosaic_probe7.py's study on this card: the fused stage at

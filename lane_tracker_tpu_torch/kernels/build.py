@@ -26,8 +26,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lt_torch_kernels"
 SOURCES = ("filter_stage.cu", "tophat_staged.cu", "dual_tophat.cu",
            "adaptive_mean.cu", "channel_stage.cu", "resample_mxu2.cu",
-           "shift_chain.cu", "sweep_dots.cu", "tile_gather.cu")
-HEADERS = ("common.cuh", "tophat.cuh")
+           "shift_chain.cu", "shift_chain_8bit.cu", "shift_chain_i16.cu",
+           "shift_chain_i32.cu", "shift_chain_bf16.cu", "sweep_dots.cu",
+           "tile_gather.cu")
+HEADERS = ("common.cuh", "tophat.cuh", "shift_chain.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,6 +60,7 @@ SIGNATURES = {
                        _D, _P),
     "lt_shift_chain_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P),
+    "lt_shift_chain_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "lt_sweep_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P),
     "lt_tile_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

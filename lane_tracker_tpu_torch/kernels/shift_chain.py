@@ -12,10 +12,17 @@ table is this package's own copy; it never reads the scripts.
 * ``shift_chain``    <- ``run_variant`` (mosaic_probe.py:32), ``run`` and
   ``slice_op`` (mosaic_probe2.py:31, :143), ``pingpong`` and ``plain``
   (mosaic_probe3.py:37, :120), ``pingpong`` (mosaic_probe4.py:36).  On CUDA
-  tensors it launches ``lt_shift_chain`` (csrc/shift_chain.cu) once, or for
-  ``bf16_morph_chain8`` ``lt_shift_chain_2d``; on CPU tensors it runs
-  ``shift_chain_plain``.  Every launch adds one to ``LAUNCHES["shift_chain"]``
-  or ``LAUNCHES["shift_chain_2d"]``; the twin never counts.
+  tensors it calls ``lt_shift_chain`` (csrc/shift_chain.cu; one kernel
+  launch), or for ``bf16_morph_chain8`` ``lt_shift_chain_2d`` (a few
+  kernel launches, ``chain_plan``'s ``launches``); on CPU tensors it runs
+  ``shift_chain_plain``.  Every call adds one to ``LAUNCHES["shift_chain"]``
+  or ``LAUNCHES["shift_chain_2d"]``; the twin never counts.  The library's
+  own count of kernel launches (``filter_stage.kernel_launches``) counts
+  each kernel.
+
+``chain_plan`` reads the launchers' plan of a call from the library
+(``lt_shift_chain_plan``): how a line's slots spread over lanes and warps,
+or the 2-D chain's launches and tiles.
 
 Shifts: a roll (``"circular"``) is ``torch.roll``: the element at p reads
 p - s, mod the line's length.  A slice (``"fill"``) reads p + s of a
@@ -52,13 +59,20 @@ DTYPES = {"uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16,
 _DTYPE_CODE = {"uint8": 0, "int8": 1, "int16": 2, "int32": 3, "bfloat16": 4,
                "float32": 5}
 _BODY_CODE = {"add": 0, "min": 1, "max": 2, "add_self": 3, "minadd": 4,
-              "addshift": 5, "where_add": 6, "packed": 7, "min_mul_max": 8}
+              "addshift": 5, "where_add": 6, "packed": 7, "min_mul_max": 8,
+              "morph_chain8": 9}
 _BOUND_CODE = {None: 0, "circular": 1, "fill": 2}
 # Operations per element of one pass of each body (for the bound).
 BODY_OPS = {"add": 1, "min": 1, "max": 1, "add_self": 1, "minadd": 2,
             "addshift": 3, "where_add": 3, "packed": 5, "min_mul_max": 3,
             "morph_chain8": 5}
 _PASSES = {"K": 1, "K//2": 2, "K//4": 4}  # K over the divisor
+# lt_shift_chain_plan's fields, and its line modes.
+_LINE_PLAN = ("mode", "lanes", "warps", "lines_a_cta", "ctas", "smem",
+              "regs")
+_PLAN_2D = ("launches", "th", "tw", "rh", "rww", "col0", "tiles", "smem",
+            "fast", "run_w", "run_h")
+_MODES = ("orbit", "plain", "plain_warp")
 _INT_BITS = {"uint8": (8, False), "int8": (8, True), "int16": (16, True),
              "int32": (32, True)}
 
@@ -337,6 +351,46 @@ def shift_chain_plain(x: torch.Tensor, v: Variant | str,
     return y.to(x.dtype)
 
 
+def _args(v: Variant, h: int, w: int) -> tuple:
+    """(axis, s1, s2) as the C entries take them: a roll's shifts reduced
+    to [0, L) along its line; for the 2-D chain (axis None) the lane
+    shifts mod w and the row shifts mod h."""
+    if v.body == "morph_chain8":
+        a1, a2 = v.shifts
+        return None, (a1 % w, a2 % w, a1 % h, a2 % h)
+    length = w if v.axis in (1, None) else h
+    s1, s2 = ((*v.shifts, 0)[:2] if v.shifts else (0, 0))
+    if v.boundary == "circular":
+        s1, s2 = s1 % length, s2 % length
+    return 1 if v.axis is None else v.axis, (s1, s2)
+
+
+def chain_plan(v: Variant | str, h: int = H, w: int = W, k: int = K) -> dict:
+    """The plan the launcher makes on this card for the variant's chain on
+    an (h, w) block (``lt_shift_chain_plan``).  A single-axis shift chain:
+    {mode ("orbit", "plain" or "plain_warp"), lanes and warps a line, packed
+    lines a CTA, CTAs, smem (a CTA's shared bytes), regs (slots a lane)}.
+    ``bf16_morph_chain8``: {launches a call, and the first launch's th, tw
+    (tile), rh, rww (region rows, 32-bit words a row), col0, tiles, smem,
+    fast (chain2d_fast_kernel), run_w, run_h (its register runs)}."""
+    v = BY_NAME[v] if isinstance(v, str) else v
+    if v.boundary is None:
+        raise ValueError(f"{v.name}: an elementwise body has no line plan")
+    axis, shifts = _args(v, h, w)
+    s = (*shifts, 0, 0)[:4]
+    out = np.zeros(11, np.int32)
+    elem = torch.tensor([], dtype=DTYPES[v.dtype]).element_size()
+    _check(load_library().lt_shift_chain_plan(
+        h, w, elem, _BODY_CODE[v.body], _BOUND_CODE[v.boundary],
+        1 if axis is None else axis, *s, v.n_passes(k), out.ctypes.data),
+        "lt_shift_chain_plan")
+    if v.body == "morph_chain8":
+        return dict(zip(_PLAN_2D, map(int, out)))
+    plan = dict(zip(_LINE_PLAN, map(int, out)))
+    plan["mode"] = _MODES[plan["mode"]]
+    return plan
+
+
 def shift_chain(x: torch.Tensor, v: Variant | str, k: int = K) -> torch.Tensor:
     """The variant's chain of passes over the (H, W) block x (k = the
     probe's K; the variant runs K, K // 2 or K // 4 passes)."""
@@ -350,25 +404,19 @@ def shift_chain(x: torch.Tensor, v: Variant | str, k: int = K) -> torch.Tensor:
     h, w = x.shape
     out = torch.empty_like(x)
     lib = load_library()
+    axis, shifts = _args(v, h, w)
     if v.body == "morph_chain8":
-        p, q = torch.empty_like(x), torch.empty_like(x)
-        bar = torch.zeros(2, dtype=torch.int32, device=x.device)
-        a1, a2 = v.shifts
+        # the scratch between launches; q and bar are unused
+        p = torch.empty_like(x)
         _check(lib.lt_shift_chain_2d(
-            x.data_ptr(), out.data_ptr(), p.data_ptr(), q.data_ptr(),
-            bar.data_ptr(), h, w, v.n_passes(k), a1 % w, a2 % w, a1 % h,
-            a2 % h, _stream()), "lt_shift_chain_2d")
+            x.data_ptr(), out.data_ptr(), p.data_ptr(), None, None, h, w,
+            v.n_passes(k), *shifts, _stream()), "lt_shift_chain_2d")
         LAUNCHES["shift_chain_2d"] += 1
         return out
-    length = w if v.axis in (1, None) else h
-    s1, s2 = ((*v.shifts, 0)[:2] if v.shifts else (0, 0))
-    if v.boundary == "circular":
-        s1, s2 = s1 % length, s2 % length
     c1, c2 = (*map(float, v.consts), 0.0, 0.0)[:2]
     _check(lib.lt_shift_chain(
         x.data_ptr(), out.data_ptr(), h, w, _DTYPE_CODE[v.dtype],
-        _BODY_CODE[v.body], _BOUND_CODE[v.boundary],
-        1 if v.axis is None else v.axis, s1, s2, v.n_passes(k),
-        float(v.fill), c1, c2, _stream()), "lt_shift_chain")
+        _BODY_CODE[v.body], _BOUND_CODE[v.boundary], axis, *shifts,
+        v.n_passes(k), float(v.fill), c1, c2, _stream()), "lt_shift_chain")
     LAUNCHES["shift_chain"] += 1
     return out

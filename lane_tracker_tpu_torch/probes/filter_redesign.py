@@ -6,8 +6,11 @@ merge + open + prefix tail as one bit-packed kernel), probe 6's
 and column walkers of running sums), the fused channel stage
 (``lt_channel_stage``: the tophat's widening plane over wide tiles) and
 probes 5 and 10's ``tophat_staged`` and ``dual_tophat`` (the widening
-plane in bf16 or f32 lanes; both problems' tiles in one launch) were
-redesigned for the H100.  This study builds another checkout's kernels from that checkout's own sources
+plane in bf16 or f32 lanes; both problems' tiles in one launch) and
+the morphology probes' shift chains (``lt_shift_chain``: lines in
+registers along the shift's orbits; ``lt_shift_chain_2d``: tiles run a few
+outer steps in shared memory, no grid barrier) were redesigned for the
+H100.  This study builds another checkout's kernels from that checkout's own sources
 and times both on the same inputs, in turns (earlier, this, this,
 earlier), so that one call on one card compares them:
 
@@ -48,11 +51,21 @@ It needs CUDA and prints one JSON row per measurement:
   kernel runs in this row);
 * ``filter_stage``: the whole attempt-1 filter (``ops.filters.
   filter_stage``, the ``lt.filter`` range of a chunk) on the fail16
-  chunk's channels (every 16th frame black).
+  chunk's channels (every 16th frame black);
+* ``chain``: every runnable shift-chain variant on its probe input
+  (1104, 1280), K = 64, with this checkout's kernel launches a call (the
+  library's own count), each call's device time with the calls queued
+  behind a spin kernel (``timing.queued_ms``), and this checkout's call
+  with no pass (``k0_ms``: the lines staged in and out alone);
+* ``sass_chain``: the counts of ``BAR.SYNC``, ``SHFL``, ``LDS`` and
+  ``STS`` (and all instructions) in each shift-chain kernel instance of
+  both checkouts (the instance's template arguments in its name: type,
+  body, boundary, axis and, in this checkout, its mode: 0 orbit order in
+  one warp, 1 plain order across warps, 2 plain order in one warp).
 
-With ``--probes-only`` it times the ``tophat``, ``staged`` and ``dual``
-rows alone: the quick way to hold a patched copy of this checkout, as
-``--parent``, against this one.
+With ``--probes-only`` it times the ``tophat``, ``staged``, ``dual`` and
+``chain`` rows alone: the quick way to hold a patched copy of this
+checkout, as ``--parent``, against this one.
 
 Every output of the earlier kernels must equal this checkout's (probe 6's
 ``out`` within ``sweep_dots.RTOL``), or the study raises.  The earlier
@@ -81,10 +94,11 @@ import torch
 from lane_tracker_tpu_torch.calib.io import load_calibration_npz
 from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
+from lane_tracker_tpu_torch.kernels import shift_chain as sc
 from lane_tracker_tpu_torch.kernels import sweep_dots as sd
 from lane_tracker_tpu_torch.kernels.build import build, find_nvcc
 from lane_tracker_tpu_torch.ops.filters import filter_stage
-from lane_tracker_tpu_torch.timing import cuda_ms
+from lane_tracker_tpu_torch.timing import cuda_ms, queued_ms
 from lane_tracker_tpu_torch.tracker.config import PRESETS, SECOND_ATTEMPT
 from lane_tracker_tpu_torch.tracker.step import TrackerParams, warp_channels
 
@@ -141,11 +155,11 @@ def other_library(tree: pathlib.Path):
 
 
 def on_library(lib):
-    """A context in which the filter-stage, fused-stage and probe 6
-    wrappers launch ``lib``'s entries (the earlier checkout's interfaces
-    are this one's)."""
+    """A context in which the filter-stage, fused-stage, probe 6 and
+    shift-chain wrappers launch ``lib``'s entries (the earlier checkout's
+    interfaces are this one's)."""
     stack = contextlib.ExitStack()
-    for mod in (fs, sd, cf):
+    for mod in (fs, sd, cf, sc):
         stack.enter_context(mock.patch.object(mod, "load_library",
                                               lambda: lib))
     return stack
@@ -171,7 +185,7 @@ def _equal(got, want, rtol) -> bool:
 
 
 def in_turns(fn, lib, reps=REPS, rtol=0.0, earlier=None,
-             other=None) -> dict:
+             other=None, timer=cuda_ms) -> dict:
     """{"ms", "earlier_ms"}: fn on this checkout's kernels and on ``lib``'s
     (or ``earlier``, the same function called on ``lib``'s entries
     directly), earlier, this, this, earlier; the outputs must be equal
@@ -180,9 +194,9 @@ def in_turns(fn, lib, reps=REPS, rtol=0.0, earlier=None,
     is "other_ms" and the label "other"."""
     def run_earlier(n):
         if earlier is not None:
-            return cuda_ms(earlier, n) if n else earlier()
+            return timer(earlier, n) if n else earlier()
         with on_library(lib):
-            return cuda_ms(fn, n) if n else fn()
+            return timer(fn, n) if n else fn()
 
     want = [t.clone() for t in _flat(run_earlier(0))]
     if not _equal(_flat(fn()), want, rtol):
@@ -190,7 +204,7 @@ def in_turns(fn, lib, reps=REPS, rtol=0.0, earlier=None,
     key = "other_ms" if other else "earlier_ms"
     times = {"ms": [], key: []}
     for k in (key, "ms", "ms", key):
-        times[k].append(run_earlier(reps) if k == key else cuda_ms(fn, reps))
+        times[k].append(run_earlier(reps) if k == key else timer(fn, reps))
     return {**{k: sum(v) / len(v) for k, v in times.items()},
             **({"other": other} if other else {})}
 
@@ -257,13 +271,72 @@ def probe_rows(lib, emit) -> None:
                      other="two tophat_ellipse calls")})
 
 
+CHAIN_OPS = ("BAR.SYNC", "SHFL", "LDS", "STS")
+CHAIN_KERNELS = ("shift_chain_kernel", "elementwise_kernel", "chain2d_kernel",
+                 "chain2d_fast_kernel")
+
+
+def chain_sass(lib_path) -> dict:
+    """{function: {op: count}} of the shift chains' kernel instances: the
+    barriers, shuffles and shared loads and stores (opcodes by prefix)."""
+    rows = {}
+    for name, ops in sass_functions(str(lib_path)).items():
+        if any(k in name for k in CHAIN_KERNELS):
+            rows[name] = {op: sum(o.startswith(op) for o in ops)
+                          for op in CHAIN_OPS}
+            rows[name]["instructions"] = len(ops)
+    return rows
+
+
+def earlier_chain2d(lib, x, v, bar):
+    """``bf16_morph_chain8`` on the earlier checkout's
+    ``lt_shift_chain_2d``, with the scratch its cooperative kernel may use
+    (commit 5c12960 and before): p and q, and ``bar``, two int32 zeroed
+    once (its grid barrier leaves the arrival count at 0)."""
+    h, w = x.shape
+    out, p, q = (torch.empty_like(x) for _ in range(3))
+    a1, a2 = v.shifts
+    fs._check(lib.lt_shift_chain_2d(
+        x.data_ptr(), out.data_ptr(), p.data_ptr(), q.data_ptr(),
+        bar.data_ptr(), h, w, v.n_passes(), a1 % w, a2 % w, a1 % h, a2 % h,
+        fs._stream()), "lt_shift_chain_2d")
+    return out
+
+
+def chain_rows(lib, emit) -> None:
+    """The ``chain`` rows: every runnable shift-chain variant on its probe
+    input (1104, 1280), K = 64, in turns with the earlier checkout's
+    kernels, with this checkout's kernel launches a call."""
+    bar = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for v in sc.VARIANTS:
+        if v.rejected:
+            continue
+        x = sc.make_input(v, device="cuda")
+        before = fs.kernel_launches()
+        sc.shift_chain(x, v)
+        launches = fs.kernel_launches() - before
+        earlier = None
+        if v.body == "morph_chain8":
+            earlier = lambda x=x, v=v: earlier_chain2d(lib, x, v, bar)  # noqa: E731
+        row = {"chain": v.name, "shape": list(x.shape), "k": sc.K,
+               "kernel_launches": launches,
+               **in_turns(lambda x=x, v=v: sc.shift_chain(x, v), lib,
+                          earlier=earlier, timer=queued_ms)}
+        if v.body != "morph_chain8":
+            # the same call with no pass: staging in and out alone
+            row["k0_ms"] = queued_ms(lambda x=x, v=v: sc.shift_chain(x, v, 0),
+                                     REPS)
+        emit(row)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=pathlib.Path, required=True,
                     help="a checkout of the earlier package (git archive "
                     "<commit> lane_tracker_tpu_torch, unpacked)")
     ap.add_argument("--probes-only", action="store_true",
-                    help="time the tophat, staged and dual rows alone")
+                    help="time the tophat, staged, dual and chain rows "
+                    "alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("filter_redesign needs a CUDA device")
@@ -289,8 +362,12 @@ def main(argv=None) -> int:
             emit({"sass": name, "opcodes": opcode_counts(lib_path, name)})
     emit({"sass": "13tophat_kernel", "earlier": True,
           "opcodes": opcode_counts(lib._name, "13tophat_kernel")})
+    for tree, path in (("this", lib_path), ("earlier", lib._name)):
+        for name, counts in chain_sass(path).items():
+            emit({"sass_chain": name, "tree": tree, **counts})
     if args.probes_only:
         probe_rows(lib, emit)
+        chain_rows(lib, emit)
         return 0
 
     with np.load(REPO / "assets" / "stills_720p.npz") as z:
@@ -366,6 +443,7 @@ def main(argv=None) -> int:
                          rtol=sd.RTOL)})
     del x, tri
     probe_rows(lib, emit)
+    chain_rows(lib, emit)
     fail = chunk.clone()
     fail[::FAIL_EVERY] = 0
     rf, bf = warp_channels(fail, params)

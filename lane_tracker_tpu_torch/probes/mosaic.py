@@ -18,8 +18,12 @@ under the reference's names and fields:
 * the 65 shift-chain rows (kernels/shift_chain.VARIANTS) on the probes'
   inputs at full size, (1104, 1280), K=64: ``ok`` from the kernel against
   its plain twin, ``us_per_pass`` (the chain's time over K, as the probes
-  divide) and ``ms_k_passes`` from CUDA events; the rejected variant
-  prints ``error``;
+  divide) and ``ms_k_passes``, the device time per call with the calls
+  queued behind a spin kernel (``timing.queued_ms``: a chain of a few
+  microseconds is otherwise paced by the host's launch), and
+  ``events_ms_k_passes``, the same calls timed by CUDA events alone
+  (``timing.cuda_ms``, as these rows were timed before the spin kernel);
+  the rejected variant prints ``error``;
 * probe 4's tophat rows, one per k (``lt_tophat``: the production
   kernel, one launch over one widened plane of window min/max, u8 lanes),
   and probe 5's ``tophat_staged`` rows (the same tile, one launch, its
@@ -133,8 +137,10 @@ def chain_rows(device, reps: int = 0, h: int = sc.H, w: int = sc.W,
             row["ok"], row["max_abs_err"] = compare(
                 got, sc.shift_chain_plain(x, v, k))
             if reps:
-                ms = cuda_ms(lambda: sc.shift_chain(x, v, k), reps)
+                ms = queued_ms(lambda: sc.shift_chain(x, v, k), reps)
                 row.update(us_per_pass=ms * 1e3 / k, ms_k_passes=ms,
+                           events_ms_k_passes=cuda_ms(
+                               lambda: sc.shift_chain(x, v, k), reps),
                            plain_ms=cuda_ms(
                                lambda: sc.shift_chain_plain(x, v, k), 1))
         rows.append(row)

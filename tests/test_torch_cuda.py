@@ -27,9 +27,13 @@ The morphology probes' kernels (every runnable shift-chain variant, the
 staged tophat in bf16 and f32 at k = 3, 29, 55 and 63, the dual tophat
 at (29, 55) and (55, 29)) equal their twins exactly, at full size and on
 ragged blocks (W no multiple of 16, H no multiple of the tile, data off
-16-byte alignment), with rolls and slices at least a line long; the
+16-byte alignment), with rolls and slices at least a line long, at the
+lines' length limit of 8192 (8193 refused), with rolls whose gcd with a
+ragged line is above 1, and the 2-D chain on blocks smaller than its cone
+(its kernel launches those of the model's plan); the
 staged and dual tophats take one launch a call, and the library's tile
-plan for each lane width is tests/torch_filter_models.py's; the rejected
+plan for each lane width, and its chain plans (``shift_chain.chain_plan``),
+are tests/torch_filter_models.py's; the rejected
 variant raises before any launch.  Probe 6's ``sweep_dots``, in every
 kind at full size and on a ragged frame: swept equal to the twin's, out
 equal for ``sweeps`` and within a relative 1e-4 of the float64 twin for
@@ -534,6 +538,108 @@ def test_shift_chain_shift_at_least_a_line(cuda, name):
         shifts = (shift, shift + 1) if v.body == "packed" else (shift,)
         w = dataclasses.replace(v, shifts=shifts, margin=shift)
         _check_chain_kernel(_chain_input(w, (37, 45), shift).to(cuda), w, 8)
+
+
+# One variant a (type, boundary, axis) kind that a long line reaches.
+LONG = ["i32_lane_roll_add_s17", "i32_sublane_roll_add_s17",
+        "uint8_lane_slice_min_s17", "uint8_sub_slice_min_s17",
+        "i16_sublane_roll_add_s17", "bf16_sub_min_s17",
+        "bf16_roll_sub_minmax", "i32_packed_u16_shift_add_s17",
+        "f32_lane_roll_min_s17", "i32_lane_roll_add_s128_fine"]
+
+
+@pytest.mark.parametrize("name", LONG)
+def test_shift_chain_at_the_length_limit(cuda, name):
+    """A line of 8192 elements (the kernels' limit) along the variant's
+    axis equals the twin; one longer is refused before any launch."""
+    v = sc.BY_NAME[name]
+    limit = (3, 8192) if v.axis == 1 else (8192, 3)
+    _check_chain_kernel(_chain_input(v, limit, 1).to(cuda), v, 8)
+    over = (3, 8193) if v.axis == 1 else (8193, 3)
+    sc.reset_launches()
+    with pytest.raises(RuntimeError, match="lt_shift_chain"):
+        sc.shift_chain(_chain_input(v, over, 2).to(cuda), v, 8)
+    assert sc.LAUNCHES == {"shift_chain": 0, "shift_chain_2d": 0}
+
+
+@pytest.mark.parametrize("name", ["i32_lane_roll_add_s17",
+                                  "u8_sublane_roll_min_s17",
+                                  "bf16_roll_sub_minmax",
+                                  "i16_lane_roll_min_s17",
+                                  "f32_sublane_roll_min_s17"])
+@pytest.mark.parametrize("length,lines,shift", [
+    (45, 37, 15), (45, 37, 9), (300, 300, 128), (1500, 131, 8),
+    (1500, 131, 1000), (1500, 131, 750)])
+def test_shift_chain_roll_with_cycles(cuda, name, length, lines, shift):
+    """Rolls whose shift shares a factor with a ragged line of ``length``
+    (gcd 15, 9, 4, 4, 500 and 750: several cycles a line, some shorter
+    than a lane's run; 500 cycles of 3 and 750 of 2 need more than a
+    warp's lanes and take the plain order)."""
+    v = dataclasses.replace(sc.BY_NAME[name], shifts=(shift,))
+    shape = (lines, length) if v.axis == 1 else (length, lines)
+    _check_chain_kernel(_chain_input(v, shape, shift).to(cuda), v, 12)
+
+
+@pytest.mark.parametrize("shape", [(5, 9), (12, 20), (37, 45), (1, 1),
+                                   (9, 1300)])
+def test_shift_chain_2d_on_blocks_smaller_than_its_cone(cuda, shape):
+    """bf16_morph_chain8 at K = 64 (16 outer steps: a cone of 144 rows and
+    columns, 36 a launch) on blocks smaller than it: the regions wrap
+    around the block; the library counts one kernel launch a
+    CHAIN2D_STEPS outer steps."""
+    from torch_filter_models import CHAIN2D_STEPS
+
+    v = sc.BY_NAME["bf16_morph_chain8"]
+    x = _chain_input(v, shape, sum(shape)).to(cuda)
+    n0 = fs.kernel_launches()
+    _check_chain_kernel(x, v, sc.K)
+    # _check_chain_kernel calls the kernel once and the twin on the card
+    assert fs.kernel_launches() - n0 == -(-v.n_passes() // CHAIN2D_STEPS)
+
+
+@pytest.mark.parametrize("shape", [(1104, 1280), (37, 45), (5, 1500),
+                                   (8192, 3), (3, 8192), (9, 200)])
+def test_chain_plan_is_the_models(cuda, shape):
+    """The library's plans (lt_shift_chain_plan, the launchers' own) are
+    tests/torch_filter_models.py's, whose CPU models the tests hold to the
+    twin: each shift variant's mode and lanes a line (plain order in one
+    warp exactly where its lanes fit one), and the 2-D chain's launches
+    and tiles at this card's SM count."""
+    from torch_filter_models import (CHAIN2D_STEPS, CHAIN_REGS,
+                                     chain2d_tiles, chain_mode, chain_orbits)
+
+    h, w = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for v in sc.VARIANTS:
+        if v.rejected or v.boundary is None:
+            continue
+        plan = sc.chain_plan(v, h, w)
+        if v.body == "morph_chain8":
+            outer = v.n_passes()
+            a1, a2 = (s % w for s in v.shifts)
+            b1, b2 = (s % h for s in v.shifts)
+            model = chain2d_tiles(h, w, min(CHAIN2D_STEPS, outer), a1, a2,
+                                  b1, b2, sms)
+            assert plan["launches"] == -(-outer // CHAIN2D_STEPS)
+            keys = ("th", "tw", "rh", "rww", "col0", "smem")
+            assert {k: plan[k] for k in keys} == {k: model[k] for k in keys}
+            assert plan["tiles"] == len(model["tiles"])
+            continue
+        length = w if v.axis == 1 else h
+        mode = chain_mode(v, length, v.n_passes())
+        assert plan["regs"] == CHAIN_REGS
+        if mode == "orbit":
+            s = v.shifts[0] % length if v.boundary == "circular" else (
+                v.shifts[0])
+            assert plan["mode"] == "orbit", v.name
+            assert plan["lanes"] == chain_orbits(
+                length, s, v.boundary, v.n_passes())["lanes"], v.name
+            assert plan["lanes"] <= 32
+        else:
+            assert plan["lanes"] == -(-length // CHAIN_REGS), v.name
+            assert plan["mode"] == (
+                "plain_warp" if plan["lanes"] <= 32 else "plain"), v.name
+        assert plan["warps"] == -(-plan["lanes"] // 32)
 
 
 def test_shift_chain_rejects_before_launch(cuda):

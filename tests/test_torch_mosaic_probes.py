@@ -176,9 +176,12 @@ def test_integer_adds_wrap_in_every_type(probes):
 
 
 def test_kernel_instances_are_the_tables_cases():
-    """csrc/shift_chain.cu instantiates lt_shift_chain for exactly the
-    (type, body, boundary, axis) cases the runnable variants name."""
-    src = (REPO / "lane_tracker_tpu_torch" / "csrc" / "shift_chain.cu")
+    """csrc/shift_chain*.cu instantiate lt_shift_chain for exactly the
+    (type, body, boundary, axis) cases the runnable variants name, each
+    case in one source's CASE list."""
+    csrc = REPO / "lane_tracker_tpu_torch" / "csrc"
+    text = "".join(p.read_text()
+                   for p in sorted(csrc.glob("shift_chain*.cu")))
     c_type = {"uint8_t": "uint8", "int8_t": "int8", "int16_t": "int16",
               "int32_t": "int32", "bf16": "bfloat16", "float": "float32"}
     c_body = {"k" + "".join(w.capitalize() for w in b.split("_")): b
@@ -186,7 +189,7 @@ def test_kernel_instances_are_the_tables_cases():
     c_bound = {"kNone": None, "kCircular": "circular", "kFill": "fill"}
     cases = [(c_type[t], c_body[b], c_bound[bd], int(ax)) for t, b, bd, ax in
              re.findall(r"^  CASE\((\w+), (\w+), (\w+), (\d)\)$",
-                        src.read_text(), re.M)]
+                        text, re.M)]
     assert len(cases) == len(set(cases))
     assert set(cases) == {
         (v.dtype, v.body, v.boundary, 1 if v.axis is None else v.axis)

@@ -28,6 +28,7 @@ float64.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from lane_tracker_tpu_torch.ops.morphology import ellipse_runs
 
@@ -743,3 +744,272 @@ def channel_stage_model(img, kt, kb, C, noise=None, block=0, rng=None):
                 out[z, y0:y0 + ys_, x0:x0 + xs_] = np.where(
                     hit[:ys_, :xs_], 255, 0)
     return out if keep is None else (out, keep)
+
+
+# ---- the shift chains (lt_shift_chain, lt_shift_chain_2d) ----
+
+CHAIN_REGS = 40  # kRegs: slots a lane holds
+
+
+def chain_orbits(L: int, s: int, boundary: str, passes=None) -> dict:
+    """The kernel's orbit plan of one line (make_orbits, OrbitCursor and
+    orbit_src in csrc/shift_chain.cuh): ``pos[lane, r]``, the line position
+    slot r of the lane holds (-1: padding), ``end[lane, r]``, whether the
+    slot is its orbit's last (it reads the fill, or for a roll its cycle's
+    first slot, instead of the next slot), ``src[lane]``, the lane whose
+    register 0 the lane's last register reads (a shuffle), ``reads``, the
+    position each slot's neighbour is (``L`` for the fill), and ``real``,
+    the slots written back.  A roll of at most as many ``passes`` as its
+    cycles' padding slots (each cycle on ceil(n / 40) lanes, or on 32 / g
+    where that gives it the padding) is ``periodic``: the padding
+    continues each cycle (slot j holds element j mod n) and no slot is an
+    end."""
+    R = CHAIN_REGS
+    roll = boundary == "circular" or s == 0
+    periodic = False
+    if roll:
+        n = L // np.gcd(s, L)
+        g = L // n
+        lpc = -(-n // R)
+        if passes is not None:
+            # the cycles widened to a warp's lanes where that gives them
+            # the padding
+            wide = 32 // g
+            if passes <= lpc * R - n:
+                periodic = True
+            elif passes <= wide * R - n and wide >= lpc:
+                lpc, periodic = wide, True
+        lanes = g * lpc
+    else:
+        sp = min(s, L)
+        a, b = divmod(L, sp)
+        lanes = -(-L // R)
+    pos = np.full((lanes, R), -1, np.int64)
+    end = np.zeros((lanes, R), bool)
+    real = np.zeros((lanes, R), bool)
+    src = np.arange(lanes)
+    for lane in range(lanes):
+        for r in range(R):
+            if roll:
+                c, k = divmod(lane, lpc)
+                j = k * R + r
+                if j < n or periodic:
+                    pos[lane, r] = (c - j * s) % L
+                    end[lane, r] = j == n - 1 and not periodic
+                    real[lane, r] = j < n
+            else:
+                q = lane * R + r
+                if q >= L:
+                    continue
+                head = b * (a + 1)
+                if q < head:
+                    orb, j = divmod(q, a + 1)
+                    length = a + 1
+                else:
+                    orb, j = divmod(q - head, a)
+                    orb += b
+                    length = a
+                pos[lane, r] = orb + j * sp
+                end[lane, r] = j == length - 1
+                real[lane, r] = True
+        if roll:
+            c, k = divmod(lane, lpc)
+            src[lane] = c * lpc if k == lpc - 1 else lane + 1
+        else:
+            src[lane] = min(lane + 1, lanes - 1)
+    # What each slot reads: the next slot, the next lane's register 0, or
+    # at an orbit's end the fill / its cycle's first slot.
+    nxt = np.concatenate([pos[:, 1:], pos[src, :1]], axis=1)
+    wrap = pos[src, :1] if roll else np.full((lanes, 1), L)
+    reads = np.where(end, np.broadcast_to(wrap, pos.shape), nxt)
+    return {"pos": pos, "end": end, "src": src, "lanes": lanes,
+            "roll": roll, "reads": reads, "real": real,
+            "periodic": periodic}
+
+
+def chain_mode(v, L: int, passes=None) -> str:
+    """The kernel's mode for a variant's lines (line_plan): "plain" for
+    the packed-u16 body, for slices whose orbits are shorter than a lane's
+    run (a lane would hold two orbit ends), for lines whose orbits need
+    more than one warp's 32 lanes, and for rolls whose cycles need more
+    than twice the lanes of the plain order (half or more of the slots
+    padding); else "orbit", in one warp."""
+    if v.body == "packed":
+        return "plain"
+    s = v.shifts[0] % L if v.boundary == "circular" else v.shifts[0]
+    plan = chain_orbits(L, s, v.boundary, passes)
+    plain_lanes = -(-L // CHAIN_REGS)
+    if not plan["roll"] and L // min(s, L) < CHAIN_REGS:
+        return "plain"
+    if plan["lanes"] > 32 or plan["lanes"] > 2 * plain_lanes:
+        return "plain"
+    return "orbit"
+
+
+def _chain_body(v, x, a, b=None):
+    """One pass of the variant's body on slot values x with neighbours a
+    (and b), in the dtype's arithmetic (int64 values wrapped, as the twin;
+    bf16 and f32 tensors)."""
+    from lane_tracker_tpu_torch.kernels import shift_chain as sc
+
+    wrap = lambda t: sc._wrap(t, v.dtype)  # noqa: E731
+    if v.body == "add":
+        return wrap(x + a)
+    if v.body == "min":
+        return torch.minimum(x, a)
+    if v.body == "max":
+        return torch.maximum(x, a)
+    if v.body == "packed":
+        return wrap(wrap(x + ((x >> 16) | wrap(b << 16))) + a)
+    if v.body == "min_mul_max":
+        return torch.maximum(torch.minimum(x, a),
+                             x * sc._const(v.consts[0], x, v))
+    raise ValueError(v.body)
+
+
+def chain_model(x: torch.Tensor, v, k: int) -> torch.Tensor:
+    """lt_shift_chain's line kernel in slots: each line along the variant's
+    axis gathered into the orbit plan's slots (or plain order), every pass
+    a shift by one slot (the next register, the ``src`` lane's register 0
+    at a lane's end, the fill or the cycle's first slot at an orbit's end),
+    then scattered back.  Padding slots start as 0 and are never written
+    back.  Elementwise bodies are the twin's passes."""
+    from lane_tracker_tpu_torch.kernels import shift_chain as sc
+
+    if v.boundary is None:
+        return sc.shift_chain_plain(x, v, k)
+    axis = v.axis
+    lines = (x if axis == 1 else x.t()).contiguous()
+    lines = lines.long() if v.dtype in sc._INT_BITS else lines
+    L = lines.shape[1]
+    fill = lines.new_full((), v.fill)
+    out = lines.clone()
+    passes = v.n_passes(k)
+    if chain_mode(v, L, passes) == "plain":
+        # plain order through the shared buffers: a roll reads p - s (mod
+        # L), a slice p + s or the fill
+        q = torch.arange(L)
+        y = lines
+        for _ in range(passes):
+            if v.boundary == "circular":
+                a = y[:, (q - v.shifts[0] % L) % L]
+                b = (y[:, (q - v.shifts[1] % L) % L] if v.body == "packed"
+                     else None)
+            else:
+                s = v.shifts[0]
+                a = torch.where(q + s < L, y[:, (q + s).clamp(max=L - 1)],
+                                fill)
+                b = None
+            y = _chain_body(v, y, a, b)
+        return (y if axis == 1 else y.t()).to(x.dtype).contiguous()
+    s = v.shifts[0] % L if v.boundary == "circular" else v.shifts[0]
+    plan = chain_orbits(L, s, v.boundary, passes)
+    pos = torch.from_numpy(plan["pos"])
+    end = torch.from_numpy(plan["end"])
+    src = torch.from_numpy(plan["src"])
+    slots = torch.where(pos >= 0, lines[:, pos.clamp(min=0)],
+                        lines.new_zeros(()))  # (lines, lanes, R)
+    for _ in range(passes):
+        sh = slots[:, src, 0]  # each lane's shuffle of register 0
+        w = sh if plan["roll"] else fill.expand_as(sh)
+        nxt = torch.cat([slots[:, :, 1:], sh[:, :, None]], dim=2)
+        wfull = w[:, :, None].expand_as(slots)
+        slots = _chain_body(v, slots, torch.where(end, wfull, nxt))
+    real = torch.from_numpy(plan["real"])
+    out[:, pos[real]] = slots[:, real]
+    return (out if axis == 1 else out.t()).to(x.dtype).contiguous()
+
+
+CHAIN2D_MAX_SPLIT = 48
+CHAIN2D_SMEM = 227 * 1024
+CHAIN2D_STEPS = 4  # k2dSteps: outer steps a launch of lt_shift_chain_2d
+
+
+def chain2d_col0(t: int, sub: int, a1: int, a2: int) -> int:
+    """First exact region column after sub-step ``sub`` (0 or 1: the two
+    column rolls) of step t, kept even (chain2d_col0)."""
+    c = 0
+    for i in range(t + 1):
+        c = (c + a1 + 1) & ~1
+        if i == t and sub == 0:
+            return c
+        c = (c + a2 + 1) & ~1
+    return c
+
+
+def chain2d_tiles(H: int, W: int, m: int, a1: int, a2: int, b1: int,
+                  b2: int, sms: int = 132) -> dict:
+    """The host's plan of one launch of m steps (chain2d_plan): of the
+    ny x nx grids, the one whose busiest SM holds the least region area
+    within a CTA's shared memory (two region buffers for the shifts 3 and
+    6 on both axes, else three); ``tiles`` lists each CTA's (row, column)
+    origin."""
+    bufs = 2 if (a1, a2, b1, b2) == (3, 6, 3, 6) else 3
+    col0 = chain2d_col0(m - 1, 1, a1, a2)
+    best = None
+    for ny in range(1, min(CHAIN2D_MAX_SPLIT, H) + 1):
+        th = -(-H // ny)
+        if ny > 1 and -(-H // th) != ny:
+            continue
+        for nx in range(1, min(CHAIN2D_MAX_SPLIT, W) + 1):
+            tw = -(-W // nx)
+            if nx > 1 and -(-W // tw) != nx:
+                continue
+            rh = th + m * (b1 + b2)
+            rww = (col0 + tw + 1) // 2
+            smem = bufs * rh * rww * 4
+            if smem > CHAIN2D_SMEM:
+                continue
+            cost = -(-(ny * nx) // sms) * rh * rww
+            if best is None or cost < best["cost"]:
+                best = {"cost": cost, "th": th, "tw": tw, "rh": rh,
+                        "rww": rww, "col0": col0, "smem": smem,
+                        "tiles": [(i * th, j * tw) for i in range(ny)
+                                  for j in range(nx)]}
+    return best
+
+
+def chain2d_model(x: torch.Tensor, outer: int, m: int, shifts, rng,
+                  sms: int = 132) -> torch.Tensor:
+    """lt_shift_chain_2d in numpy-indexed bf16: launches of at most m
+    steps; each tile stages its region (rows and columns below the tile by
+    the halo, indices modulo the block), runs the sub-steps over the parts
+    whose inputs are exact (the kernel's row and even-column starts), with
+    the p and q buffers starting as random bits, and writes its outputs."""
+    H, W = x.shape
+    a1, a2 = (s % W for s in shifts)
+    b1, b2 = (s % H for s in shifts)
+    db = b1 + b2
+    y = x
+    done = 0
+    while done < outer:
+        steps = min(m, outer - done)
+        plan = chain2d_tiles(H, W, steps, a1, a2, b1, b2, sms)
+        nxt = torch.empty_like(y)
+        rh, rw = plan["rh"], 2 * plan["rww"]
+        for r0, c0 in plan["tiles"]:
+            rows = (r0 - steps * db + np.arange(rh)) % H
+            cols = (c0 - plan["col0"] + np.arange(rw)) % W
+            X = y[torch.from_numpy(rows)][:, torch.from_numpy(cols)].clone()
+            garbage = lambda: torch.from_numpy(  # noqa: E731
+                rng.integers(0, 1 << 16, (rh, rw), np.uint16).view(
+                    np.int16).copy()).view(torch.bfloat16)
+            P, Q = garbage(), garbage()
+            cw = 0
+            for t in range(steps):
+                rv = t * db
+                c1 = (cw + a1 + 1) & ~1
+                c2 = (c1 + a2 + 1) & ~1
+                P[rv:, c1:] = torch.minimum(X[rv:, c1:], X[rv:, c1 - a1:rw - a1])
+                Q[rv:, c2:] = torch.minimum(P[rv:, c2:], P[rv:, c2 - a2:rw - a2])
+                P[rv + b1:, c2:] = torch.maximum(Q[rv + b1:, c2:],
+                                                 Q[rv:rh - b1, c2:])
+                X[rv + db:, c2:] = X[rv + db:, c2:] - torch.maximum(
+                    P[rv + db:, c2:], P[rv + b1:rh - b2, c2:])
+                cw = c2
+            th, tw = min(plan["th"], H - r0), min(plan["tw"], W - c0)
+            nxt[r0:r0 + th, c0:c0 + tw] = X[steps * db:steps * db + th,
+                                            plan["col0"]:plan["col0"] + tw]
+        y = nxt
+        done += steps
+    return y.clone()
