@@ -68,7 +68,10 @@ Phases (each raises at the first failure; nothing is skipped):
    and ``both``; ``cuobjdump --dump-sass`` of the built library must show
    HGMMA (warpgroup tensor-core) instructions in its kernel.  Probe 11's
    ``tile_gather`` on (128, 1280) int32, each op at 16 and 64 reps (8
-   launches): equal to its twin.
+   launches): equal to its twin; the ``tile_gather_kernel`` instances of
+   B0, G1 and G2 may hold no ``BAR.SYNC`` and G3's one (its rep loop's
+   single barrier), and each instance's BAR.SYNC and SHFL counts go to the
+   kernels line beside its ns a rep.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    per-kernel times against the plain twins with CUDA events; rows 1-5
@@ -97,6 +100,7 @@ a checkout of the repository, it exits non-zero and prints no result.
 """
 
 import dataclasses
+import functools
 import importlib
 import json
 import pathlib
@@ -298,18 +302,24 @@ def gather_work(op, reps):
     return (4 * 4 * n, (n * reps * GATHER_OPS[op], "int32"))
 
 
-def sass_count(lib_path, kernel, opcode):
-    """(count, function names): the instructions with ``opcode`` in the
-    SASS of the library's functions whose mangled name holds ``kernel``,
-    from ``cuobjdump --dump-sass``."""
+@functools.lru_cache(maxsize=None)
+def sass_dump(lib_path):
+    """``cuobjdump --dump-sass`` of the library, once a run."""
     from lane_tracker_tpu_torch.kernels.build import find_nvcc
 
     tool = pathlib.Path(find_nvcc()).with_name("cuobjdump")
     res = subprocess.run([str(tool), "--dump-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+    return res.stdout
+
+
+def sass_count(lib_path, kernel, opcode):
+    """(count, function names): the instructions with ``opcode`` in the
+    SASS of the library's functions whose mangled name holds ``kernel``,
+    from ``cuobjdump --dump-sass``."""
     count, names, name = 0, set(), None
-    for line in res.stdout.splitlines():
+    for line in sass_dump(lib_path).splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
@@ -873,6 +883,22 @@ def main(argv):
           and all(row["ok"] and row["launches"] == len(tg.REPS)
                   for row in gathers),
           "tile_gather differs from its twin")
+    # The in-tile gather's design (csrc/tile_gather.cu): B0, G1 and G2 have
+    # no barrier at all, G3 one CTA barrier a rep in a loop not unrolled,
+    # so one BAR.SYNC in its instance (the first design's 45-58).
+    gather_sass = {}
+    for op, code in tg.OPS.items():
+        kernel = f"tile_gather_kernelILi{code}E"
+        check(len(sass_count(lib_path, kernel, "EXIT")[1]) == 1,
+              f"no single tile_gather_kernel instance for {op}")
+        gather_sass[op] = {opcode: sass_count(lib_path, kernel, opcode)[0]
+                           for opcode in ("BAR.SYNC", "SHFL")}
+    print(f"[probes] SASS of tile_gather_kernel by op: "
+          f"{json.dumps(gather_sass)}")
+    check(all(c["BAR.SYNC"] == (op == "G3_2d_gather")
+              for op, c in gather_sass.items()),
+          "a tile_gather_kernel instance holds a CTA barrier (BAR.SYNC) "
+          "its design has not: none in B0, G1 and G2, one in G3's loop")
     n_hgmma, hgmma_fns = sass_count(lib_path, "sweep_dots_kernel", "HGMMA")
     print(f"[probes] SASS of {lib_path.name}: {n_hgmma} HGMMA instructions "
           f"in {hgmma_fns}")
@@ -1129,6 +1155,10 @@ def main(argv):
         extra.update(library_of)
         if name == "shift_chain_2d":
             extra["kernel_launches_a_call"] = n_2d
+        if name == "tile_gather":
+            extra["ns_per_rep"] = {row["probe"]: row["ns_per_rep"]
+                                   for row in rows}
+            extra["sass"] = gather_sass
         add_kernel(name, ms, plain_ms, bound_ms, bound_by,
                    lib and lib["library_ms"], **extra)
     del chain_in

@@ -16,8 +16,11 @@ Indices are read modulo the tile (li & 127, si & 7) by the kernel and the
 twin alike.  Integer and bit-exact.
 
 * ``tile_gather(src, li, si, op, reps)``: on CUDA tensors one launch of
-  ``lt_tile_gather`` (csrc/tile_gather.cu, one CTA per tile), adding one to
-  ``LAUNCHES["tile_gather"]``; on CPU tensors ``tile_gather_plain``, the
+  ``lt_tile_gather`` (csrc/tile_gather.cu: the low 7 bits of each element a
+  byte; B0 and G2 a thread a column, G1 a warp a row gathering through
+  ``__shfl_sync``, both in one-warp CTAs with no barrier; G3 G1's warps, 8
+  a tile, and one CTA barrier a rep before the sublane gather), adding one
+  to ``LAUNCHES["tile_gather"]``; on CPU tensors ``tile_gather_plain``, the
   tiles as an (H/8, 8, W/128, 128) view and ``torch.gather``.
 """
 

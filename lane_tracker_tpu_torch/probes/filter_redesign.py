@@ -9,7 +9,9 @@ probes 5 and 10's ``tophat_staged`` and ``dual_tophat`` (the widening
 plane in bf16 or f32 lanes; both problems' tiles in one launch) and
 the morphology probes' shift chains (``lt_shift_chain``: lines in
 registers along the shift's orbits; ``lt_shift_chain_2d``: tiles run a few
-outer steps in shared memory, no grid barrier) were redesigned for the
+outer steps in shared memory, no grid barrier) and probe 11's in-tile
+gather (``lt_tile_gather``: bytes, the gathers through ``__shfl_sync`` and
+``__byte_perm``, a barrier only in the 2-D gather) were redesigned for the
 H100.  This study builds another checkout's kernels from that checkout's own sources
 and times both on the same inputs, in turns (earlier, this, this,
 earlier), so that one call on one card compares them:
@@ -61,11 +63,19 @@ It needs CUDA and prints one JSON row per measurement:
   ``STS`` (and all instructions) in each shift-chain kernel instance of
   both checkouts (the instance's template arguments in its name: type,
   body, boundary, axis and, in this checkout, its mode: 0 orbit order in
-  one warp, 1 plain order across warps, 2 plain order in one warp).
+  one warp, 1 plain order across warps, 2 plain order in one warp);
+* ``tile_gather``: probe 11's four ops on its (128, 1280) input, each at
+  16 and 64 reps, in turns with the earlier checkout's kernel on one timer
+  (``timing.queued_ms``, as ``probes.mosaic.gather_rows``), and
+  ``tile_gather_ns_per_rep``: each op's ns a rep, (t(64) - t(16)) / 48,
+  for both checkouts;
+* ``sass_gather``: the counts of ``BAR.SYNC``, ``SHFL``, ``LDS``, ``STS``
+  and ``PRMT`` (and all instructions) in each op's ``tile_gather_kernel``
+  instance of both checkouts.
 
-With ``--probes-only`` it times the ``tophat``, ``staged``, ``dual`` and
-``chain`` rows alone: the quick way to hold a patched copy of this
-checkout, as ``--parent``, against this one.
+With ``--probes-only`` it times the ``tophat``, ``staged``, ``dual``,
+``chain`` and ``tile_gather`` rows alone: the quick way to hold a patched
+copy of this checkout, as ``--parent``, against this one.
 
 Every output of the earlier kernels must equal this checkout's (probe 6's
 ``out`` within ``sweep_dots.RTOL``), or the study raises.  The earlier
@@ -96,6 +106,7 @@ from lane_tracker_tpu_torch.kernels import channel_fused as cf
 from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.kernels import shift_chain as sc
 from lane_tracker_tpu_torch.kernels import sweep_dots as sd
+from lane_tracker_tpu_torch.kernels import tile_gather as tg
 from lane_tracker_tpu_torch.kernels.build import build, find_nvcc
 from lane_tracker_tpu_torch.ops.filters import filter_stage
 from lane_tracker_tpu_torch.timing import cuda_ms, queued_ms
@@ -155,11 +166,11 @@ def other_library(tree: pathlib.Path):
 
 
 def on_library(lib):
-    """A context in which the filter-stage, fused-stage, probe 6 and
-    shift-chain wrappers launch ``lib``'s entries (the earlier checkout's
-    interfaces are this one's)."""
+    """A context in which the filter-stage, fused-stage, probe 6,
+    shift-chain and probe 11 wrappers launch ``lib``'s entries (the
+    earlier checkout's interfaces are this one's)."""
     stack = contextlib.ExitStack()
-    for mod in (fs, sd, cf, sc):
+    for mod in (fs, sd, cf, sc, tg):
         stack.enter_context(mock.patch.object(mod, "load_library",
                                               lambda: lib))
     return stack
@@ -329,14 +340,50 @@ def chain_rows(lib, emit) -> None:
         emit(row)
 
 
+GATHER_OPS = ("BAR.SYNC", "SHFL", "LDS", "STS", "PRMT")
+
+
+def gather_sass(lib_path) -> dict:
+    """{op: {opcode: count}} of each op's ``tile_gather_kernel`` instance
+    (its template argument, the op's code, in the mangled name)."""
+    rows = {}
+    for name, ops in sass_functions(str(lib_path)).items():
+        for op, code in tg.OPS.items():
+            if f"tile_gather_kernelILi{code}E" in name:
+                rows[op] = {o: sum(x.startswith(o) for x in ops)
+                            for o in GATHER_OPS}
+                rows[op]["instructions"] = len(ops)
+    return rows
+
+
+def gather_rows(lib, emit) -> None:
+    """The ``tile_gather`` rows: each op at both chain lengths in turns with
+    the earlier checkout's kernel, queued behind a spin kernel, then each
+    op's ns a rep in both checkouts."""
+    src, li, si = tg.make_inputs("cuda")
+    for op in tg.OPS:
+        ms = {}
+        for n in tg.REPS:
+            row = in_turns(lambda op=op, n=n: tg.tile_gather(src, li, si, op,
+                                                             n),
+                           lib, timer=queued_ms)
+            ms[n] = row
+            emit({"tile_gather": op, "reps": n, "shape": list(src.shape),
+                  **row})
+        lo, hi = tg.REPS
+        emit({"tile_gather_ns_per_rep": op, **{
+            key.replace("ms", "ns"): (ms[hi][key] - ms[lo][key]) * 1e6
+            / (hi - lo) for key in ("ms", "earlier_ms")}})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=pathlib.Path, required=True,
                     help="a checkout of the earlier package (git archive "
                     "<commit> lane_tracker_tpu_torch, unpacked)")
     ap.add_argument("--probes-only", action="store_true",
-                    help="time the tophat, staged, dual and chain rows "
-                    "alone")
+                    help="time the tophat, staged, dual, chain and "
+                    "tile_gather rows alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("filter_redesign needs a CUDA device")
@@ -365,7 +412,10 @@ def main(argv=None) -> int:
     for tree, path in (("this", lib_path), ("earlier", lib._name)):
         for name, counts in chain_sass(path).items():
             emit({"sass_chain": name, "tree": tree, **counts})
+        for op, counts in gather_sass(path).items():
+            emit({"sass_gather": op, "tree": tree, **counts})
     if args.probes_only:
+        gather_rows(lib, emit)
         probe_rows(lib, emit)
         chain_rows(lib, emit)
         return 0
@@ -442,6 +492,7 @@ def main(argv=None) -> int:
               **in_turns(lambda kind=kind: sd.sweep_dots(x, tri, kind), lib,
                          rtol=sd.RTOL)})
     del x, tri
+    gather_rows(lib, emit)
     probe_rows(lib, emit)
     chain_rows(lib, emit)
     fail = chunk.clone()

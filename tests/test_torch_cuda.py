@@ -39,7 +39,10 @@ kind at full size and on a ragged frame: swept equal to the twin's, out
 equal for ``sweeps`` and within a relative 1e-4 of the float64 twin for
 ``dots`` and ``both`` (f32 accumulation on the tensor cores), the same
 bits on a second call.  Probe 11's ``tile_gather``: every op at both
-chain lengths equal to its twin.  One launch per call.
+chain lengths equal to its twin, and at reps 0, 1, 16 and 64 on (8, 128),
+(128, 1280) and (40, 384), also with src near the int32 limits and indices
+above the tile (tests/test_torch_gather_design.py's inputs).  One launch
+per call.
 ``timing.queued_ms`` times calls queued behind its spin kernel.
 """
 
@@ -747,6 +750,31 @@ def test_tile_gather_equals_twin(cuda, op, reps):
     _same(got, tg.tile_gather_plain(src, li, si, op, reps))
     _same(got.cpu(), tg.tile_gather_plain(src.cpu(), li.cpu(), si.cpu(), op,
                                           reps))
+
+
+# tests/test_torch_gather_design.py's shapes and chain lengths
+GATHER_SHAPES = ((8, 128), (128, 1280), (40, 384))
+GATHER_REPS = (0, 1, 16, 64)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["probe", "wide"])
+@pytest.mark.parametrize("shape", GATHER_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("op", list(tg.OPS))
+def test_tile_gather_shapes_equal_twin(cuda, op, shape, wide):
+    """The redesign on every whole number of tiles the design test models,
+    at reps 0, 1, 16 and 64; ``wide``: src near the int32 limits and
+    indices with bits above the tile."""
+    from torch_filter_models import gather_inputs
+
+    seed = 8 * list(tg.OPS).index(op) + 2 * GATHER_SHAPES.index(shape) + wide
+    host = [torch.from_numpy(a) for a in gather_inputs(shape, seed, wide)]
+    src, li, si = (a.to(cuda) for a in host)
+    for reps in GATHER_REPS:
+        tg.reset_launches()
+        got = tg.tile_gather(src, li, si, op, reps)
+        assert tg.LAUNCHES == {"tile_gather": 1}
+        _same(got.cpu(), tg.tile_gather_plain(*host, op, reps))
 
 
 def test_queued_ms_times_the_queued_calls(cuda):

@@ -1013,3 +1013,140 @@ def chain2d_model(x: torch.Tensor, outer: int, m: int, shifts, rng,
         y = nxt
         done += steps
     return y.clone()
+
+
+# ---- probe 11's in-tile gather (lt_tile_gather: tile_gather_kernel) ----
+
+GATHER_TILE = (8, 128)
+GATHER_LANES = 32
+LOW7 = 0x7F7F7F7F
+
+
+def byte_perm(x: np.ndarray, y: np.ndarray, s) -> np.ndarray:
+    """``__byte_perm(x, y, s)`` on uint32 arrays: byte n of the result is
+    byte ``(s >> 4n) & 7`` of the eight bytes x (0-3) then y (4-7)."""
+    x, y = np.broadcast_arrays(x, y)
+    eight = y.astype(np.uint64) << np.uint64(32) | x
+    s = np.asarray(s, np.uint64)
+    out = np.zeros(x.shape, np.uint32)
+    for n in range(4):
+        sel = (s >> np.uint64(4 * n)) & np.uint64(7)
+        byte = (eight >> (np.uint64(8) * sel)) & np.uint64(0xFF)
+        out |= byte.astype(np.uint32) << np.uint32(8 * n)
+    return out
+
+
+def shfl(v: np.ndarray, src_lane: np.ndarray) -> np.ndarray:
+    """``__shfl_sync(full, v, src_lane)`` on (..., 32) lanes."""
+    return np.take_along_axis(v, src_lane.astype(np.int64), -1)
+
+
+def pair_sel(b0, b1):
+    return (np.asarray(b0, np.uint32)
+            | (np.uint32(4) + np.asarray(b1, np.uint32)) << np.uint32(4))
+
+
+def gather4(x0, x1, x2, x3, a, b):
+    return byte_perm(byte_perm(x0, x1, a), byte_perm(x2, x3, b), 0x5410)
+
+
+def _bytes_word(vals, axis):
+    """Pack the low 7 bits of 4 values along ``axis`` into uint32 words,
+    value k in byte k."""
+    vals = np.moveaxis(np.asarray(vals, np.int64) & 0x7F, axis, 0)
+    out = np.zeros(vals.shape[1:], np.uint32)
+    for k in range(4):
+        out |= vals[k].astype(np.uint32) << np.uint32(8 * k)
+    return out
+
+
+def _unbytes(word, k):
+    return ((word >> np.uint32(8 * k)) & np.uint32(0xFF)).astype(np.int32)
+
+
+def gather_inputs(shape, seed, wide=False):
+    """src, li, si (H, W) int32.  ``wide``: src anywhere in int32 (near its
+    limits too) and indices with bits above the tile."""
+    rng = np.random.default_rng(seed)
+    if wide:
+        src = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+        src.flat[::7] = 2 ** 31 - 1 - rng.integers(0, 300, src.flat[::7].size)
+        src.flat[3::7] = -2 ** 31 + rng.integers(0, 300, src.flat[3::7].size)
+        li = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+        si = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+    else:
+        src = rng.integers(0, 2 ** 20, shape)
+        li = rng.integers(0, GATHER_TILE[1], shape)
+        si = rng.integers(0, GATHER_TILE[0], shape)
+    return tuple(a.astype(np.int32) for a in (src, li, si))
+
+
+def tile_gather_model(src: np.ndarray, li: np.ndarray, si: np.ndarray,
+                      op: str, reps: int) -> np.ndarray:
+    """``lt_tile_gather`` as its kernel runs it, on (H, W) int32 numpy
+    arrays: the low 7 bits a byte, four bytes a word; B0 and G2 a thread a
+    column (rows 0-3, 4-7 in two words, G2 one byte_perm a word), G1 a warp
+    a row (lane l the columns l + 32 j as byte j, four shuffles and three
+    byte_perms a word), G3 G1's warps, a row each, writing their rows to a
+    CTA's shared copy (little-endian bytes), then G2 one byte of the copy
+    an element."""
+    H, W = src.shape
+    th, tw = GATHER_TILE
+    L = GATHER_LANES
+    slots = tw // L
+    if op in ("B0_plain_add", "G2_sublane_gather"):
+        # (H/8, 8, W): band, row in the tile, column (one thread each)
+        s = src.reshape(H // th, th, W)
+        c = si.reshape(H // th, th, W) & (th - 1)
+        s_w = [_bytes_word(s[:, 4 * h:4 * h + 4], 1) for h in (0, 1)]
+        sel = [np.zeros((H // th, W), np.uint32) for _ in (0, 1)]
+        for r in range(th):
+            sel[r >> 2] |= c[:, r].astype(np.uint32) << np.uint32(4 * (r & 3))
+        p = [np.zeros((H // th, W), np.uint32) for _ in (0, 1)]
+        for _ in range(reps):
+            lo = (s_w[0] + p[0]) & np.uint32(LOW7)
+            hi = (s_w[1] + p[1]) & np.uint32(LOW7)
+            if op == "G2_sublane_gather":
+                p = [byte_perm(lo, hi, sel[0]), byte_perm(lo, hi, sel[1])]
+            else:
+                p = [lo, hi]
+        out = np.stack([_unbytes(p[r >> 2], r & 3) for r in range(th)], 1)
+        return out.reshape(H, W)
+    # (H, W/128, 4, 32): row, tile column, slot j, lane l = column l + 32 j
+    s = src.reshape(H, W // tw, slots, L)
+    c = li.reshape(H, W // tw, slots, L) & (tw - 1)
+    frm, pick = c & (L - 1), c >> 5
+    s_w = _bytes_word(s, 2)  # (H, W/128, 32): a word a lane and row
+    a = pair_sel(pick[:, :, 0], pick[:, :, 1])
+    b = pair_sel(pick[:, :, 2], pick[:, :, 3])
+
+    def lane_gather(p):
+        v = (s_w + p) & np.uint32(LOW7)
+        return gather4(*(shfl(v, frm[:, :, j]) for j in range(slots)), a, b)
+
+    p = np.zeros_like(s_w)
+    if op == "G1_lane_gather":
+        for _ in range(reps):
+            p = lane_gather(p)
+        out = np.stack([_unbytes(p, j) for j in range(slots)], 2)
+        return out.reshape(H, W)
+    assert op == "G3_2d_gather", op
+    # warp r of each (band, tile column) CTA holds row r; the shared copy's
+    # byte 4 (32 r + l) + j holds column l + 32 j of row r
+    lane = np.arange(L)
+    at = ((si.reshape(H, W // tw, slots, L) & (th - 1)) * L + lane) * 4 \
+        + np.arange(slots)[:, None]  # (H, W/128, 4, 32)
+    at = at.reshape(H // th, th, W // tw, slots, L).transpose(0, 2, 1, 3, 4)
+    for _ in range(reps):
+        rows = lane_gather(p)
+        # (H/8, W/128, 8 rows x 32 lanes x 4 bytes): the CTA's copy
+        copy = np.ascontiguousarray(
+            rows.reshape(H // th, th, W // tw, L).transpose(0, 2, 1, 3))
+        copy = copy.view("<u1").reshape(H // th, W // tw, 1, th * L * 4)
+        got = np.take_along_axis(copy, at.reshape(H // th, W // tw, th,
+                                                  slots * L), -1)
+        got = got.reshape(H // th, W // tw, th, slots, L).astype(np.uint32)
+        p = sum(got[:, :, :, j] << np.uint32(8 * j) for j in range(slots))
+        p = p.transpose(0, 2, 1, 3).reshape(H, W // tw, L)
+    out = np.stack([_unbytes(p, j) for j in range(slots)], 2)
+    return out.reshape(H, W)
