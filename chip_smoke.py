@@ -71,7 +71,9 @@ Phases (each raises at the first failure; nothing is skipped):
    launches): equal to its twin; the ``tile_gather_kernel`` instances of
    B0, G1 and G2 may hold no ``BAR.SYNC`` and G3's one (its rep loop's
    single barrier), and each instance's BAR.SYNC and SHFL counts go to the
-   kernels line beside its ns a rep.
+   kernels line beside its ns a rep and each op's bound a rep, on 7-bit
+   lanes four a word (``bound_ns_per_rep``) and at the int32 rate
+   (``int32_bound_ns_per_rep``, the earlier yardstick).
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    per-kernel times against the plain twins with CUDA events; rows 1-5
@@ -164,10 +166,17 @@ PROBE_KERNELS = ("shift_chain", "shift_chain_2d", "tophat_staged",
 PROBE_REPS = 10
 DUAL_LAUNCHES = 1
 LAUNCH_REPS = 10
-# int32 operations per element and rep of probe 11's chains: the add, one
-# address for each gather, the mask.
+# Operations per element and rep of probe 11's chains: the add, one select
+# for each gather, the mask.  Only the low 7 bits of an element reach the
+# output ((s + prev) & 0x7F == ((s & 0x7F) + prev) & 0x7F), so the least the
+# card could do runs them on 7-bit lanes four a word, at the uint8 rate; the
+# int32 rate of the same counts is kept beside it as the earlier yardstick.
 GATHER_OPS = {"B0_plain_add": 2, "G1_lane_gather": 3, "G2_sublane_gather": 3,
               "G3_2d_gather": 4}
+# The int32 arrays each op's function reads: src, li for a lane gather, si
+# for a sublane gather.
+GATHER_READS = {"B0_plain_add": 1, "G1_lane_gather": 2, "G2_sublane_gather": 2,
+                "G3_2d_gather": 3}
 
 
 class SmokeFailure(RuntimeError):
@@ -292,14 +301,21 @@ def sweep_dots_work(kind):
     return (frame + 2 * sd.KP * sd.NP + 4 * sd.T, *ops)
 
 
-def gather_work(op, reps):
-    """(bytes, (operations, type)) of one tile_gather call: src, li and si
-    read once and the output written once, GATHER_OPS int32 operations per
-    element and rep."""
+def gather_work(op, reps, lanes="uint8"):
+    """(bytes, (operations, type)) of one tile_gather call: the arrays op
+    reads, read once, and the output written once, GATHER_OPS operations
+    per element and rep on ``lanes``."""
     from lane_tracker_tpu_torch.kernels import tile_gather as tg
 
     n = tg.H * tg.W
-    return (4 * 4 * n, (n * reps * GATHER_OPS[op], "int32"))
+    return (4 * n * (GATHER_READS[op] + 1),
+            (n * reps * GATHER_OPS[op], lanes))
+
+
+def gather_bound_ns_per_rep(op, lanes):
+    """ns a rep of one tile_gather call's operations on ``lanes``."""
+    _, (ops, t) = gather_work(op, 1, lanes)
+    return ops / OPS_PER_S[t] * 1e9
 
 
 @functools.lru_cache(maxsize=None)
@@ -1158,6 +1174,9 @@ def main(argv):
         if name == "tile_gather":
             extra["ns_per_rep"] = {row["probe"]: row["ns_per_rep"]
                                    for row in rows}
+            extra["bound_ns_per_rep"], extra["int32_bound_ns_per_rep"] = (
+                {row["probe"]: gather_bound_ns_per_rep(row["probe"], lanes)
+                 for row in rows} for lanes in ("uint8", "int32"))
             extra["sass"] = gather_sass
         add_kernel(name, ms, plain_ms, bound_ms, bound_by,
                    lib and lib["library_ms"], **extra)

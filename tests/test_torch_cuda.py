@@ -52,6 +52,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+from torch_filter_models import GATHER_REPS, GATHER_SHAPES, gather_inputs
 
 from lane_tracker_tpu_torch.calib.io import load_calibration_npz
 from lane_tracker_tpu_torch.kernels import channel_fused as cf
@@ -752,11 +753,6 @@ def test_tile_gather_equals_twin(cuda, op, reps):
                                           reps))
 
 
-# tests/test_torch_gather_design.py's shapes and chain lengths
-GATHER_SHAPES = ((8, 128), (128, 1280), (40, 384))
-GATHER_REPS = (0, 1, 16, 64)
-
-
 @pytest.mark.parametrize("wide", [False, True], ids=["probe", "wide"])
 @pytest.mark.parametrize("shape", GATHER_SHAPES,
                          ids=lambda s: f"{s[0]}x{s[1]}")
@@ -765,8 +761,6 @@ def test_tile_gather_shapes_equal_twin(cuda, op, shape, wide):
     """The redesign on every whole number of tiles the design test models,
     at reps 0, 1, 16 and 64; ``wide``: src near the int32 limits and
     indices with bits above the tile."""
-    from torch_filter_models import gather_inputs
-
     seed = 8 * list(tg.OPS).index(op) + 2 * GATHER_SHAPES.index(shape) + wide
     host = [torch.from_numpy(a) for a in gather_inputs(shape, seed, wide)]
     src, li, si = (a.to(cuda) for a in host)

@@ -23,25 +23,26 @@ import pytest
 import torch
 
 from tests.torch_filter_models import (
+    GATHER_REPS,
+    GATHER_SHAPES,
     byte_perm,
+    g3_copy_at,
     gather_inputs,
     tile_gather_model,
 )
 
 from lane_tracker_tpu_torch.kernels import tile_gather as tg
 
-SHAPES = ((8, 128), (128, 1280), (40, 384))
-REPS = (0, 1, 16, 64)
-
 
 @pytest.mark.parametrize("wide", [False, True], ids=["probe", "wide"])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", GATHER_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("op", list(tg.OPS))
 def test_gather_model_equals_twin(op, shape, wide):
-    seed = 8 * list(tg.OPS).index(op) + 2 * SHAPES.index(shape) + wide
+    seed = 8 * list(tg.OPS).index(op) + 2 * GATHER_SHAPES.index(shape) + wide
     src, li, si = gather_inputs(shape, seed, wide)
     t = [torch.from_numpy(a) for a in (src, li, si)]
-    for reps in REPS:
+    for reps in GATHER_REPS:
         want = tg.tile_gather_plain(*t, op, reps).numpy()
         got = tile_gather_model(src, li, si, op, reps)
         np.testing.assert_array_equal(got, want, err_msg=f"reps={reps}")
@@ -56,12 +57,13 @@ def test_byte_perm_selects_bytes():
 
 
 def test_g3_copy_reads_are_bank_conflict_free():
-    """G3's sublane gather reads byte 4 (32 si + l) + j of the shared copy
-    for lane l's column l + 32 j: word 32 si + l, bank l, whatever si."""
+    """The model's G3 reads (``g3_copy_at``): lane l's column l + 32 j of
+    row si & 7 is byte j of word 32 (si & 7) + l, so bank l whatever si."""
     rng = np.random.default_rng(7)
     lane = np.arange(32)
     for _ in range(8):
-        si = rng.integers(0, 8, (4, 32))
-        at = (si * 32 + lane) * 4 + np.arange(4)[:, None]
+        si = rng.integers(-2 ** 31, 2 ** 31, (4, 32))
+        at = g3_copy_at(si)
         assert ((at // 4) % 32 == lane).all()
+        assert (at // 4 // 32 == si & 7).all()
         assert (at % 4 == np.arange(4)[:, None]).all()

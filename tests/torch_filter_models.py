@@ -1020,6 +1020,10 @@ def chain2d_model(x: torch.Tensor, outer: int, m: int, shifts, rng,
 GATHER_TILE = (8, 128)
 GATHER_LANES = 32
 LOW7 = 0x7F7F7F7F
+# The shapes (whole numbers of tiles) and chain lengths the design test and
+# the card's tests hold the kernel to.
+GATHER_SHAPES = ((8, 128), (128, 1280), (40, 384))
+GATHER_REPS = (0, 1, 16, 64)
 
 
 def byte_perm(x: np.ndarray, y: np.ndarray, s) -> np.ndarray:
@@ -1062,6 +1066,15 @@ def _bytes_word(vals, axis):
 
 def _unbytes(word, k):
     return ((word >> np.uint32(8 * k)) & np.uint32(0xFF)).astype(np.int32)
+
+
+def g3_copy_at(si: np.ndarray) -> np.ndarray:
+    """G3's sublane gather: for (..., 4, 32) sublane indices (slot j, lane
+    l; read modulo the tile), the byte of the CTA's shared copy that lane l
+    reads for column l + 32 j of its row, 4 (32 (si & 7) + l) + j."""
+    L = GATHER_LANES
+    slot = np.arange(si.shape[-2])[:, None]
+    return ((si & (GATHER_TILE[0] - 1)) * L + np.arange(L)) * 4 + slot
 
 
 def gather_inputs(shape, seed, wide=False):
@@ -1133,9 +1146,7 @@ def tile_gather_model(src: np.ndarray, li: np.ndarray, si: np.ndarray,
     assert op == "G3_2d_gather", op
     # warp r of each (band, tile column) CTA holds row r; the shared copy's
     # byte 4 (32 r + l) + j holds column l + 32 j of row r
-    lane = np.arange(L)
-    at = ((si.reshape(H, W // tw, slots, L) & (th - 1)) * L + lane) * 4 \
-        + np.arange(slots)[:, None]  # (H, W/128, 4, 32)
+    at = g3_copy_at(si.reshape(H, W // tw, slots, L))  # (H, W/128, 4, 32)
     at = at.reshape(H // th, th, W // tw, slots, L).transpose(0, 2, 1, 3, 4)
     for _ in range(reps):
         rows = lane_gather(p)
