@@ -74,8 +74,30 @@ Phases (each raises at the first failure; nothing is skipped):
    kernels line beside its ns a rep and each op's bound a rep, on 7-bit
    lanes four a word (``bound_ns_per_rep``) and at the int32 rate
    (``int32_bound_ns_per_rep``, the earlier yardstick).
+12. User surface (runs before phase 10): ``LaneTracker`` built from
+   assets/calibration.npz with no ``device`` argument runs ``process`` on 8
+   stills with ``diagnostics=True`` (demo1, 'fast'): the attempt-1 kernels
+   must launch once a frame (8 each, the second attempt's none), the
+   validity must equal bench_oracle.npz[:8] with curves within 0.5 px,
+   and the transcript and the decisions must equal the port's CPU run of
+   the same frames; ``process_chunk`` on the same frames from a fresh
+   state must give ``process``'s outputs exactly; a ``save_state`` /
+   ``load_state`` round trip after frame 3 must continue identically;
+   ``visualize_search`` and ``split_view`` must return the reference's
+   shapes.  'compat' ``chunk_process`` on the 64 stills (two_phase): the
+   attempt-1 kernels must launch, every launch at width 1080, validity
+   equal to bench_oracle.npz with curves within 0.5 px, and the CPU path
+   on the first 8 frames the same decisions.  ``filter_stage`` with
+   'neighborhood' + ``mask_noise`` on the slice's channels must launch
+   ``adaptive_mean`` 2, the standalone threshold 1 and ``merge_open`` 1
+   and equal its plain chain.  The CLI, ``python -m
+   lane_tracker_tpu_torch``, in a subprocess on a 64-frame ``.npz``
+   (``--chunk 32 --per-frame-log --metrics-json``) must exit 0 with its
+   log's validity equal to the oracle's.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
+   ``LaneTracker.process`` ms a frame (median over 16 frames after a
+   warm-up, by CUDA events) and the CLI's fps line;
    per-kernel times against the plain twins with CUDA events; rows 1-5
    and the fused stage launch by launch (each tophat and threshold entry
    alone, the open + prefix tail of rows 3 and 5 alone and row 5's whole
@@ -97,13 +119,17 @@ Phases (each raises at the first failure; nothing is skipped):
 The line before the last is a JSON object describing each kernel, with
 its bound: the larger of the bytes it must move over the HBM rate and the
 operations it does over the card's rate for their type (``bound``); the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside
+last line is ``{"ok": true, "device": {...}}``.  Each kernel's entry
+also carries ``path_launches``: its launches on phase 12's paths
+(``process`` over 8 frames, 'compat' on 64, 'neighborhood' + mask_noise).  Without CUDA, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
 import functools
 import importlib
+import io
 import json
 import pathlib
 import re
@@ -125,6 +151,14 @@ ATTEMPT1 = ("tophat_ellipse", "tophat_riders", "thr_merge_open")
 SECOND_ATTEMPT_LAUNCHES = {"adaptive_mean": 2, "merge_open": 1}
 TIMED_MODES = ("two_phase", "cond", "hoist")
 FUSED_LAUNCHES = {"channel_stage": 2, "channel_stage_pyr": 1}
+N_PROCESS = 8
+N_PROCESS_TIMED = 16
+CLI_CHUNK = 32
+NEIGHBORHOOD_NOISE_LAUNCHES = {"adaptive_mean": 2, "bilateral_threshold": 1,
+                               "merge_open": 1}
+# The launchers compat's width is checked on: each takes its image first.
+LAUNCHERS = ("_launch_tophat", "_launch_threshold", "_launch_thr_merge_open",
+             "_launch_merge_open", "_launch_adaptive_mean")
 T_WARP_CPU = 4
 MXU_DST = (1080, 1100)  # the bird's-eye size, calibration.npz's warped size
 # The card's peak rates (H100 SXM data sheet, dense, at 700 W): HBM bytes/s,
@@ -494,6 +528,30 @@ def same_outputs(a, b):
             if not bool((getattr(a, n) == getattr(b, n)).all())]
 
 
+def process_kwargs(cfg):
+    """``LaneTracker.process`` keyword arguments of a TrackerConfig."""
+    kw = {k: v for k, v in dataclasses.asdict(cfg.filter).items()
+          if k not in ("tophat_r", "tophat_b", "open_k")}
+    kw.update(dataclasses.asdict(cfg.search))
+    kw["n_tries"] = cfg.n_tries
+    return kw
+
+
+def drive_process(tracker, frames, kw):
+    """``process`` over frames with diagnostics: (the frames' StepOutputs
+    stacked, each frame's transcript lines)."""
+    import torch
+
+    outs, lines = [], []
+    for frame in frames:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tracker.process(frame, diagnostics=True, **kw)
+        lines.append(buf.getvalue().splitlines())
+        outs.append(tracker.last_output)
+    return type(outs[0])(*(torch.stack(f) for f in zip(*outs))), lines
+
+
 def main(argv):
     import argparse
 
@@ -534,6 +592,7 @@ def main(argv):
         make_initial_state,
         warp_channels,
     )
+    from lane_tracker_tpu_torch.tracker.tracker import LaneTracker
 
     # ---- 1. Device ----
     kind = torch.cuda.get_device_name(0)
@@ -957,6 +1016,178 @@ def main(argv):
           "lt_shift_chain not 1")
     del xm, xr
 
+    # ---- 12. User surface (before the timing phase) ----
+    kw = process_kwargs(cfg)
+    path_launches = {}
+
+    def new_tracker(**device):
+        return LaneTracker(
+            warp.image_width_height, warp.warped_width_height,
+            cam.cam_matrix, cam.dist_coeffs, (warp.M, warp.Minv),
+            (warp.mppv, warp.mpph), validity=cfg.validity, **device)
+
+    frames8 = stills[np.arange(N_PROCESS) % len(stills)]
+    tracker = new_tracker()
+    check(tracker.params.fwd_u.is_cuda and tracker.device.type == "cuda",
+          "LaneTracker without a device argument is not on the card")
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    pout, plines = drive_process(tracker, frames8, kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = dict(fs.LAUNCHES)
+    path_launches["process"] = got
+    print(f"[process] LaneTracker.process, 'fast', demo1, {N_PROCESS} "
+          f"frames with diagnostics on the card: {first_s:.2f} s (first "
+          f"calls); launches {got}")
+    check(all(got[name] == N_PROCESS for name in ATTEMPT1),
+          f"process: an attempt-1 kernel did not launch once a frame")
+    check(all(got[name] == 0 for name in SECOND_ATTEMPT_LAUNCHES),
+          "process: the second attempt ran on the stills")
+    gate_oracle("process", pout, oracles["bench_oracle"], H)
+    t0 = time.perf_counter()
+    cpu_out, cpu_lines = drive_process(new_tracker(device="cpu"), frames8,
+                                       kw)
+    print(f"[process] CPU path, {N_PROCESS} frames: "
+          f"{time.perf_counter() - t0:.1f} s")
+    compare_cpu("process", pout, cpu_out)
+    n_lines = sum(map(len, plines))
+    diff_lines = [(t, a, b) for t, (la, lb) in enumerate(zip(plines,
+                                                             cpu_lines))
+                  for a, b in zip(la, lb) if a != b]
+    print(f"[process] diagnostics transcript: {n_lines} lines; lines "
+          f"differing from the CPU run's: {diff_lines}")
+    check(plines == cpu_lines,
+          "process: the transcript differs from the CPU run's")
+    chunk_tracker = new_tracker()
+    chunk_out = chunk_tracker.process_chunk(frames8, **kw)
+    diff = same_outputs(chunk_out, pout)
+    print(f"[process] process_chunk (two_phase) on the same frames from a "
+          f"fresh state: fields differing from process {diff}; success "
+          f"ratio {chunk_tracker.get_success_ratio()} (process "
+          f"{tracker.get_success_ratio()})")
+    check(not diff and chunk_tracker.get_success_ratio()
+          == tracker.get_success_ratio(),
+          "process_chunk differs from process")
+    snap = REPO / "build" / "chip_smoke_state.npz"
+    snap.parent.mkdir(exist_ok=True)
+    ta, tb = new_tracker(), new_tracker()
+    for frame in frames8[:4]:
+        ta.process(frame, **kw)
+    ta.save_state(snap)
+    tb.load_state(snap)
+    snap.unlink()
+    resumed = []
+    for frame in frames8[4:]:
+        fa, fb = ta.process(frame, **kw), tb.process(frame, **kw)
+        resumed.append(bool(np.array_equal(fa, fb)) and not same_outputs(
+            ta.last_output, tb.last_output))
+    print(f"[process] save_state after frame 3, load_state, frames 4-7: "
+          f"identical {resumed}")
+    check(all(resumed), "a snapshot round trip did not continue identically")
+    annotated, viz = tracker.process(frames8[0], visualize_search=True, **kw)
+    split = tracker.process(frames8[1], split_view=True, **kw)
+    shapes = (annotated.shape, viz.shape, split.shape)
+    print(f"[process] visualize_search {shapes[:2]}, split_view {shapes[2]}")
+    check(shapes == ((720, 1280, 3), (1100, 1080, 3), (1372, 1280, 3)),
+          "visualize_search or split_view shapes differ from the reference's")
+    del ta, tb, chunk_tracker, chunk_out
+
+    # 'compat' on the 64 stills, every kernel launch's image recorded.
+    cparams, ccpu_params = build_params("compat"), build_params(
+        "compat", device="cpu")
+    widths = []
+
+    def recording(name):
+        launch = getattr(fs, name)
+
+        def call(img, *args, **kwargs):
+            widths.append((name, tuple(img.shape)))
+            return launch(img, *args, **kwargs)
+
+        return call
+
+    fs.reset_launches()
+    with mock.patch.multiple(fs, **{n: recording(n) for n in LAUNCHERS}):
+        _, cout = chunk_process(fresh("cuda"), gchunk, cparams, cfg,
+                                second_attempt="two_phase")
+        torch.cuda.synchronize()
+    got = dict(fs.LAUNCHES)
+    path_launches["compat"] = got
+    print(f"[compat] chunk_process T={T_SLICE}, two_phase: launches {got}; "
+          f"launch images {sorted(set(widths))}")
+    check(all(got[name] > 0 for name in ATTEMPT1),
+          "compat: an attempt-1 kernel did not launch")
+    check(widths and all(shape[-1] == 1080 for _, shape in widths),
+          "compat: a kernel launched at another width than 1080")
+    check(tuple(cout.overlay.shape) == (T_SLICE, 720, 1280, 3),
+          "compat: overlay shape")
+    gate_oracle("compat", cout, oracles["bench_oracle"], H)
+    t0 = time.perf_counter()
+    _, ccpu = chunk_process(fresh("cpu"), chunk[:T_CPU], ccpu_params, cfg,
+                            second_attempt="two_phase")
+    print(f"[compat] CPU path T={T_CPU}: {time.perf_counter() - t0:.1f} s")
+    compare_cpu("compat", cout, ccpu)
+    del cparams, cout
+
+    # 'neighborhood' with the noise mask on the slice's corridor channels.
+    fn = dataclasses.replace(f2, mask_noise=True)
+    fs.reset_launches()
+    nb = filter_stage(r, b, fn)
+    torch.cuda.synchronize()
+    got = {name: n for name, n in fs.LAUNCHES.items() if n}
+    path_launches["neighborhood_mask_noise"] = got
+    keep_nb = fs.bilateral_threshold_plain(b, fn.ksize_noise, fn.C_noise,
+                                           fn.noise_thresh)
+    want = fs.merge_open_plain(
+        fs.adaptive_mean_plain(r, fn.ksize_r, -fn.C_r),
+        fs.adaptive_mean_plain(b, fn.ksize_b, -fn.C_b), keep_nb, fn.open_k)
+    nb_err = [mismatches(nb[0], want[0]),
+              mismatches(nb[1].packed, want[1].packed)]
+    print(f"[neighborhood] filter_stage 'neighborhood' + mask_noise "
+          f"(noise_thresh {fn.noise_thresh}, ksize_noise {fn.ksize_noise}) "
+          f"at {tuple(r.shape)}: launches {got}; against the plain chain "
+          f"mismatches {[n for n, _ in nb_err]}")
+    check(got == NEIGHBORHOOD_NOISE_LAUNCHES,
+          f"neighborhood + mask_noise did not launch "
+          f"{NEIGHBORHOOD_NOISE_LAUNCHES}")
+    check(all(n == 0 for n, _ in nb_err),
+          "neighborhood + mask_noise disagrees with its plain chain")
+    del nb, want, keep_nb
+
+    # The CLI in a subprocess.
+    cli_dir = REPO / "build" / "chip_smoke_cli"
+    cli_dir.mkdir(parents=True, exist_ok=True)
+    np.savez(cli_dir / "in.npz", frames=chunk.numpy())
+    cli_cmd = [sys.executable, "-m", "lane_tracker_tpu_torch",
+               str(cli_dir / "in.npz"), str(cli_dir / "out.rgb24"),
+               "--calibration", str(REPO / "assets" / "calibration.npz"),
+               "--chunk", str(CLI_CHUNK),
+               "--per-frame-log", str(cli_dir / "log.jsonl"),
+               "--metrics-json", str(cli_dir / "metrics.json")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cli_cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    print(f"[cli] python -m lane_tracker_tpu_torch on {T_SLICE} frames, "
+          f"--chunk {CLI_CHUNK}: exit {res.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in res.stdout.splitlines():
+        print(f"[cli]   {line}")
+    check(res.returncode == 0, f"the CLI failed: {res.stderr[-2000:]}")
+    log = [json.loads(x) for x in
+           (cli_dir / "log.jsonl").read_text().splitlines()]
+    cli_valid = np.array([x["valid"] for x in log])
+    n_diff = int((cli_valid != oracles["bench_oracle"]["valid"][:T_SLICE])
+                 .sum()) if len(log) == T_SLICE else T_SLICE
+    print(f"[cli] per-frame log: {len(log)} frames, valid "
+          f"{int(cli_valid.sum())}; frames differing from the oracle "
+          f"{n_diff}; metrics {(cli_dir / 'metrics.json').read_text()}")
+    check(n_diff == 0, "the CLI's validity differs from the oracle")
+    cli_fps_line = res.stdout.strip().splitlines()[-1]
+    for name in ("in.npz", "out.rgb24", "out.rgb24.json", "log.jsonl",
+                 "metrics.json"):
+        (cli_dir / name).unlink()
+
     # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):
         """ms per chunk over N_TIMED_CHUNKS, state carried, after one
@@ -985,6 +1216,56 @@ def main(argv):
                   f"({card})")
             if tag_t == "stills":
                 check(bool(tout.valid.all()), "timed chunks lost tracking")
+
+    # The per-frame API: one frame a call, state carried, host work
+    # (text, the overlay's copy to the host) included.
+    ttr = new_tracker()
+    for frame in frames8[:4]:
+        ttr.process(frame, **kw)
+    frame_ms = []
+    for i in range(N_PROCESS_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ttr.process(frames8[i % N_PROCESS], **kw)
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+    print(f"[timing] LaneTracker.process ('fast', demo1): median "
+          f"{float(np.median(frame_ms)):.3f} ms a frame over "
+          f"{N_PROCESS_TIMED} frames after 4 warm-up frames (min "
+          f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}; CUDA events) "
+          f"({card})")
+    print(f"[timing] CLI on {T_SLICE} frames, --chunk {CLI_CHUNK}: "
+          f"{cli_fps_line} ({card})")
+    # Where a process() call's time goes: N_PROCESS frames under the
+    # profiler, read through the lt.* ranges tracker_step opens
+    # (scripts/torch_chunk_breakdown.py's reader), per frame.
+    breakdown = importlib.import_module("scripts.torch_chunk_breakdown")
+    ptrace = REPO / "build" / "chip_smoke_process_trace.json"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for frame in frames8:
+            ttr.process(frame, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / N_PROCESS
+    prof.export_chrome_trace(str(ptrace))
+    stages = breakdown.stage_table(
+        json.loads(ptrace.read_text())["traceEvents"], N_PROCESS)
+    ptrace.unlink()
+    busy = sum(v["device_ms"] for v in stages.values())
+    in_ranges = sum(v["host_ms"] for v in stages.values())
+    print(f"[profile] LaneTracker.process under torch.profiler, per frame "
+          f"over {N_PROCESS}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}, host "
+          f"outside the lt.* ranges {wall_ms - in_ranges:.3f} ms ({card})")
+    for name, v in stages.items():
+        print(f"[profile]   {name:18s} host {v['host_ms']:10.3f} ms  "
+              f"device {v['device_ms']:9.3f} ms  launches "
+              f"{v['launches']:7.1f}")
+    del ttr, tracker
 
     calls = {
         "tophat_ellipse": (lambda: fs.tophat_ellipse(r, f.tophat_r),
@@ -1067,7 +1348,11 @@ def main(argv):
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, **extra,
+            "library_ms": library_ms,
+            "path_launches": {path: got[name]
+                              for path, got in path_launches.items()
+                              if got.get(name)},
+            **extra,
         })
 
     for name, (kernel, twin) in calls.items():

@@ -1,14 +1,15 @@
 """Calibration container I/O (numpy only).
 
 Copied from lane_tracker_tpu/calib/io.py (CameraParams, WarpParams,
-load_calibration_npz); tests/test_torch_host.py pins it equal to the
-original.  The reference pickle loaders are not carried over: the port
-reads only the native, pickle-free ``.npz`` container.
+load_camera_calib, load_warp_params, save_calibration_npz,
+load_calibration_npz; io.py:16-135); tests/test_torch_host.py pins it
+equal to the original.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 
 import numpy as np
 
@@ -57,6 +58,57 @@ class WarpParams:
             "warped_width_height",
             tuple(int(v) for v in self.warped_width_height),
         )
+
+
+def load_camera_calib(filepath):
+    """Load camera matrix and distortion coefficients from a reference pickle.
+
+    Matches the payload contract of the reference loader (utils.py:13-26).
+
+    Returns:
+        (cam_matrix, dist_coeffs) numpy arrays.
+    """
+    with open(filepath, "rb") as f:
+        payload = pickle.load(f)
+    cam_matrix = np.asarray(payload["cam_matrix"], dtype=np.float64)
+    dist_coeffs = np.asarray(payload["dist_coeffs"], dtype=np.float64)
+    return cam_matrix, dist_coeffs
+
+
+def load_warp_params(filepath):
+    """Load bird's-eye warp parameters from a reference pickle.
+
+    Matches the payload contract of the reference loader (utils.py:28-55).
+
+    Returns:
+        (M, Minv, image_width_height, warped_width_height, mppv, mpph)
+    """
+    with open(filepath, "rb") as f:
+        payload = pickle.load(f)
+    return (
+        np.asarray(payload["M"], dtype=np.float64),
+        np.asarray(payload["Minv"], dtype=np.float64),
+        payload["image_width_height"],
+        payload["warped_width_height"],
+        float(payload["mppv"]),
+        float(payload["mpph"]),
+    )
+
+
+def save_calibration_npz(filepath, camera: CameraParams, warp: WarpParams):
+    """Persist both parameter sets in the framework's native npz container."""
+    np.savez(
+        filepath,
+        schema_version=np.int64(_NPZ_SCHEMA_VERSION),
+        cam_matrix=camera.cam_matrix,
+        dist_coeffs=camera.dist_coeffs,
+        M=warp.M,
+        Minv=warp.Minv,
+        image_width_height=np.asarray(warp.image_width_height, dtype=np.int64),
+        warped_width_height=np.asarray(warp.warped_width_height, dtype=np.int64),
+        mppv=np.float64(warp.mppv),
+        mpph=np.float64(warp.mpph),
+    )
 
 
 def load_calibration_npz(filepath):

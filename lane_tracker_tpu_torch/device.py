@@ -2,8 +2,9 @@
 
 Every entry point that makes tensors (``TrackerParams.build``,
 ``params_from_jax``, ``make_initial_state``, ``init_state``,
-``state_from_numpy``, ``MxuWarp2.build``) puts them on the card unless the
-caller asks for the CPU with ``device="cpu"``.  Without CUDA the default
+``state_from_numpy``, ``state_from_npz``, ``MxuWarp2.build``,
+``LaneTracker`` and the CLI's ``--device``) puts them on the card unless
+the caller asks for the CPU with ``device="cpu"``.  Without CUDA the default
 raises; it never carries on quietly on the CPU.
 """
 

@@ -1,6 +1,8 @@
-"""LAB B-channel of uint8 RGB, bit-exact with the reference's fast path.
+"""OpenCV-exact uint8 LAB of uint8 RGB: the LUT path and the fast path.
 
-Port of ``rgb2lab_b_fast`` (lane_tracker_tpu/ops/color.py:212-268).
+Port of ``rgb2lab_u8`` and ``rgb2lab_b_u8`` (lane_tracker_tpu/ops/
+color.py:84-120, 271-290; the 'compat' pipeline's LUT chain, integer
+throughout, so bit-exact) and ``rgb2lab_b_fast`` (color.py:212-268).
 ``_tables`` and the LP-certified gamma polynomial are copied from the same
 file (lines 40-77, 122-209); tests/test_torch_color_warp.py pins both.
 
@@ -119,6 +121,50 @@ def _gamma_poly_f32(x: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _cbrt_table(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_tables()[1], dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _gamma_table(device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_tables()[0], dtype=torch.int32, device=device)
+
+
+def _descale(v: torch.Tensor, n: int) -> torch.Tensor:
+    return (v + (1 << (n - 1))) >> n
+
+
+def _lut_f(img: torch.Tensor, rows):
+    """The cube-root LUT values f(X), f(Y), f(Z) of ``rows`` for uint8
+    RGB, by the reference's integer LUT chain (color.py:92-103)."""
+    gamma = _gamma_table(img.device)
+    cbrt = _cbrt_table(img.device)
+    rgb = gamma[img.long()]
+    R, G, B = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    C = _tables()[2]
+    out = []
+    for row in rows:
+        acc = R * int(C[row, 0]) + G * int(C[row, 1]) + B * int(C[row, 2])
+        idx = _descale(acc, _LAB_SHIFT).clamp_(0, _CBRT_TAB_SIZE - 1)
+        out.append(cbrt[idx.long()])
+    return out
+
+
+def rgb2lab_u8(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (..., 3) OpenCV-exact uint8 LAB."""
+    fX, fY, fZ = _lut_f(img, (0, 1, 2))
+    l_scale = (116 * 255 + 50) // 100
+    l_shift = -((16 * 255 * (1 << _LAB_SHIFT2) + 50) // 100)
+    L = _descale(l_scale * fY + l_shift, _LAB_SHIFT2)
+    a = _descale(500 * (fX - fY) + 128 * (1 << _LAB_SHIFT2), _LAB_SHIFT2)
+    b = _descale(200 * (fY - fZ) + 128 * (1 << _LAB_SHIFT2), _LAB_SHIFT2)
+    return torch.stack([L, a, b], dim=-1).clamp_(0, 255).to(torch.uint8)
+
+
+def rgb2lab_b_u8(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (...) uint8 LAB B-channel by the LUT chain
+    (the 'compat' pipeline's, lane_tracker.py:208)."""
+    fY, fZ = _lut_f(img, (1, 2))
+    b = _descale(200 * (fY - fZ) + 128 * (1 << _LAB_SHIFT2), _LAB_SHIFT2)
+    return b.clamp_(0, 255).to(torch.uint8)
 
 
 def rgb2lab_b_fast(img: torch.Tensor) -> torch.Tensor:

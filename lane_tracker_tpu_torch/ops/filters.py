@@ -15,7 +15,10 @@ as ``filter_lane_points_channels`` (ops/filters.py:62-153):
   the standalone threshold then the merge + open.
 * 'neighborhood' (the second attempt), ``neighborhood_stage_v2``
   (l.1804-1822): adaptive mean thresholds of the raw R and LAB-B, merge,
-  5x5 open, packed row prefixes.
+  5x5 open, packed row prefixes.  With mask_noise (the XLA chain of
+  ops/filters.py:94-153; no Pallas kernel has it) the merge also takes the
+  noise keep-mask ``(B < noise_thresh) | thr(B, ksize_noise, C_noise)``,
+  the standalone threshold kernel's noise route.
 
 Each arrow is one of the kernels in kernels/filter_stage.py.
 """
@@ -38,14 +41,18 @@ from lane_tracker_tpu_torch.tracker.config import FilterConfig
 
 def neighborhood_stage(rgb_r: torch.Tensor, lab_b: torch.Tensor,
                        ksize_r: int = 15, C_r: int = 5, ksize_b: int = 35,
-                       C_b: int = 5, open_k: int = 5
+                       C_b: int = 5, open_k: int = 5,
+                       noise: tuple | None = None
                        ) -> tuple[torch.Tensor, RowPrefixes]:
     """(binary, prefixes) of the 'neighborhood' filter: adaptive mean
     thresholds on the raw channels, pixel must beat its block mean by more
-    than C (lane_tracker.py:216-218), then merge and open."""
+    than C (lane_tracker.py:216-218), then merge and open.  ``noise`` =
+    (ksize_noise, C_noise, noise_thresh) also masks the merge with the
+    noise keep-mask (lane_tracker.py:221-231)."""
     r_th = adaptive_mean(rgb_r, ksize_r, -C_r)
     b_th = adaptive_mean(lab_b, ksize_b, -C_b)
-    return merge_open(r_th, b_th, open_k=open_k)
+    keep = None if noise is None else bilateral_threshold(lab_b, *noise)
+    return merge_open(r_th, b_th, keep, open_k=open_k)
 
 
 def filter_stage(rgb_r: torch.Tensor, lab_b: torch.Tensor,
@@ -53,12 +60,10 @@ def filter_stage(rgb_r: torch.Tensor, lab_b: torch.Tensor,
     """(binary, prefixes) of the filter ``f.filter_type`` for (T, H, W)
     uint8 R and LAB-B channels."""
     if f.filter_type == "neighborhood":
-        if f.mask_noise:
-            raise NotImplementedError(
-                "the 'neighborhood' filter with mask_noise is not ported "
-                "(no preset and no second attempt uses it)")
+        noise = ((f.ksize_noise, f.C_noise, f.noise_thresh) if f.mask_noise
+                 else None)
         return neighborhood_stage(rgb_r, lab_b, f.ksize_r, f.C_r, f.ksize_b,
-                                  f.C_b, f.open_k)
+                                  f.C_b, f.open_k, noise)
     if f.filter_type != "bilateral":
         raise ValueError("filter_type must be 'bilateral' or 'neighborhood'")
     r_feat = tophat_ellipse(rgb_r, f.tophat_r)

@@ -1,6 +1,6 @@
 """Lane-pixel search: sliding window (blind) and band (warm start).
 
-Port of lane_tracker_tpu/ops/search.py:98-433, with a leading batch axis
+Port of lane_tracker_tpu/ops/search.py:98-481, with a leading batch axis
 instead of vmap: ``sws_precompute`` and ``sliding_window_intervals`` take
 (T, ...) tensors and the level scan is a Python loop over the ~26 levels
 with T as the batch.  Every quirk the reference keeps (search.py:25-42)
@@ -8,7 +8,10 @@ is kept: the empty window on a negative Python-slice start, the wrapped
 negative stop of ``conv[min:max]``, floor plateau midpoints at level 0 and
 ceil above, the right side's drift reading the left side's current-level
 state, ``int(mu * diff)`` truncation, and the abort after
-``no_success_limit`` misses.
+``no_success_limit`` misses.  The standalone mask API
+(``sliding_window_search``, ``band_search``; search.py:435-481) derives
+the pixel masks the debug picture draws from the intervals, one frame at a
+time.
 """
 
 from __future__ import annotations
@@ -41,6 +44,18 @@ class SearchIntervals(NamedTuple):
     left_read_hi: torch.Tensor
     right_read_lo: torch.Tensor
     right_read_hi: torch.Tensor
+
+
+class SearchResult(NamedTuple):
+    """Selected lane pixels of one frame, as masks."""
+
+    left_mask: torch.Tensor  # (H, W) bool
+    right_mask: torch.Tensor  # (H, W) bool
+    detected: torch.Tensor  # () bool — both sides collected >= 1 pixel
+    left_centroids: torch.Tensor
+    right_centroids: torch.Tensor
+    left_n_centroids: torch.Tensor
+    right_n_centroids: torch.Tensor
 
 
 class SwsPrecomp(NamedTuple):
@@ -296,3 +311,48 @@ def band_intervals(left_coeffs: torch.Tensor, right_coeffs: torch.Tensor,
         right_read_lo=full_w,
         right_read_hi=zeros,
     )
+
+
+def intervals_to_masks(binary: torch.Tensor, iv: SearchIntervals):
+    """Exact (H, W) pixel masks of one frame's per-row intervals."""
+    nz = binary > 0
+    xs = torch.arange(binary.shape[-1], device=binary.device)[None, :]
+
+    def side(lo, hi, valid):
+        return (nz & valid[:, None] & (xs >= lo[:, None])
+                & (xs < hi[:, None]))
+
+    return (side(iv.left_lo, iv.left_hi, iv.left_valid),
+            side(iv.right_lo, iv.right_hi, iv.right_valid))
+
+
+def _result_from_intervals(binary: torch.Tensor,
+                           iv: SearchIntervals) -> SearchResult:
+    left_mask, right_mask = intervals_to_masks(binary, iv)
+    return SearchResult(
+        left_mask=left_mask,
+        right_mask=right_mask,
+        detected=left_mask.any() & right_mask.any(),
+        left_centroids=iv.left_centroids,
+        right_centroids=iv.right_centroids,
+        left_n_centroids=iv.left_n_centroids,
+        right_n_centroids=iv.right_n_centroids,
+    )
+
+
+def sliding_window_search(binary: torch.Tensor,
+                          cfg: SearchConfig) -> SearchResult:
+    """Blind sliding-window search of one (H, W) binary, as masks."""
+    H, W = binary.shape
+    iv = sliding_window_intervals(sws_precompute(binary[None], cfg), cfg, H,
+                                  W)
+    return _result_from_intervals(binary, SearchIntervals(*(f[0] for f in iv)))
+
+
+def band_search(binary: torch.Tensor, left_coeffs, right_coeffs,
+                cfg: SearchConfig) -> SearchResult:
+    """Warm-start band search of one (H, W) binary around (3,)
+    coefficients, as masks."""
+    H, W = binary.shape
+    iv = band_intervals(left_coeffs, right_coeffs, cfg, H, W)
+    return _result_from_intervals(binary, iv)

@@ -37,6 +37,7 @@ from lane_tracker_tpu_torch.tracker.step import (
     FrontArtifacts,
     TrackerParams,
     back_half,
+    frame_artifacts,
     front_artifacts_batch,
     has_second_attempt,
     render_frame,
@@ -53,26 +54,14 @@ def _stack(items: list):
                  for fs in zip(*items)))
 
 
-def _frame(arts: FrontArtifacts, t: int) -> FrontArtifacts:
-    """Frame t's artifacts, without the T axis."""
-
-    def at(x):
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            return x[t]
-        return type(x)(*(f[t] for f in x))
-
-    return FrontArtifacts(*(at(x) for x in arts))
-
-
 def scan_back_half(state: TrackerState, arts: FrontArtifacts,
                    params: TrackerParams, config: TrackerConfig):
     """The back half over the chunk's frames in order.  Returns
     (state, (StepOutput stack, RenderMeta stack)) with a leading T axis."""
     outs, metas = [], []
     for t in range(arts.pref.packed.shape[0]):
-        state, out, meta = back_half(state, _frame(arts, t), params, config)
+        state, out, meta = back_half(state, frame_artifacts(arts, t), params,
+                                     config)
         outs.append(out)
         metas.append(meta)
     return state, (_stack(outs), _stack(metas))

@@ -1,11 +1,17 @@
-"""Lane overlay rendered directly in camera space.
+"""Lane overlays: direct in camera space, or unwarped from a mask.
 
-Port of lane_tracker_tpu/render/lane.py:60-128.  ``forward_bv_grid`` is
-copied from there (host numpy).  ``lane_overlay_direct`` tests every
-camera pixel's precomputed bird's-eye coordinates against the smoothed
-boundary polynomials and adds 0.3*255 of green over the lane region, with
-a one-BV-pixel linear ramp at the edges (the reference's addWeighted of
-the unwarped lane mask).  Batched over a leading frame axis.
+Port of lane_tracker_tpu/render/lane.py:22-149, batched over a leading
+frame axis.  ``forward_bv_grid`` is copied from there (host numpy).
+
+* ``lane_overlay_direct`` ('fast', 'corridor') tests every camera pixel's
+  precomputed bird's-eye coordinates against the smoothed boundary
+  polynomials and adds 0.3*255 of green over the lane region, with a
+  one-BV-pixel linear ramp at the edges.
+* ``lane_region_mask`` + ``lane_overlay`` ('compat', the reference's
+  draw_lane): the region between the two re-anchored graphs as a
+  bird's-eye 0/255 mask, unwarped to the camera through the float grid of
+  ``Minv`` and added as ``rint(0.3 * g)`` of green with saturation
+  (``cv2.addWeighted(img, 1, lane, 0.3, 0)``).
 """
 
 from __future__ import annotations
@@ -13,6 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lane_tracker_tpu_torch.kernels.resample import (
+    ResampleGrid,
+    bilinear_gather,
+)
 from lane_tracker_tpu_torch.ops import f32
 
 
@@ -61,6 +71,44 @@ def lane_overlay_direct(frames, left_coeffs, right_coeffs, n_left, n_right,
     cov = torch.clamp(torch.minimum(u - xl + 1.0, xr - u + 1.0), 0.0, 1.0)
     cov = cov * row_ok.float()
     add = torch.round(cov * f32(0.3 * 255.0)).to(torch.int32)
+    add = torch.where(enable[:, None, None], add, 0)
+    g = torch.clamp(frames[..., 1].to(torch.int32) + add, max=255)
+    return torch.stack([frames[..., 0], g.to(torch.uint8), frames[..., 2]],
+                       dim=-1)
+
+
+def lane_region_mask(warped_size, fitx_left, fitx_right, n_left, n_right,
+                     first_left, first_right) -> torch.Tensor:
+    """(T, H, W) uint8 0/255 mask of the lane region between the graphs.
+
+    Graphs are (T, m) samples re-anchored as poly_points_meta leaves them:
+    row y >= H - n takes boundary x = fitx[first + y - (H - n)], truncated
+    to int as the reference does before fillPoly; rows where either side
+    has no sample stay empty."""
+    W, H = int(warped_size[0]), int(warped_size[1])
+    ys = torch.arange(H, device=fitx_left.device)
+
+    def boundary(fitx, n, first):
+        n = n.long()[:, None]
+        idx = first.long()[:, None] + ys - (H - n)
+        has = ys >= (H - n)
+        x = torch.gather(fitx, 1, idx.clamp(0, fitx.shape[-1] - 1))
+        return torch.trunc(x), has
+
+    lx, lhas = boundary(fitx_left, n_left, first_left)
+    rx, rhas = boundary(fitx_right, n_right, first_right)
+    xs = torch.arange(W, dtype=torch.float32, device=fitx_left.device)
+    inside = ((lhas & rhas)[..., None] & (xs >= lx[..., None])
+              & (xs <= rx[..., None]))
+    return torch.where(inside, 255, 0).to(torch.uint8)
+
+
+def lane_overlay(frames: torch.Tensor, lane_mask: torch.Tensor,
+                 unwarp_grid: ResampleGrid, enable) -> torch.Tensor:
+    """Add the unwarped (T, H, W) lane mask as green to (T, Hc, Wc, 3)
+    uint8 frames; frames whose (T,) ``enable`` is False pass through."""
+    green = bilinear_gather(lane_mask[..., None], unwarp_grid)[..., 0]
+    add = torch.round(green.float() * f32(0.3)).to(torch.int32)
     add = torch.where(enable[:, None, None], add, 0)
     g = torch.clamp(frames[..., 1].to(torch.int32) + add, max=255)
     return torch.stack([frames[..., 0], g.to(torch.uint8), frames[..., 2]],

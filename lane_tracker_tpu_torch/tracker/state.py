@@ -1,8 +1,10 @@
 """Tracker state: a NamedTuple of tensors threaded through the back half.
 
-Port of lane_tracker_tpu/tracker/state.py:24-78 (same fields, same
+Port of lane_tracker_tpu/tracker/state.py:24-87 (same fields, same
 initial values).  Ring buffers with validity masks replace the
-reference's growing and popping Python lists.
+reference's growing and popping Python lists.  Snapshots use the
+reference's ``.npz`` keys (``TrackerState._fields``) and dtypes, so a
+snapshot written by either package loads into the other.
 """
 
 from __future__ import annotations
@@ -88,3 +90,18 @@ def state_from_numpy(np_state, device=DEFAULT_DEVICE) -> TrackerState:
         out[name] = torch.as_tensor(a.copy(), dtype=_DTYPES[a.dtype],
                                     device=device)
     return TrackerState(**out)
+
+
+def state_to_npz(state: TrackerState, path) -> None:
+    """Snapshot the tracker state (checkpoint/resume); the reference's
+    ``state_to_npz`` (state.py:80-82): one array a field, by name."""
+    np.savez(path, **{k: v.detach().cpu().numpy()
+                      for k, v in state._asdict().items()})
+
+
+def state_from_npz(path, device=DEFAULT_DEVICE) -> TrackerState:
+    """A snapshot written by either package's ``state_to_npz``, on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    with np.load(path) as z:
+        return state_from_numpy({k: z[k] for k in TrackerState._fields},
+                                device)

@@ -1,32 +1,38 @@
 """The tracking step: calibration params, batched front half, back half.
 
-Port of lane_tracker_tpu/tracker/step.py for the 'fast' and 'corridor'
-pipelines:
+Port of lane_tracker_tpu/tracker/step.py for the 'fast', 'corridor' and
+'compat' pipelines:
 
 * ``TrackerParams`` (step.py:77-305): an ``nn.Module`` whose resampling
   grids and overlay coordinates are buffers, so ``.to(device)`` moves them;
   static geometry stays plain attributes.  ``_roi_grids`` (step.py:351-387)
-  and the corridor crop (step.py:239-276) are copied host numpy.
+  and the corridor crop (step.py:239-276) are copied host numpy.  'compat'
+  keeps the full-frame undistort and warp grids and the unwarp grid of
+  ``Minv`` instead of the ROI grids.
 * ``warp_channels`` (step.py:390-468): the exact two-stage resample
   (fixed-point undistort over the raw rows the warp needs, then the float
-  bird's-eye warp) and LAB-B, with the frame batch as a tensor axis.
+  bird's-eye warp) and LAB-B, with the frame batch as a tensor axis;
+  'compat' undistorts the whole frame and takes LAB-B by the LUT chain.
 * ``front_artifacts_batch`` (step.py:781-814) and
   ``second_attempt_artifacts_batch`` (step.py:761-778), ``_embed_cols`` /
   ``_embed_prefixes`` (step.py:471-520), ``_run_attempt``
   (step.py:563-633) with the corridor certificate, ``back_half``
   (step.py:905-1092) with the second attempt hoisted or per frame, and
-  ``render_frame`` (step.py:869-892).
+  ``render_frame`` (step.py:869-902).
+* ``tracker_step`` / ``build_step`` (step.py:1095-1116): one frame end to
+  end, the front half as a batch of one.
 
 The reference's ``lax.cond`` between band and sliding-window search is
 "compute both, ``torch.where``", so the per-frame back half never waits on
 the device.  Its per-frame ``lax.cond`` on the second attempt ('cond'
 mode) is a host read of attempt 1's validity: only a failing frame runs
-the 'neighborhood' filter.  'compat', 'turbo', 'half' and the rowmm
-resampler are not ported and raise.
+the 'neighborhood' filter.  'turbo', 'half' and the rowmm resampler are
+not ported and raise.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -42,7 +48,7 @@ from lane_tracker_tpu_torch.kernels.resample import (
     bilinear_gather,
     slot_remap,
 )
-from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast
+from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast, rgb2lab_b_u8
 from lane_tracker_tpu_torch.ops.filters import filter_stage
 from lane_tracker_tpu_torch.ops.integrals import RowPrefixes, interval_moments
 from lane_tracker_tpu_torch.ops.polyfit import (
@@ -61,7 +67,9 @@ from lane_tracker_tpu_torch.ops.search import (
 )
 from lane_tracker_tpu_torch.render.lane import (
     forward_bv_grid,
+    lane_overlay,
     lane_overlay_direct,
+    lane_region_mask,
 )
 from lane_tracker_tpu_torch.tracker.config import (
     SECOND_ATTEMPT,
@@ -69,7 +77,7 @@ from lane_tracker_tpu_torch.tracker.config import (
 )
 from lane_tracker_tpu_torch.tracker.state import TrackerState, init_state
 
-PIPELINES = ("fast", "corridor")
+PIPELINES = ("fast", "corridor", "compat")
 # The corridor's compute margin: the filter chain's influence radius
 # (tophat55 erode+dilate 54 + ksize_b=35 window 17 + open5 4 = 75), padded.
 CORRIDOR_MARGIN = 80
@@ -103,22 +111,30 @@ def _roi_grids(und_q: dict, g_warp: dict, img_size):
 
 
 class TrackerParams(nn.Module):
-    """Calibration-derived constants of the 'fast' / 'corridor' pipelines.
+    """Calibration-derived constants of the 'fast', 'corridor' and
+    'compat' pipelines.
 
-    Buffers: the two ROI resampling grids and the overlay's per-camera-
-    pixel bird's-eye coordinates (``fwd_u``, ``fwd_v``).  Attributes: the
-    static geometry, as the reference's pytree aux.
+    Buffers: the resampling grids ('fast' and 'corridor': the two ROI
+    grids; 'compat': the full-frame undistort and warp grids and the
+    unwarp grid, the others None) and the direct overlay's per-camera-pixel
+    bird's-eye coordinates (``fwd_u``, ``fwd_v``).  Attributes: the static
+    geometry, as the reference's pytree aux.
     """
 
-    def __init__(self, grid_und_roi: ResampleGrid, grid_warp_roi: ResampleGrid,
-                 fwd_u, fwd_v, *, img_size, warped_size, mppv, mpph, pipeline,
-                 raw_roi, col_roi=None, col_comp=None):
+    def __init__(self, grid_und_roi: ResampleGrid | None,
+                 grid_warp_roi: ResampleGrid | None, fwd_u, fwd_v, *,
+                 img_size, warped_size, mppv, mpph, pipeline, raw_roi,
+                 col_roi=None, col_comp=None, grid_und=None, grid_warp=None,
+                 unwarp_grid=None):
         super().__init__()
         if pipeline not in PIPELINES:
             raise NotImplementedError(
                 f"pipeline {pipeline!r}: the port builds only {PIPELINES}")
         self.grid_und_roi = grid_und_roi
         self.grid_warp_roi = grid_warp_roi
+        self.grid_und = grid_und
+        self.grid_warp = grid_warp
+        self.unwarp_grid = unwarp_grid
         self.register_buffer("fwd_u", torch.tensor(np.asarray(fwd_u)))
         self.register_buffer("fwd_v", torch.tensor(np.asarray(fwd_v)))
         self.img_size = tuple(int(v) for v in img_size)
@@ -137,9 +153,7 @@ class TrackerParams(nn.Module):
               device=DEFAULT_DEVICE) -> "TrackerParams":
         """Host-side build from a calibration, with the buffers on
         ``device`` (the card unless the caller passes ``device="cpu"``).
-        ``Minv`` is accepted for the reference's signature; only the
-        'compat' unwarp needs it."""
-        del Minv
+        Only the 'compat' unwarp reads ``Minv``."""
         device = entry_device(device)
         img_size = tuple(int(v) for v in img_size)
         warped_size = tuple(int(v) for v in warped_size)
@@ -147,6 +161,17 @@ class TrackerParams(nn.Module):
         und_q = undistort_grid(cam_matrix, dist_coeffs, img_size)
         g_warp = slot_remap(
             perspective_grid(np.asarray(M), img_size, warped_size))
+        geometry = dict(img_size=img_size, warped_size=warped_size,
+                        mppv=mppv, mpph=mpph, pipeline=pipeline)
+        if pipeline == "compat":
+            unwarp = perspective_grid(np.asarray(Minv), warped_size, img_size)
+            return cls(
+                None, None, fu, fv, raw_roi=(0, img_size[1]),
+                grid_und=ResampleGrid.from_remapped(slot_remap(und_q)),
+                grid_warp=ResampleGrid.from_remapped(g_warp),
+                unwarp_grid=ResampleGrid.from_remapped(slot_remap(unwarp)),
+                **geometry,
+            ).to(device)
         g_und_roi, g_warp_roi, raw_roi = _roi_grids(und_q, g_warp, img_size)
         col_comp = None
         if pipeline == "corridor":
@@ -169,10 +194,8 @@ class TrackerParams(nn.Module):
         return cls(
             ResampleGrid.from_remapped(g_und_roi),
             ResampleGrid.from_remapped(g_warp_roi),
-            fu, fv,
-            img_size=img_size, warped_size=warped_size, mppv=mppv, mpph=mpph,
-            pipeline=pipeline, raw_roi=raw_roi, col_roi=col_roi,
-            col_comp=col_comp,
+            fu, fv, raw_roi=raw_roi, col_roi=col_roi, col_comp=col_comp,
+            **geometry,
         ).to(device)
 
 
@@ -183,26 +206,36 @@ def params_from_jax(leaves, aux, device=DEFAULT_DEVICE) -> TrackerParams:
 
     ``leaves``: ``jax.tree_util.tree_leaves(params)`` as numpy arrays, in
     the reference's order (grid_und, grid_warp, grid_und_roi,
-    grid_warp_roi, unwarp_grid as five leaves each, then fwd_u, fwd_v);
-    ``aux``: ``params.tree_flatten()[1]``.  Only 'fast' and 'corridor'
-    params without the rowmm structures are accepted.
+    grid_warp_roi, unwarp_grid as five leaves each, then fwd_u, fwd_v; a
+    None grid has no leaves, so 'compat', without the ROI grids, has 17);
+    ``aux``: ``params.tree_flatten()[1]``.  Params of 'fast', 'corridor'
+    and 'compat' without the rowmm structures are accepted.
     """
     device = entry_device(device)
     (img_size, warped_size, mppv, mpph, pipeline, raw_roi, _backend, col_roi,
      col_comp, res_scale) = aux
-    if pipeline not in PIPELINES or res_scale != 1 or len(leaves) != 27:
+    n_leaves = 17 if pipeline == "compat" else 27
+    if pipeline not in PIPELINES or res_scale != 1 or len(leaves) != n_leaves:
         raise NotImplementedError(
             f"params of pipeline {pipeline!r} with {len(leaves)} leaves")
     leaves = [np.asarray(x) for x in leaves]
+    geometry = dict(img_size=img_size, warped_size=warped_size, mppv=mppv,
+                    mpph=mpph, pipeline=pipeline, raw_roi=raw_roi)
+    if pipeline == "compat":
+        return TrackerParams(
+            None, None, leaves[15], leaves[16],
+            grid_und=ResampleGrid(*leaves[0:5], src_size=img_size),
+            grid_warp=ResampleGrid(*leaves[5:10], src_size=img_size),
+            unwarp_grid=ResampleGrid(*leaves[10:15], src_size=warped_size),
+            **geometry,
+        ).to(device)
     und = leaves[10:15]
     warp = leaves[15:20]
     g_und = ResampleGrid(*und, src_size=(img_size[0], raw_roi[1] - raw_roi[0]))
     g_warp = ResampleGrid(*warp, src_size=(img_size[0], und[0].shape[0]))
     return TrackerParams(
-        g_und, g_warp, leaves[25], leaves[26],
-        img_size=img_size, warped_size=warped_size, mppv=mppv, mpph=mpph,
-        pipeline=pipeline, raw_roi=raw_roi, col_roi=col_roi,
-        col_comp=col_comp,
+        g_und, g_warp, leaves[25], leaves[26], col_roi=col_roi,
+        col_comp=col_comp, **geometry,
     ).to(device)
 
 
@@ -254,8 +287,10 @@ class FrontArtifacts(NamedTuple):
 
 
 class RenderMeta(NamedTuple):
-    """Per-frame inputs of the overlay renderer."""
+    """Per-frame inputs of the overlay renderers."""
 
+    fitx_left: torch.Tensor  # (H,) f32 — smoothed graph ('compat' mask)
+    fitx_right: torch.Tensor
     coeffs_left: torch.Tensor  # (3,) f32 — smoothed coefficients rendered
     coeffs_right: torch.Tensor
     n_left: torch.Tensor
@@ -270,7 +305,12 @@ def warp_channels(frames: torch.Tensor, params: TrackerParams):
 
     The reference's exact two-stage chain: fixed-point undistort of the raw
     rows the warp samples, then the float bird's-eye warp (cropped to the
-    corridor's compute columns), then LAB-B of the warped RGB."""
+    corridor's compute columns), then LAB-B of the warped RGB.  'compat'
+    undistorts the whole frame and takes LAB-B by the LUT chain."""
+    if params.pipeline == "compat":
+        und = bilinear_gather(frames, params.grid_und)
+        warped = bilinear_gather(und, params.grid_warp)
+        return warped[..., 0].contiguous(), rgb2lab_b_u8(warped)
     ry0, ry1 = params.raw_roi
     und = bilinear_gather(frames[:, ry0:ry1], params.grid_und_roi)
     warped = bilinear_gather(und, params.grid_warp_roi)
@@ -538,6 +578,8 @@ def back_half(state: TrackerState, art: FrontArtifacts,
     # pass-through for the failure message ----
     draw = valid | (state.has_avg & (last_detection <= config.n_fail))
     meta = RenderMeta(
+        fitx_left=rfitx_left,
+        fitx_right=rfitx_right,
         coeffs_left=avg_left,
         coeffs_right=avg_right,
         n_left=rn_left,
@@ -574,7 +616,13 @@ def back_half(state: TrackerState, art: FrontArtifacts,
 
 def render_frame(frames: torch.Tensor, meta: RenderMeta,
                  params: TrackerParams, config: TrackerConfig) -> torch.Tensor:
-    """Overlays for a (T, Hc, Wc, 3) chunk from T-stacked RenderMeta."""
+    """Overlays for a (T, Hc, Wc, 3) chunk from T-stacked RenderMeta:
+    'compat' unwarps the lane mask, the others draw in camera space."""
+    if params.pipeline == "compat":
+        mask = lane_region_mask(params.warped_size, meta.fitx_left,
+                                meta.fitx_right, meta.n_left, meta.n_right,
+                                meta.first_left, meta.first_right)
+        return lane_overlay(frames, mask, params.unwarp_grid, meta.draw)
     W, H = params.warped_size
     partial = config.search.partial
     num = int(H * partial)
@@ -584,6 +632,49 @@ def render_frame(frames: torch.Tensor, meta: RenderMeta,
         frames, meta.coeffs_left, meta.coeffs_right, meta.n_left,
         meta.n_right, meta.first_left, meta.first_right, params.fwd_u,
         params.fwd_v, params.warped_size, start, step, meta.draw)
+
+
+def frame_artifacts(arts: FrontArtifacts, t: int) -> FrontArtifacts:
+    """Frame t's artifacts of a T-stacked FrontArtifacts, without the T
+    axis."""
+
+    def at(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x[t]
+        return type(x)(*(f[t] for f in x))
+
+    return FrontArtifacts(*(at(x) for x in arts))
+
+
+def tracker_step(state: TrackerState, frame: torch.Tensor,
+                 params: TrackerParams, config: TrackerConfig):
+    """One (Hc, Wc, 3) uint8 frame end to end: the front half as a batch
+    of one, the back half with the second attempt per frame (the
+    reference's ``lax.cond``: only a failing frame runs the
+    'neighborhood' filter), the overlay.  Returns (new_state, StepOutput)
+    without a T axis."""
+    frames = frame[None]
+    arts = front_artifacts_batch(frames, params, config)
+    with record_function("lt.back_half"):
+        new_state, out, meta = back_half(state, frame_artifacts(arts, 0),
+                                         params, config)
+    with record_function("lt.overlay"):
+        overlay = render_frame(frames, RenderMeta(*(x[None] for x in meta)),
+                               params, config)
+    return new_state, out._replace(overlay=overlay[0])
+
+
+@functools.lru_cache(maxsize=32)
+def build_step(config: TrackerConfig):
+    """The per-frame step closure for a static config (cached per
+    config, as the reference caches its jitted step)."""
+
+    def step(state, frame, params):
+        return tracker_step(state, frame, params, config)
+
+    return step
 
 
 def make_initial_state(config: TrackerConfig, warped_size,

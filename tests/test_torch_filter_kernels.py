@@ -172,9 +172,24 @@ def test_wrappers_reject_bad_inputs(bad):
 
 
 def test_unported_filter_raises():
-    """'neighborhood' with mask_noise: no preset and no second attempt
-    uses it, and it is not ported."""
-    x = torch.zeros((1, 40, 48), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="mask_noise"):
-        filter_stage(x, x, FilterConfig(filter_type="neighborhood",
-                                        mask_noise=True))
+    """A filter type the reference does not have raises.  'neighborhood'
+    with mask_noise, which raised here until it was ported, runs: on the
+    CPU its plain chain (two adaptive means, the noise keep-mask, merge +
+    open); tests/test_torch_neighborhood.py holds it to JAX."""
+    x = torch.randint(0, 120, (1, 160, 200), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(0))
+    # Flat and above noise_thresh: masked out inside its border.
+    x[:, 20:140, 20:180] = 200
+    with pytest.raises(ValueError, match="filter_type"):
+        filter_stage(x, x, FilterConfig(filter_type="median"))
+    f = FilterConfig(filter_type="neighborhood", mask_noise=True,
+                     noise_thresh=128)
+    keep = fs.bilateral_threshold_plain(x, f.ksize_noise, f.C_noise,
+                                        f.noise_thresh)
+    want = fs.merge_open_plain(fs.adaptive_mean_plain(x, f.ksize_r, -f.C_r),
+                               fs.adaptive_mean_plain(x, f.ksize_b, -f.C_b),
+                               keep, f.open_k)
+    got = filter_stage(x, x, f)
+    assert 0 < (keep > 0).float().mean() < 1
+    for g, w in zip((got[0], got[1].packed), (want[0], want[1].packed)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -32,6 +32,8 @@ from lane_tracker_tpu.ops.morphology import ellipse_runs as j_runs
 from lane_tracker_tpu.render.lane import forward_bv_grid as j_fwd
 from lane_tracker_tpu.tracker import step as j_step
 from lane_tracker_tpu.tracker.state import init_state as j_init_state
+from lane_tracker_tpu.tracker.state import state_from_npz as j_state_from_npz
+from lane_tracker_tpu.tracker.state import state_to_npz as j_state_to_npz
 
 import lane_tracker_tpu_torch.calib.homography as t_hom
 import lane_tracker_tpu_torch.calib.undistort as t_und
@@ -43,6 +45,13 @@ from lane_tracker_tpu_torch.ops.morphology import ellipse_runs as t_runs
 from lane_tracker_tpu_torch.render.lane import forward_bv_grid as t_fwd
 from lane_tracker_tpu_torch.tracker import step as t_step
 from lane_tracker_tpu_torch.tracker.state import init_state, state_from_numpy
+from lane_tracker_tpu_torch.tracker.state import (
+    state_from_npz as t_state_from_npz,
+)
+from lane_tracker_tpu_torch.tracker.state import (
+    state_to_npz as t_state_to_npz,
+)
+from lane_tracker_tpu_torch.tracker.tracker import LaneTracker as TTracker
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 STILLS = ["frame911.jpg", "frame971.jpg", "test4.jpg", "straight_lines1.jpg"]
@@ -166,8 +175,12 @@ def _build_both(pipeline, col_roi=None, which="real"):
 
 
 def _assert_params_equal_jax(jp, tp):
-    for jg, tg in ((jp.grid_und_roi, tp.grid_und_roi),
-                   (jp.grid_warp_roi, tp.grid_warp_roi)):
+    names = (("grid_und", "grid_warp", "unwarp_grid")
+             if jp.pipeline == "compat" else ("grid_und_roi", "grid_warp_roi"))
+    for name in ("grid_und", "grid_warp", "unwarp_grid", "grid_und_roi",
+                 "grid_warp_roi"):
+        assert (getattr(tp, name) is None) == (name not in names), name
+    for jg, tg in ((getattr(jp, n), getattr(tp, n)) for n in names):
         assert tg.src_size == jg.src_size
         assert tg.dst_shape == tuple(jg.base.shape)
         for k in ("base", "w00", "w01", "w10", "w11"):
@@ -184,6 +197,8 @@ def _assert_params_equal_jax(jp, tp):
     ("corridor", None, "real"),
     ("fast", None, "real"),
     ("corridor", (30, 70), "synthetic"),
+    ("compat", None, "real"),
+    ("compat", None, "synthetic"),
 ])
 def test_params_build_equals_jax(pipeline, col_roi, which):
     jp, tp = _build_both(pipeline, col_roi, which)
@@ -193,11 +208,20 @@ def test_params_build_equals_jax(pipeline, col_roi, which):
         assert tp.grid_und_roi.dst_shape == (238, 1280)
         assert tp.grid_warp_roi.dst_shape == (1100, 672)
         assert tp.col_roi == (320, 832) and tp.col_comp == (240, 912)
+    if pipeline == "compat" and which == "real":
+        assert tp.raw_roi == (0, 720)
+        assert tp.grid_und.dst_shape == (720, 1280)
+        assert tp.grid_warp.dst_shape == (1100, 1080)
+        assert tp.unwarp_grid.dst_shape == (720, 1280)
+        assert tp.unwarp_grid.src_size == (1080, 1100)
 
 
-@pytest.mark.parametrize("pipeline", ["corridor", "fast"])
-def test_params_from_jax_equals_build(pipeline):
-    jp, tp = _build_both(pipeline)
+@pytest.mark.parametrize("pipeline,which", [("corridor", "real"),
+                                            ("fast", "real"),
+                                            ("compat", "real"),
+                                            ("compat", "synthetic")])
+def test_params_from_jax_equals_build(pipeline, which):
+    jp, tp = _build_both(pipeline, which=which)
     leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jp)]
     fp = t_step.params_from_jax(leaves, jp.tree_flatten()[1], device="cpu")
     a, b = dict(fp.named_buffers()), dict(tp.named_buffers())
@@ -208,11 +232,16 @@ def test_params_from_jax_equals_build(pipeline):
     for f in ("img_size", "warped_size", "mppv", "mpph", "pipeline",
               "raw_roi", "col_roi", "col_comp"):
         assert getattr(fp, f) == getattr(tp, f), f
-    assert fp.grid_und_roi.src_size == tp.grid_und_roi.src_size
-    assert fp.grid_warp_roi.src_size == tp.grid_warp_roi.src_size
+    for name in ("grid_und", "grid_warp", "unwarp_grid", "grid_und_roi",
+                 "grid_warp_roi"):
+        fg, tg = getattr(fp, name), getattr(tp, name)
+        assert (fg is None) == (tg is None), name
+        if tg is not None:
+            assert fg.src_size == tg.src_size, name
+            assert fg.dst_shape == tg.dst_shape, name
 
 
-@pytest.mark.parametrize("pipeline", ["compat", "turbo", "half"])
+@pytest.mark.parametrize("pipeline", ["turbo", "half"])
 def test_unported_pipelines_raise(pipeline):
     cam, warp = j_load(ASSETS_DIR / "calibration.npz")
     with pytest.raises(NotImplementedError, match=pipeline):
@@ -235,8 +264,9 @@ def test_state_from_numpy_equals_init_state():
 
 @pytest.mark.parametrize("entry", ["TrackerParams.build", "params_from_jax",
                                    "make_initial_state", "init_state",
-                                   "state_from_numpy", "MxuWarp2.build"])
-def test_entry_points_default_to_cuda(monkeypatch, entry):
+                                   "state_from_numpy", "MxuWarp2.build",
+                                   "LaneTracker", "state_from_npz"])
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
     """With no ``device`` an entry point puts its tensors on the card, so
     without CUDA it raises; ``device="cpu"`` runs on the CPU."""
     cam, warp = list(_calibrations())[1]
@@ -245,6 +275,7 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
             warp.mpph)
     js = j_init_state(4, 2, 128)
     j_state_np = type(js)(*map(np.asarray, js))
+    j_state_to_npz(js, tmp_path / "state.npz")
     calls = {
         "TrackerParams.build": lambda **kw: t_step.TrackerParams.build(
             *args, pipeline="fast", **kw),
@@ -258,6 +289,12 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "MxuWarp2.build": lambda **kw: MxuWarp2.build(
             cam.cam_matrix, cam.dist_coeffs, warp.M,
             warp.image_width_height, (96, 16), **kw),
+        "LaneTracker": lambda **kw: TTracker(
+            warp.image_width_height, warp.warped_width_height,
+            cam.cam_matrix, cam.dist_coeffs, (warp.M, warp.Minv),
+            (warp.mppv, warp.mpph), **kw).params,
+        "state_from_npz": lambda **kw: t_state_from_npz(
+            tmp_path / "state.npz", **kw),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -274,6 +311,159 @@ def _jax_leaves_aux(args):
             jp.tree_flatten()[1])
 
 
+def _random_state(seed=3):
+    """Numpy values of every state field, of the reference's dtypes."""
+    rng = np.random.default_rng(seed)
+    js = j_init_state(4, 3, 17)
+    out = {}
+    for name, x in js._asdict().items():
+        x = np.asarray(x)
+        if x.dtype == np.bool_:
+            out[name] = rng.integers(0, 2, x.shape).astype(bool)
+        elif x.dtype == np.int32:
+            out[name] = rng.integers(-9, 99, x.shape).astype(np.int32)
+        else:
+            out[name] = rng.normal(size=x.shape).astype(np.float32)
+    return type(js)(**out)
+
+
+def test_state_npz_interchange(tmp_path):
+    """A snapshot written by either package loads into the other with
+    every field's dtype, shape and value."""
+    want = _random_state()
+    j_state_to_npz(want, tmp_path / "jax.npz")
+    t = state_from_numpy(want, device="cpu")
+    t_state_to_npz(t, tmp_path / "port.npz")
+    for got in (t_state_from_npz(tmp_path / "jax.npz", device="cpu"),
+                j_state_from_npz(tmp_path / "port.npz")):
+        assert got._fields == want._fields
+        for name, g, w in zip(want._fields, got, want):
+            g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    with np.load(tmp_path / "jax.npz") as a, np.load(tmp_path / "port.npz") as b:
+        assert sorted(a.files) == sorted(b.files) == sorted(want._fields)
+
+
+def test_draw_text_copy():
+    import lane_tracker_tpu.render.text as j_text
+    import lane_tracker_tpu_torch.render.text as t_text
+
+    img = np.random.default_rng(1).integers(0, 256, (120, 300, 3),
+                                            dtype=np.uint8)
+    for text, org, color in (("Curve Radius: 2280 m", (20, 35), (255,) * 3),
+                             ("Eccentricity: -0.07 m", (-10, 70), (0, 200, 9)),
+                             ("Frame: 1\u00e9\t?", (250, 118), (255,) * 3),
+                             ("Lane Line Detection Failed", (5, 5), (1, 2, 3))):
+        a = j_text.draw_text(img.copy(), text, org, color)
+        b = t_text.draw_text(img.copy(), text, org, color)
+        assert (a != img).any()
+        np.testing.assert_array_equal(b, a, err_msg=text)
+
+
+def test_split_view_copy():
+    import lane_tracker_tpu.render.split as j_split
+    import lane_tracker_tpu_torch.render.split as t_split
+
+    rng = np.random.default_rng(2)
+    top = rng.integers(0, 256, (72, 128, 3), dtype=np.uint8)
+    bev = rng.integers(0, 256, (110, 108, 3), dtype=np.uint8)
+    viz = rng.integers(0, 256, (110, 108), dtype=np.uint8)
+    np.testing.assert_array_equal(t_split.triple_split_view([top, bev, viz]),
+                                  j_split.triple_split_view([top, bev, viz]))
+    args = ((200, 150), [bev, viz], [(0, 0), (90, 40)],
+            [(100, 70), (130, 120)], ("one", "two"))
+    np.testing.assert_array_equal(t_split.create_split_view(*args),
+                                  j_split.create_split_view(*args))
+
+
+def test_fps_meter_copy(monkeypatch):
+    import lane_tracker_tpu.utils.profiling as j_prof
+    import lane_tracker_tpu_torch.utils.profiling as t_prof
+
+    readings = []
+    for meter_cls in (j_prof.FpsMeter, t_prof.FpsMeter):
+        clock = iter([10.0, 10.5, 11.0, 20.0, 20.0, 20.25])
+        monkeypatch.setattr("time.perf_counter", lambda: next(clock))
+        m = meter_cls()
+        m.add(3)
+        got = [m.fps()]
+        m.add(np.int64(2))
+        got.append(m.fps())
+        m.reset()
+        got.append(m.fps())
+        m.add(1)
+        got.append(m.fps())
+        readings.append(got)
+    assert readings[0] == readings[1] == [6.0, 5.0, 0.0, 4.0]
+
+
+def test_npz_source_and_sink_copy(tmp_path):
+    import lane_tracker_tpu.io.video as j_video
+    import lane_tracker_tpu_torch.io.video as t_video
+
+    frames = np.random.default_rng(4).integers(0, 256, (7, 6, 10, 3),
+                                               dtype=np.uint8)
+    np.savez(tmp_path / "in.npz", frames=frames)
+    for mod, tag in ((j_video, "jax"), (t_video, "port")):
+        src = mod.open_source(tmp_path / "in.npz")
+        assert type(src).__name__ == "NpzSource"
+        assert (src.size, src.fps) == ((10, 6), 25.0)
+        chunks = list(src.chunks(3))
+        sink = mod.open_sink(tmp_path / f"{tag}.npz", src.size, src.fps)
+        for chunk, n in chunks:
+            sink.write(chunk, n)
+        sink.close()
+        if tag == "jax":
+            want = chunks
+    for (a, n), (b, m) in zip(want, chunks):
+        assert n == m
+        np.testing.assert_array_equal(b, a)
+    assert [n for _, n in chunks] == [3, 3, 1]
+    with np.load(tmp_path / "jax.npz") as a, np.load(tmp_path / "port.npz") as b:
+        np.testing.assert_array_equal(b["frames"], a["frames"])
+        np.testing.assert_array_equal(b["frames"], frames)
+
+
+def test_calibration_loaders_copy(tmp_path):
+    """The reference pickles' loaders and the npz writer."""
+    import pickle
+
+    import lane_tracker_tpu.calib.io as j_io
+    import lane_tracker_tpu_torch.calib.io as t_io
+
+    cam, warp = j_load(ASSETS_DIR / "calibration.npz")
+    with open(tmp_path / "cam.p", "wb") as f:
+        pickle.dump({"cam_matrix": cam.cam_matrix.tolist(),
+                     "dist_coeffs": cam.dist_coeffs}, f)
+    with open(tmp_path / "warp.p", "wb") as f:
+        pickle.dump({"M": warp.M, "Minv": warp.Minv.tolist(),
+                     "image_width_height": warp.image_width_height,
+                     "warped_width_height": warp.warped_width_height,
+                     "mppv": np.float32(warp.mppv), "mpph": warp.mpph}, f)
+    for a, b in zip(t_io.load_camera_calib(tmp_path / "cam.p"),
+                    j_io.load_camera_calib(tmp_path / "cam.p")):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    tw = t_io.load_warp_params(tmp_path / "warp.p")
+    jw = j_io.load_warp_params(tmp_path / "warp.p")
+    for a, b in zip(tw, jw):
+        assert type(a) is type(b)
+        np.testing.assert_array_equal(a, b)
+    t_io.save_calibration_npz(tmp_path / "t.npz",
+                              *t_load(ASSETS_DIR / "calibration.npz"))
+    j_io.save_calibration_npz(tmp_path / "j.npz", cam, warp)
+    with np.load(tmp_path / "t.npz") as a, np.load(tmp_path / "j.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    (tc, tw2), (jc, jw2) = (t_load(tmp_path / "t.npz"),
+                            j_load(tmp_path / "t.npz"))
+    np.testing.assert_array_equal(tc.cam_matrix, jc.cam_matrix)
+    assert tw2.warped_width_height == jw2.warped_width_height
+
+
 def test_stills_npz_equals_pil_decode():
     with np.load(ASSETS_DIR / "stills_720p.npz") as z:
         frames, names = z["frames"], list(z["names"])
@@ -284,14 +474,20 @@ def test_stills_npz_equals_pil_decode():
             f, np.asarray(Image.open(ASSETS_DIR / n).convert("RGB")))
 
 
-_BLOCKER = """
+# The prologue of a subprocess that cannot import the modules ``mods``
+# (their names and submodules), as on a machine without them.
+BLOCK_IMPORTS = """
 import sys
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name == {mod!r} or name.startswith({mod!r} + "."):
-            raise ImportError("blocked: " + name)
+        for mod in {mods!r}:
+            if name == mod or name.startswith(mod + "."):
+                raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, _Block())
+"""
+
+_BLOCKER = BLOCK_IMPORTS + """
 import pkgutil, importlib
 import lane_tracker_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -304,7 +500,16 @@ for name in ("lane_tracker_tpu_torch.kernels.shift_chain",
              "lane_tracker_tpu_torch.kernels.tile_gather",
              "lane_tracker_tpu_torch.probes.mosaic",
              "lane_tracker_tpu_torch.probes.filter_redesign",
-             "lane_tracker_tpu_torch.timing"):
+             "lane_tracker_tpu_torch.timing",
+             "lane_tracker_tpu_torch.tracker.tracker",
+             "lane_tracker_tpu_torch.render.text",
+             "lane_tracker_tpu_torch.render.split",
+             "lane_tracker_tpu_torch.render.viz",
+             "lane_tracker_tpu_torch.io.video",
+             "lane_tracker_tpu_torch.io.native_loader",
+             "lane_tracker_tpu_torch.utils.profiling",
+             "lane_tracker_tpu_torch.process_video",
+             "lane_tracker_tpu_torch.__main__"):
     assert name in sys.modules, "not walked: " + name
 print("ok")
 """
@@ -316,7 +521,7 @@ def test_port_imports_without(blocked):
     unavailable (the card's machine has neither jax nor PIL), the
     probes' modules among them."""
     res = subprocess.run(
-        [sys.executable, "-c", _BLOCKER.format(mod=blocked)],
+        [sys.executable, "-c", _BLOCKER.format(mods=(blocked,), mod=blocked)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -10,8 +10,9 @@ prefixes alike.
   Pallas kernels they replace, run in interpret mode as
   tests/test_filter_stage2.py runs them.
 * At full corridor size (T=4), ``neighborhood_stage``, ``filter_stage`` on
-  the ``ksize_b + 1 > 64`` route and ``second_attempt_artifacts_batch``
-  equal the XLA chain ``filter_lane_points_channels(backend="xla")`` with
+  the ``ksize_b + 1 > 64`` route, ``filter_stage`` in 'neighborhood' with
+  ``mask_noise`` (at two ``noise_thresh``) and
+  ``second_attempt_artifacts_batch`` equal the XLA chain ``filter_lane_points_channels(backend="xla")`` with
   ``build_row_prefixes``, and JAX's own second-attempt artifacts.
 
 The CUDA kernels themselves are compared with the twins on the card by
@@ -125,6 +126,24 @@ def test_filter_stage_ksize_b65_equals_xla_chain_full_corridor(channels,
     want_bin, want_pref = (np.asarray(x) for x in _xla_chain(jf)(r, b))
     got_bin, got_pref = filter_stage(_t(r), _t(b), tf)
     assert want_bin.any()
+    np.testing.assert_array_equal(got_bin.numpy(), want_bin)
+    np.testing.assert_array_equal(got_pref.packed.numpy(), want_pref)
+
+
+@pytest.mark.parametrize("noise_thresh", [135, 150])
+def test_neighborhood_mask_noise_equals_xla_chain_full_corridor(
+        channels, noise_thresh):
+    """'neighborhood' with mask_noise: two adaptive means, the standalone
+    threshold's noise keep-mask, merge + open (ops/filters.py:94-153)."""
+    r, b = channels
+    jf = dataclasses.replace(F2, mask_noise=True, noise_thresh=noise_thresh)
+    tf = t_cfg.FilterConfig(**dataclasses.asdict(jf))
+    want_bin, want_pref = (np.asarray(x) for x in _xla_chain(jf)(r, b))
+    got_bin, got_pref = filter_stage(_t(r), _t(b), tf)
+    unmasked, _ = filter_stage(_t(r), _t(b), dataclasses.replace(
+        tf, mask_noise=False))
+    # The mask removes some pixels, and not all of them.
+    assert want_bin.any() and (unmasked.numpy() != want_bin).any()
     np.testing.assert_array_equal(got_bin.numpy(), want_bin)
     np.testing.assert_array_equal(got_pref.packed.numpy(), want_pref)
 
