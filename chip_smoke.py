@@ -94,6 +94,39 @@ Phases (each raises at the first failure; nothing is skipped):
    lane_tracker_tpu_torch``, in a subprocess on a 64-frame ``.npz``
    (``--chunk 32 --per-frame-log --metrics-json``) must exit 0 with its
    log's validity equal to the oracle's.
+13. Fleet (runs before phase 10): ``parallel.StreamFleet`` built with no
+   device list (its states must be on the card), demo1 'fast', S=8
+   streams of T=32 frames (256 a step), overlay on; stream s the four
+   stills cycled from offset s; scripts/fleet_bench.py's loads all_valid,
+   fail16 (stream 0's every 16th frame black), fail16_all and dead_stream
+   (stream 0 black).  First the five filter wrappers of the fleet's path
+   against their plain twins on all_valid's flat 256-frame channels, as
+   phase 4 holds them at 64 (every output equal).  Gated on each load: 'two_phase', 'hoist' and 'auto'
+   give identical outputs and metrics; each stream equals the port's own
+   ``chunk_process`` ('hoist', fresh state) on its frames (decisions and
+   integer state identical, curves within 0.01 px, the overlay within 1
+   but on a lane edge's ramp, tests/test_torch_pipeline_presets.py's
+   contract); the metrics are the outputs' int32 sums over 256 frames;
+   the step's wrapper calls are one of each attempt-1 kernel (1 / 3 / 2
+   kernel launches, by the library's count around each wrapper call) and
+   the fallback's ``adaptive_mean`` / ``merge_open`` (2 / 1) in every
+   'hoist' step and in a 'two_phase' step exactly when some attempt 1
+   failed, no other kernel of the library in the step, the same for one
+   stream alone.  Stream 0 meets bench_oracle.npz[:32] on all_valid and
+   bench_oracle_fail16.npz[:32] on fail16; on dead_stream stream 0 detects
+   nothing and the others every frame.  'auto' takes 8 dead_stream steps
+   and resolves to 'hoist', its schedule after each step equal to a host
+   replay of the EMA rule.  The CPU path (``devices=("cpu",)``, streams
+   0-1, 4 frames of fail16) gives the card's decisions.  Printed: frames/s
+   and ms a frame of each schedule and load in turns (median of 3 steps
+   after the gate step, by CUDA events), valid fractions, peak device
+   memory.  The phase then releases its memory to the card, and
+   ``LaneTracker.process`` is timed before it as in phase 10 after it.
+   At the very end, after phase 10's profiles (once a profiler
+   has traced the card, a process's later launches cost more, so no
+   trace runs before a timing): the back half's launches per time step at S=1 and S=8 under
+   torch.profiler (gated: S=8 at most twice S=1), and one fail16
+   two_phase step under the profiler by ``lt.*`` range.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    ``LaneTracker.process`` ms a frame (median over 16 frames after a
@@ -121,7 +154,11 @@ its bound: the larger of the bytes it must move over the HBM rate and the
 operations it does over the card's rate for their type (``bound``); the
 last line is ``{"ok": true, "device": {...}}``.  Each kernel's entry
 also carries ``path_launches``: its launches on phase 12's paths
-(``process`` over 8 frames, 'compat' on 64, 'neighborhood' + mask_noise).  Without CUDA, or outside
+(``process`` over 8 frames, 'compat' on 64, 'neighborhood' + mask_noise),
+and ``fleet_launches``: its wrapper's calls in each schedule's first
+phase 13 step on each load, ``fleet_kernel_launches``: the kernels those
+calls launched by the library's own count, and ``fleet_max_abs_err``: its
+largest difference from its plain twin on the fleet's batch.  Without CUDA, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -160,6 +197,32 @@ NEIGHBORHOOD_NOISE_LAUNCHES = {"adaptive_mean": 2, "bilateral_threshold": 1,
 LAUNCHERS = ("_launch_tophat", "_launch_threshold", "_launch_thr_merge_open",
              "_launch_merge_open", "_launch_adaptive_mean")
 T_WARP_CPU = 4
+# Phase 13, the fleet: scripts/fleet_bench.py's default cell (S streams of
+# T frames, pipeline 'fast', overlay on) and its four loads.
+FLEET_S = 8
+FLEET_T = 32
+FLEET_PIPELINE = "fast"
+FLEET_LOADS = ("all_valid", "fail16", "fail16_all", "dead_stream")
+FLEET_SCHEDULES = ("two_phase", "hoist", "auto")
+FLEET_TIMED_STEPS = 3
+FLEET_AUTO_STEPS = 8
+FLEET_CPU = (2, 4)  # streams, frames of the CPU fleet
+FLEET_LAUNCH_T = 4  # time steps of the back half's launch count
+FLEET_CURVE_PX = 0.01
+# Kernels attempt 1's filter wrappers launch in one fleet step, whatever S
+# is, as the library counts them (demo1: the riders are the R threshold and
+# the noise keep-mask); the fallback's wrappers launch one kernel a call.
+FLEET_KERNELS = {"tophat_ellipse": 1, "tophat_riders": 3, "thr_merge_open": 2}
+# tests/test_torch_pipeline_presets.py's overlay contract at a lane edge:
+# a value may move by up to rint(0.3 * 255) on a one-column coverage
+# ramp, at most EDGE_VALUES_MAX values of a chunk more than 1; R and B
+# untouched.
+EDGE_COLUMN_MAX = 77
+EDGE_VALUES_MAX = 64
+# tests/test_torch_fleet.py's coefficient fields of the state, held in px
+# of the curve; the exact fields are those of an integer or bool dtype.
+COEFF_STATE = ("hist_left", "hist_right", "last_left", "last_right",
+               "avg_left", "avg_right")
 MXU_DST = (1080, 1100)  # the bird's-eye size, calibration.npz's warped size
 # The card's peak rates (H100 SXM data sheet, dense, at 700 W): HBM bytes/s,
 # f32 operations/s outside the tensor cores, and int32 at half that; bf16
@@ -460,6 +523,82 @@ def single_launches(f, f2, r, b, r_feat, b_feat, r_th, keep, r_am, b_am):
     ]
 
 
+def filter_parity(r, b, f, f2):
+    """The five filter wrappers of the main path (attempt 1's three, the
+    fallback's adaptive mean and merge + open, with and without the keep
+    mask) against their plain twins on (T, H, W) channels r, b: ({wrapper:
+    [(mismatches, max abs) of each output]}, the intermediates (r_feat,
+    riders, b_feat, r_th, keep, am_args, r_am, b_am))."""
+    from lane_tracker_tpu_torch.kernels import filter_stage as fs
+
+    errs = {}
+    r_feat = fs.tophat_ellipse(r, f.tophat_r)
+    errs["tophat_ellipse"] = [mismatches(r_feat,
+                                         fs.tophat_ellipse_plain(r, f.tophat_r))]
+    riders = [(r_feat, f.ksize_r, f.C_r, -1),
+              (b, f.ksize_noise, f.C_noise, f.noise_thresh)]
+    outs = fs.tophat_riders(b, f.tophat_b, riders)
+    plain = fs.tophat_riders_plain(b, f.tophat_b, riders)
+    errs["tophat_riders"] = [mismatches(g, w) for g, w in zip(outs, plain)]
+    b_feat, r_th, keep = outs
+    got = fs.thr_merge_open(r_th, b_feat, f.ksize_b, f.C_b, keep,
+                            open_k=f.open_k)
+    want = fs.thr_merge_open_plain(r_th, b_feat, f.ksize_b, f.C_b, keep,
+                                   open_k=f.open_k)
+    errs["thr_merge_open"] = [mismatches(got[0], want[0]),
+                              mismatches(got[1].packed, want[1].packed)]
+    am_args = [(r, f2.ksize_r, -f2.C_r), (b, f2.ksize_b, -f2.C_b)]
+    r_am, b_am = (fs.adaptive_mean(*a) for a in am_args)
+    errs["adaptive_mean"] = [mismatches(g, fs.adaptive_mean_plain(*a))
+                             for g, a in zip((r_am, b_am), am_args)]
+    errs["merge_open"] = []
+    for k in (None, keep):
+        got = fs.merge_open(r_am, b_am, k, open_k=f2.open_k)
+        want = fs.merge_open_plain(r_am, b_am, k, open_k=f2.open_k)
+        errs["merge_open"] += [mismatches(got[0], want[0]),
+                               mismatches(got[1].packed, want[1].packed)]
+    return errs, (r_feat, riders, b_feat, r_th, keep, am_args, r_am, b_am)
+
+
+def report_parity(tag, errs, shape):
+    """Print and gate {wrapper: [(mismatches, max abs), ...]}: every
+    output equal to its twin's.  Returns each wrapper's max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    for name, pairs in errs.items():
+        print(f"[{tag}] {name} at {tuple(shape)}: mismatches "
+              f"{[n for n, _ in pairs]} (outputs in order), max abs "
+              f"{max(m for _, m in pairs)}")
+        check(all(n == 0 for n, _ in pairs), f"{name} disagrees with its "
+              f"plain twin at {tuple(shape)}")
+    return {name: max(m for _, m in pairs) for name, pairs in errs.items()}
+
+
+@contextlib.contextmanager
+def kernels_by_wrapper(names):
+    """Under it, each named filter wrapper, where the main path calls it
+    (``ops.filters``), adds the kernels its calls launch, by the library's
+    own count around each call, to the yielded dict."""
+    from lane_tracker_tpu_torch.kernels import filter_stage as fs
+    from lane_tracker_tpu_torch.ops import filters
+
+    counts = {}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            n0 = fs.kernel_launches()
+            out = fn(*args, **kwargs)
+            counts[name] = counts.get(name, 0) + fs.kernel_launches() - n0
+            return out
+
+        return call
+
+    with mock.patch.multiple(filters, **{
+            name: counting(name, getattr(filters, name)) for name in names}):
+        yield counts
+
+
 def counted_launches(fn):
     """Kernel launches one call of fn makes, from the filter-stage
     library's own count (each C launcher adds one per kernel it
@@ -552,6 +691,428 @@ def drive_process(tracker, frames, kw):
     return type(outs[0])(*(torch.stack(f) for f in zip(*outs))), lines
 
 
+def curves_rmse_max(a, b, H):
+    """The largest RMSE in px over rows 0..H-1 between the curves of two
+    (..., 3) coefficient tensors, row by row."""
+    import numpy as np
+
+    a = a.reshape(-1, 3).double().cpu().numpy()
+    b = b.reshape(-1, 3).double().cpu().numpy()
+    return max(curve_rmse_px(x, y, H) for x, y in zip(a, b))
+
+
+def stream_of(tree, s):
+    """Stream s of a NamedTuple with a leading stream axis."""
+    return type(tree)(*(None if x is None else x[s] for x in tree))
+
+
+def gate_stream(tag, s, fo, fst, co, cst, H):
+    """The fleet's stream s (outputs fo, final state fst) against its own
+    ``chunk_process`` (co, cst): decisions and integer state identical,
+    curves within FLEET_CURVE_PX, the overlay within 1 but on a lane
+    edge's ramp (EDGE_*).  Returns (curve RMSE max, overlay values
+    differing by more than 1)."""
+    for name in exact_fields(fo):
+        check(bool(torch_equal(getattr(fo, name), getattr(co, name))),
+              f"{tag}: stream {s} {name} differs from its chunk_process")
+    for name in exact_fields(fst):
+        check(bool(torch_equal(getattr(fst, name), getattr(cst, name))),
+              f"{tag}: stream {s} state {name} differs from its "
+              "chunk_process")
+    rmse = max(
+        [curves_rmse_max(getattr(fo, n), getattr(co, n), H)
+         for n in ("left_coeffs", "right_coeffs", "a1_left_coeffs",
+                   "a1_right_coeffs")]
+        + [curves_rmse_max(getattr(fst, n), getattr(cst, n), H)
+           for n in COEFF_STATE])
+    check(rmse <= FLEET_CURVE_PX, f"{tag}: stream {s} curves {rmse} px from "
+          "its chunk_process")
+    d = (fo.overlay.int() - co.overlay.int()).abs()
+    far = int((d > 1).sum())
+    check(not bool(d[..., 0].any() or d[..., 2].any())
+          and far <= EDGE_VALUES_MAX and int(d.max()) <= EDGE_COLUMN_MAX,
+          f"{tag}: stream {s} overlay differs from its chunk_process "
+          f"beyond the lane-edge contract ({far} values, max {int(d.max())})")
+    return rmse, far
+
+
+def exact_fields(tree):
+    """The fields of a StepOutput or TrackerState held exactly: those of an
+    integer or bool dtype (decisions, counts, integer state), the overlay
+    aside."""
+    return [name for name, x in zip(tree._fields, tree)
+            if x is not None and name != "overlay"
+            and not x.is_floating_point()]
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def traced(fn):
+    """fn() under torch.profiler: (the trace's events, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = REPO / "build" / "chip_smoke_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    return events, wall_ms
+
+
+def print_stages(tag, what, events, wall_ms, reps, card):
+    """A trace's idle share and its ``lt.*`` ranges per rep, through
+    scripts/torch_chunk_breakdown.py's reader with the fallback's range
+    added (that script's stills chunks never open it)."""
+    breakdown = importlib.import_module("scripts.torch_chunk_breakdown")
+    with mock.patch.object(breakdown, "STAGES",
+                           breakdown.STAGES + ("lt.second_attempt",)):
+        stages = breakdown.stage_table(events, reps)
+    wall_ms /= reps
+    busy = sum(v["device_ms"] for v in stages.values())
+    in_ranges = sum(v["host_ms"] for v in stages.values())
+    print(f"[{tag}] {what} under torch.profiler, per rep over {reps}: wall "
+          f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / wall_ms:.3f}, host outside the lt.* ranges "
+          f"{wall_ms - in_ranges:.3f} ms ({card})")
+    for name, v in stages.items():
+        print(f"[{tag}]   {name:18s} host {v['host_ms']:10.3f} ms  "
+              f"device {v['device_ms']:9.3f} ms  launches "
+              f"{v['launches']:7.1f}")
+
+
+def trace_launches(fn, reps):
+    """(kernel launch calls, kernels) per rep of fn under torch.profiler:
+    the runtime's launch records (cudaLaunchKernel and kin) and the
+    device's kernel records."""
+    events, _ = traced(fn)
+    calls = sum(1 for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e.get("name", ""))
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    return calls / reps, kernels / reps
+
+
+def fleet_loads(stills):
+    """scripts/fleet_bench.py's loads: FLEET_S streams of FLEET_T frames,
+    stream s the stills cycled from offset s, as numpy arrays by name."""
+    import numpy as np
+
+    base = np.stack([stills[(s + np.arange(FLEET_T)) % len(stills)]
+                     for s in range(FLEET_S)])
+    loads = {name: base.copy() for name in FLEET_LOADS}
+    loads["fail16"][0, ::FAIL_EVERY] = 0
+    loads["fail16_all"][:, ::FAIL_EVERY] = 0
+    loads["dead_stream"][0] = 0
+    return loads
+
+
+def fleet_phase(stills, oracles, build_params, cfg, card):
+    """Phase 13: ``StreamFleet`` built with no device list, demo1 'fast',
+    FLEET_S streams of FLEET_T frames, overlay on, on fleet_bench's four
+    loads.  Returns ({(schedule, load) gate step: {wrapper: (calls, kernels
+    launched)}}, each wrapper's max abs error against its twin on the
+    fleet's batch)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lane_tracker_tpu_torch.kernels import filter_stage as fs
+    from lane_tracker_tpu_torch.parallel import StreamFleet, chunk_process
+    from lane_tracker_tpu_torch.tracker.config import SECOND_ATTEMPT
+    from lane_tracker_tpu_torch.tracker.step import (
+        make_initial_state,
+        warp_channels,
+    )
+
+    t_phase = time.perf_counter()
+    S, T = FLEET_S, FLEET_T
+    gp = build_params(FLEET_PIPELINE)
+    H = gp.warped_size[1]
+    loads = fleet_loads(stills)
+    gloads = {name: torch.from_numpy(x).cuda() for name, x in loads.items()}
+    print(f"[fleet] demo1 '{FLEET_PIPELINE}', S={S} streams x T={T} frames "
+          f"({S * T} a step), overlay on; loads {list(FLEET_LOADS)}; stream "
+          f"s the stills cycled from offset s")
+
+    def new_fleet(schedule):
+        return StreamFleet(gp, cfg, S, with_overlay=True,
+                           second_attempt=schedule)
+
+    def fresh_chunk(frames):
+        return chunk_process(make_initial_state(cfg, gp.warped_size, "cuda"),
+                             frames, gp, cfg, with_overlay=True,
+                             second_attempt="hoist")
+
+    def metric_ints(metrics):
+        return {k: int(v) for k, v in metrics.items()}
+
+    def counted_step(fleet, frames):
+        """fleet.step(frames): (outs, metrics, {wrapper: (calls, kernels
+        launched)}, the library's count over the whole step)."""
+        fs.reset_launches()
+        n0 = fs.kernel_launches()
+        with kernels_by_wrapper(list(FLEET_KERNELS)
+                                + list(SECOND_ATTEMPT_LAUNCHES)) as kernels:
+            outs, metrics = fleet.step(frames)
+        torch.cuda.synchronize()
+        n_step = fs.kernel_launches() - n0
+        got = {k: (v, kernels.get(k, 0)) for k, v in fs.LAUNCHES.items()
+               if v or kernels.get(k)}
+        return outs, metrics, got, n_step
+
+    def gate_launches(tag, got, n_step, fallback):
+        """Attempt 1's wrappers called once and their kernels launched as
+        FLEET_KERNELS, the fallback's as SECOND_ATTEMPT_LAUNCHES exactly
+        when it ran, and every kernel of the step launched by one of
+        them."""
+        want = {k: (1, n) for k, n in FLEET_KERNELS.items()}
+        if fallback:
+            want.update({k: (n, n)
+                         for k, n in SECOND_ATTEMPT_LAUNCHES.items()})
+        print(f"[fleet] {tag}: (wrapper calls, kernels launched) {got}; "
+              f"kernels in the step {n_step}")
+        check(got == want and n_step == sum(n for _, n in want.values()),
+              f"fleet {tag}: (wrapper calls, kernels launched) {got} and "
+              f"{n_step} in the step, expected {want}")
+
+    # The five filter wrappers against their twins on one load's flat
+    # S * T channels: the batch the fleet launches them on.
+    flat = gloads["all_valid"].reshape((S * T,) + loads["all_valid"].shape[2:])
+    r, b = warp_channels(flat, gp)
+    errs, parts = filter_parity(r, b, cfg.filter, SECOND_ATTEMPT.filter)
+    fleet_err = report_parity("fleet-parity", errs, r.shape)
+    del flat, r, b, errs, parts
+
+    probe = new_fleet("two_phase")
+    on_card = all(x.is_cuda for shard in probe.states for x in shard)
+    print(f"[fleet] StreamFleet with no device list: mesh {probe.mesh}, "
+          f"states on the card {on_card}")
+    check(on_card and probe.mesh == (torch.device("cuda", 0),),
+          "StreamFleet without a device list is not on the card")
+    del probe
+
+    # Gates: each schedule's first step on each load, from fresh states.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fleet_launches, fleets, outs_of, valid_fraction = {}, {}, {}, {}
+    for load in FLEET_LOADS:
+        first = {}
+        for schedule in FLEET_SCHEDULES:
+            fleet = fleets[schedule, load] = new_fleet(schedule)
+            outs, metrics, got, n_step = counted_step(fleet, gloads[load])
+            fleet_launches[f"{schedule} {load}"] = got
+            gate_launches(f"{load} {schedule}", got, n_step,
+                          schedule == "hoist"
+                          or not bool(outs.a1_valid.all()))
+            print(f"[fleet] {load} {schedule}: metrics "
+                  f"{metric_ints(metrics)}")
+            first[schedule] = (outs, metrics)
+        outs, metrics = outs_of[load] = first["two_phase"]
+        for schedule in FLEET_SCHEDULES[1:]:
+            o, m = first[schedule]
+            diff = [n for n in outs._fields
+                    if not torch_equal(getattr(o, n), getattr(outs, n))]
+            check(not diff and metric_ints(m) == metric_ints(metrics),
+                  f"fleet {load}: '{schedule}' differs from two_phase in "
+                  f"{diff} or its metrics")
+        sums = {"frames": outs.valid.numel(),
+                "valid_frames": int(outs.valid.sum()),
+                "detected_frames": int(outs.detected.sum()),
+                "second_attempts": int((outs.n_attempts > 1).sum())}
+        check(all(v.dtype == torch.int32 for v in metrics.values())
+              and metric_ints(metrics) == sums and sums["frames"] == S * T,
+              f"fleet {load}: metrics {metric_ints(metrics)} are not the "
+              f"outputs' sums {sums}")
+        valid_fraction[load] = sums["valid_frames"] / sums["frames"]
+        check(tuple(outs.overlay.shape) == (S, T, 720, 1280, 3)
+              and bool(torch.isfinite(outs.left_coeffs).all()),
+              f"fleet {load}: overlay shape or non-finite coefficients")
+        states = fleets["two_phase", load].states[0]
+        rmse_max, far_total = 0.0, 0
+        for s in range(S):
+            cst, co = fresh_chunk(gloads[load][s])
+            rmse, far = gate_stream(f"fleet {load}", s, stream_of(outs, s),
+                                    stream_of(states, s), co, cst, H)
+            rmse_max, far_total = max(rmse_max, rmse), far_total + far
+        print(f"[fleet] {load}: the three schedules identical; each of the "
+              f"{S} streams equals its own chunk_process (hoist, fresh "
+              f"state): curves within {rmse_max} px, overlay values off by "
+              f"more than 1: {far_total}; metrics the outputs' sums; "
+              f"valid_fraction {valid_fraction[load]}")
+        if load == "all_valid":
+            gate_oracle("fleet all_valid stream 0", stream_of(outs, 0),
+                        oracles["bench_oracle"], H)
+        elif load == "fail16":
+            gate_oracle("fleet fail16 stream 0", stream_of(outs, 0),
+                        oracles[f"bench_oracle_fail{FAIL_EVERY}"], H)
+        elif load == "dead_stream":
+            det = outs.detected
+            check(not bool(det[0].any()) and bool(det[1:].all()),
+                  "fleet dead_stream: stream 0 detected, or another did not")
+            print("[fleet] dead_stream: stream 0 detects nothing, the "
+                  "others every frame")
+    # One stream: the same kernel launches a step as eight.
+    one = StreamFleet(gp, cfg, 1, with_overlay=True)
+    outs, _, got, n_step = counted_step(one, gloads["fail16"][:1])
+    gate_launches("fail16 stream 0 alone (S=1) two_phase", got, n_step,
+                  True)
+    del one
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[fleet] peak device memory over the gate steps "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated; {card})")
+
+    # 'auto' on dead_stream: the schedule after each step equals a host
+    # replay of the EMA rule on the observed indicators.
+    auto = new_fleet("auto")
+    ema, sched, seen = 0.0, "two_phase", []
+    for _ in range(FLEET_AUTO_STEPS):
+        outs, _ = auto.step(gloads["dead_stream"])
+        ema += 0.25 * (float(not bool(outs.a1_valid.all())) - ema)
+        if sched == "two_phase" and ema > 0.81:
+            sched = "hoist"
+        elif sched == "hoist" and ema < 0.81 - 0.05:
+            sched = "two_phase"
+        seen.append(auto.schedule)
+        check(auto.schedule == sched and abs(auto.poison_ema - ema) < 1e-12,
+              f"auto: schedule {auto.schedule} / EMA {auto.poison_ema}, "
+              f"the replay {sched} / {ema}")
+    print(f"[fleet] auto on dead_stream, {FLEET_AUTO_STEPS} steps: schedules "
+          f"{seen}, EMA {auto.poison_ema}")
+    check(auto.schedule == "hoist",
+          "auto did not resolve to hoist on dead_stream")
+
+    # The CPU path: the first frames of streams 0-1 of fail16.
+    cs, ct = FLEET_CPU
+    cpu_fleet = StreamFleet(build_params(FLEET_PIPELINE, device="cpu"), cfg,
+                            cs, mesh=("cpu",), with_overlay=True)
+    t0 = time.perf_counter()
+    cpu_outs, _ = cpu_fleet.step(loads["fail16"][:cs, :ct])
+    gout = outs_of["fail16"][0]
+    for name in exact_fields(gout):
+        check(torch_equal(getattr(gout, name)[:cs, :ct].cpu(),
+                          getattr(cpu_outs, name)),
+              f"fleet: the CPU path's {name} differs from the card's")
+    rmse = curves_rmse_max(gout.left_coeffs[:cs, :ct], cpu_outs.left_coeffs,
+                           H)
+    print(f"[fleet] CPU path (devices ('cpu',), S={cs}, T={ct}, fail16): "
+          f"{time.perf_counter() - t0:.1f} s; decisions equal the card's, "
+          f"left curves within {rmse} px")
+    del cpu_fleet, cpu_outs, gout
+
+    # Aggregate frames/s: each schedule in turns on each load, states
+    # carried on from the gate step (the warm-up), by CUDA events.
+    times = {key: [] for key in fleets}
+    for _ in range(FLEET_TIMED_STEPS):
+        for key, fleet in fleets.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fleet.step(gloads[key[1]])
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end))
+    for (schedule, load), ts in times.items():
+        med = float(np.median(ts))
+        resolved = fleets[schedule, load].schedule
+        print(f"[fleet-timing] {load} {schedule}"
+              + (f" (now {resolved})" if schedule == "auto" else "")
+              + f": {S * T * 1000.0 / med:.1f} frames/s, {med / (S * T):.4f} "
+              f"ms a frame; step ms median {med:.3f} of {len(ts)} after a "
+              f"warm-up (min {min(ts):.3f}, max {max(ts):.3f}); "
+              f"valid_fraction {valid_fraction[load]} ({card})")
+    ts = []
+    for _ in range(FLEET_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        auto.step(gloads["dead_stream"])
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end))
+    med = float(np.median(ts))
+    print(f"[fleet-timing] dead_stream auto after {FLEET_AUTO_STEPS} steps "
+          f"({auto.schedule}): {S * T * 1000.0 / med:.1f} frames/s, step ms "
+          f"median {med:.3f} (min {min(ts):.3f}, max {max(ts):.3f}) ({card})")
+    # Release the phase's memory: the later phases' timings start from
+    # the caching allocator's pool as it was before the phase.
+    del fleets, fleet, auto, first, outs_of, outs, states, gloads, o, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[fleet] phase 13 took {time.perf_counter() - t_phase:.1f} s "
+          f"({FLEET_TIMED_STEPS} timed steps a schedule and load, "
+          f"{FLEET_AUTO_STEPS} auto steps); after it the caching allocator "
+          f"holds {torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    return fleet_launches, fleet_err
+
+
+def fleet_profile(stills, build_params, cfg, card):
+    """Phase 13's measurements under torch.profiler, run after phase 10's
+    timings: once a process has traced the card, its later launches pay
+    more on the host, so no profiler runs before a timing.  Gated: the
+    back half's launches per time step at S=FLEET_S at most twice those
+    at S=1."""
+    import torch
+
+    from lane_tracker_tpu_torch.parallel import StreamFleet
+    from lane_tracker_tpu_torch.parallel.mesh import map_tensors
+    from lane_tracker_tpu_torch.parallel.streams import scan_streams
+    from lane_tracker_tpu_torch.tracker.state import TrackerState
+    from lane_tracker_tpu_torch.tracker.step import (
+        front_artifacts_batch,
+        make_initial_state,
+    )
+
+    S = FLEET_S
+    gp = build_params(FLEET_PIPELINE)
+    fail16 = torch.from_numpy(fleet_loads(stills)["fail16"]).cuda()
+
+    def new_fleet(schedule):
+        return StreamFleet(gp, cfg, S, with_overlay=True,
+                           second_attempt=schedule)
+
+    # The back half's launches per time step at S=1 and S=FLEET_S, on
+    # fail16's hoisted artifacts.
+    per_step = {}
+    for n in (1, S):
+        flat = fail16[:n, :FLEET_LAUNCH_T].reshape(
+            (n * FLEET_LAUNCH_T,) + fail16.shape[2:])
+        arts = map_tensors(
+            lambda x, n=n: x.reshape((n, FLEET_LAUNCH_T) + x.shape[1:]),
+            front_artifacts_batch(flat, gp, cfg, hoist_second_attempt=True))
+        st = TrackerState(*(x.expand(n, *x.shape).contiguous()
+                            for x in make_initial_state(cfg, gp.warped_size,
+                                                        "cuda")))
+        scan_streams(st, arts, gp, cfg)  # warm-up
+        per_step[n] = trace_launches(lambda: scan_streams(st, arts, gp, cfg),
+                                     FLEET_LAUNCH_T)
+    print(f"[fleet] back half launches per time step (launch calls, "
+          f"kernels; hoist, {FLEET_LAUNCH_T} steps under torch.profiler): "
+          f"S=1 {per_step[1]}, S={S} {per_step[S]}")
+    check(per_step[S][0] <= 2 * per_step[1][0],
+          "the batched back half's launches grow with the streams")
+
+    # One fail16 two_phase step under the profiler, read through its lt.*
+    # ranges.
+    fleet = new_fleet("two_phase")
+    fleet.step(fail16)
+    events, wall_ms = traced(lambda: fleet.step(fail16))
+    print_stages("fleet-profile", "fail16 two_phase step", events, wall_ms,
+                 1, card)
+
+
 def main(argv):
     import argparse
 
@@ -570,8 +1131,6 @@ def main(argv):
               f"{__file__}; run it from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from torch.profiler import ProfilerActivity, profile
-
     from lane_tracker_tpu_torch.calib.io import load_calibration_npz
     from lane_tracker_tpu_torch.kernels import channel_fused as cf
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
@@ -652,46 +1211,15 @@ def main(argv):
 
     # ---- 4. Kernel parity ----
     r, b = warp_channels(gchunk, gparams)
-    errs = {}
-    r_feat = fs.tophat_ellipse(r, f.tophat_r)
-    errs["tophat_ellipse"] = [mismatches(r_feat,
-                                         fs.tophat_ellipse_plain(r, f.tophat_r))]
-    riders = [(r_feat, f.ksize_r, f.C_r, -1),
-              (b, f.ksize_noise, f.C_noise, f.noise_thresh)]
-    outs = fs.tophat_riders(b, f.tophat_b, riders)
-    plain = fs.tophat_riders_plain(b, f.tophat_b, riders)
-    errs["tophat_riders"] = [mismatches(g, w) for g, w in zip(outs, plain)]
-    b_feat, r_th, keep = outs
-    got = fs.thr_merge_open(r_th, b_feat, f.ksize_b, f.C_b, keep,
-                            open_k=f.open_k)
-    want = fs.thr_merge_open_plain(r_th, b_feat, f.ksize_b, f.C_b, keep,
-                                   open_k=f.open_k)
-    errs["thr_merge_open"] = [mismatches(got[0], want[0]),
-                              mismatches(got[1].packed, want[1].packed)]
-    am_args = [(r, f2.ksize_r, -f2.C_r), (b, f2.ksize_b, -f2.C_b)]
-    r_am, b_am = (fs.adaptive_mean(*a) for a in am_args)
-    errs["adaptive_mean"] = [mismatches(g, fs.adaptive_mean_plain(*a))
-                             for g, a in zip((r_am, b_am), am_args)]
-    errs["merge_open"] = []
-    for k in (None, keep):
-        got = fs.merge_open(r_am, b_am, k, open_k=f2.open_k)
-        want = fs.merge_open_plain(r_am, b_am, k, open_k=f2.open_k)
-        errs["merge_open"] += [mismatches(got[0], want[0]),
-                               mismatches(got[1].packed, want[1].packed)]
+    errs, (r_feat, riders, b_feat, r_th, keep, am_args, r_am, b_am) = (
+        filter_parity(r, b, f, f2))
     bt_args = [(b_feat, 65, f.C_b, -1),
                (b, 65, f.C_noise, f.noise_thresh)]
     errs["bilateral_threshold"] = [
         mismatches(fs.bilateral_threshold(*a),
                    fs.bilateral_threshold_plain(*a))
         for a in bt_args]
-    torch.cuda.synchronize()
-    for name, pairs in errs.items():
-        print(f"[parity] {name} at {tuple(r.shape)}: mismatches "
-              f"{[n for n, _ in pairs]} (outputs in order), max abs "
-              f"{max(m for _, m in pairs)}")
-        check(all(n == 0 for n, _ in pairs), f"{name} disagrees with its "
-              "plain twin")
-    max_err = {name: max(m for _, m in pairs) for name, pairs in errs.items()}
+    max_err = report_parity("parity", errs, r.shape)
     n_thr = counted_launches(lambda: fs.thr_merge_open(
         r_th, b_feat, f.ksize_b, f.C_b, keep, open_k=f.open_k))
     n_mo = counted_launches(lambda: fs.merge_open(r_am, b_am, keep,
@@ -1188,6 +1716,35 @@ def main(argv):
                  "metrics.json"):
         (cli_dir / name).unlink()
 
+    def time_process(when):
+        """The per-frame API: one frame a call, state carried, host work
+        (text, the overlay's copy to the host) included; the tracker."""
+        ttr = new_tracker()
+        for frame in frames8[:4]:
+            ttr.process(frame, **kw)
+        frame_ms = []
+        for i in range(N_PROCESS_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ttr.process(frames8[i % N_PROCESS], **kw)
+            end.record()
+            end.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+        print(f"[timing] LaneTracker.process ('fast', demo1), {when}: "
+              f"median {float(np.median(frame_ms)):.3f} ms a frame over "
+              f"{N_PROCESS_TIMED} frames after 4 warm-up frames (min "
+              f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}; CUDA events) "
+              f"({card})")
+        return ttr
+
+    # The same timing before phase 13 as in phase 10 after it, in one run.
+    time_process("before phase 13")
+
+    # ---- 13. Fleet (before the timing phase) ----
+    fleet_launches, fleet_err = fleet_phase(stills, oracles, build_params,
+                                            cfg, card)
+
     # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):
         """ms per chunk over N_TIMED_CHUNKS, state carried, after one
@@ -1217,54 +1774,16 @@ def main(argv):
             if tag_t == "stills":
                 check(bool(tout.valid.all()), "timed chunks lost tracking")
 
-    # The per-frame API: one frame a call, state carried, host work
-    # (text, the overlay's copy to the host) included.
-    ttr = new_tracker()
-    for frame in frames8[:4]:
-        ttr.process(frame, **kw)
-    frame_ms = []
-    for i in range(N_PROCESS_TIMED):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        ttr.process(frames8[i % N_PROCESS], **kw)
-        end.record()
-        end.synchronize()
-        frame_ms.append(start.elapsed_time(end))
-    print(f"[timing] LaneTracker.process ('fast', demo1): median "
-          f"{float(np.median(frame_ms)):.3f} ms a frame over "
-          f"{N_PROCESS_TIMED} frames after 4 warm-up frames (min "
-          f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}; CUDA events) "
-          f"({card})")
+    ttr = time_process("after phase 13")
     print(f"[timing] CLI on {T_SLICE} frames, --chunk {CLI_CHUNK}: "
           f"{cli_fps_line} ({card})")
     # Where a process() call's time goes: N_PROCESS frames under the
     # profiler, read through the lt.* ranges tracker_step opens
     # (scripts/torch_chunk_breakdown.py's reader), per frame.
-    breakdown = importlib.import_module("scripts.torch_chunk_breakdown")
-    ptrace = REPO / "build" / "chip_smoke_process_trace.json"
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for frame in frames8:
-            ttr.process(frame, **kw)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / N_PROCESS
-    prof.export_chrome_trace(str(ptrace))
-    stages = breakdown.stage_table(
-        json.loads(ptrace.read_text())["traceEvents"], N_PROCESS)
-    ptrace.unlink()
-    busy = sum(v["device_ms"] for v in stages.values())
-    in_ranges = sum(v["host_ms"] for v in stages.values())
-    print(f"[profile] LaneTracker.process under torch.profiler, per frame "
-          f"over {N_PROCESS}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}, host "
-          f"outside the lt.* ranges {wall_ms - in_ranges:.3f} ms ({card})")
-    for name, v in stages.items():
-        print(f"[profile]   {name:18s} host {v['host_ms']:10.3f} ms  "
-              f"device {v['device_ms']:9.3f} ms  launches "
-              f"{v['launches']:7.1f}")
+    events, wall_ms = traced(lambda: [ttr.process(frame, **kw)
+                                      for frame in frames8])
+    print_stages("profile", "LaneTracker.process, per frame", events,
+                 wall_ms, N_PROCESS, card)
     del ttr, tracker
 
     calls = {
@@ -1352,6 +1871,13 @@ def main(argv):
             "path_launches": {path: got[name]
                               for path, got in path_launches.items()
                               if got.get(name)},
+            "fleet_launches": {step: got[name][0]
+                               for step, got in fleet_launches.items()
+                               if name in got},
+            "fleet_kernel_launches": {step: got[name][1]
+                                      for step, got in fleet_launches.items()
+                                      if name in got},
+            "fleet_max_abs_err": fleet_err.get(name),
             **extra,
         })
 
@@ -1519,35 +2045,13 @@ def main(argv):
     # In 'cond' each failing frame's lt.second_attempt nests inside
     # lt.back_half: the reader counts that range's host time in both, and
     # gives the back half's kernels launched after it to (outside).
-    breakdown = importlib.import_module("scripts.torch_chunk_breakdown")
-    trace = REPO / "build" / "chip_smoke_trace.json"
-    trace.parent.mkdir(exist_ok=True)
-    def profile_chunk(mode, tag_p):
-        st = fresh("cuda")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            chunk_process(st, gfail, gparams, cfg, second_attempt=mode)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-        trace.unlink()
-        with mock.patch.object(breakdown, "STAGES",
-                               breakdown.STAGES + ("lt.second_attempt",)):
-            stages = breakdown.stage_table(events, 1)
-        busy = sum(v["device_ms"] for v in stages.values())
-        print(f"[{tag_p}] {tag} chunk, {mode}, under torch.profiler: wall "
-              f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
-              f"{1.0 - busy / wall_ms:.3f} ({card})")
-        for name, v in stages.items():
-            print(f"[{tag_p}]   {name:18s} host {v['host_ms']:10.3f} ms  "
-                  f"device {v['device_ms']:9.3f} ms  launches "
-                  f"{v['launches']:7.0f}")
-
     for mode in TIMED_MODES:
-        profile_chunk(mode, "profile")
+        st = fresh("cuda")
+        events, wall_ms = traced(lambda: chunk_process(
+            st, gfail, gparams, cfg, second_attempt=mode))
+        print_stages("profile", f"{tag} chunk, {mode}", events, wall_ms, 1,
+                     card)
+    fleet_profile(stills, build_params, cfg, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Perspective sampling grids (numpy only).
+"""Homography estimation and perspective sampling grids (numpy only).
 
-Copied from lane_tracker_tpu/calib/homography.py; tests/test_torch_host.py
-pins every grid it builds equal to the original's.  The grids mirror
-OpenCV's resampling: 'fixed' rounds source coordinates to 1/32 px with
-2^15 weights (classic warpPerspective / cv2.undistort maps), 'float' is
-OpenCV >= 5's single-precision bilinear path.
+Copied from lane_tracker_tpu/calib/homography.py (the 4-point solve
+``get_perspective_transform`` and ``project_points``, :26 and :47, and the
+grids); tests/test_torch_host.py pins each equal to the original's.  The
+grids mirror OpenCV's resampling: 'fixed' rounds source coordinates to
+1/32 px with 2^15 weights (classic warpPerspective / cv2.undistort maps),
+'float' is OpenCV >= 5's single-precision bilinear path.
 """
 
 from __future__ import annotations
@@ -15,6 +16,35 @@ INTER_BITS = 5
 INTER_TAB_SIZE = 1 << INTER_BITS  # 32 subpixel bins
 COEF_BITS = 15
 COEF_SCALE = 1 << COEF_BITS  # 2^15 weight scale
+
+
+def get_perspective_transform(src_points, dst_points):
+    """Solve the 3x3 homography mapping 4 src points to 4 dst points.
+
+    Equivalent to ``cv2.getPerspectiveTransform``: sets up the standard 8x8
+    DLT system and solves it, with H[2,2] fixed to 1.
+    """
+    src = np.asarray(src_points, dtype=np.float64).reshape(4, 2)
+    dst = np.asarray(dst_points, dtype=np.float64).reshape(4, 2)
+    A = np.zeros((8, 8), dtype=np.float64)
+    b = np.zeros(8, dtype=np.float64)
+    for i in range(4):
+        x, y = src[i]
+        u, v = dst[i]
+        A[2 * i] = [x, y, 1, 0, 0, 0, -x * u, -y * u]
+        A[2 * i + 1] = [0, 0, 0, x, y, 1, -x * v, -y * v]
+        b[2 * i] = u
+        b[2 * i + 1] = v
+    h = np.linalg.solve(A, b)
+    return np.append(h, 1.0).reshape(3, 3)
+
+
+def project_points(H, points):
+    """Apply homography H to an (N, 2) array of points (float64)."""
+    pts = np.asarray(points, dtype=np.float64)
+    ones = np.ones((*pts.shape[:-1], 1), dtype=np.float64)
+    homog = np.concatenate([pts, ones], axis=-1) @ H.T
+    return homog[..., :2] / homog[..., 2:3]
 
 
 def _round_half_even(x):

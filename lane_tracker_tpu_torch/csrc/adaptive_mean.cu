@@ -15,7 +15,8 @@
 // over.
 //
 // Plain C interface, loaded with ctypes (as filter_stage.cu): launches on
-// the stream it is given, allocates nothing, returns cudaGetLastError().
+// the stream it is given, allocates nothing, returns cudaGetLastError() and
+// counts the launch in lt_filter_stage_launches.
 //
 // What bounds it on the H100: HBM bytes (one u8 read and one u8 write a
 // pixel, 0.0283 ms at (64, 1100, 672)); the design's job is to keep the
@@ -286,7 +287,7 @@ int lt_adaptive_mean(const void* img, void* out, int T, int H, int W,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(img), static_cast<uint8_t*>(out), H, W,
       vec, p);
-  return (int)cudaGetLastError();
+  return (int)lt::filter_stage_launched();
 }
 
 }  // extern "C"

@@ -39,7 +39,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // cudaGetLastError() after a launch, counting the launch in
 // lt_filter_stage_launches if it was taken (filter_stage.cu; the launchers
-// of filter_stage.cu, tophat_staged.cu and dual_tophat.cu call it).
+// of filter_stage.cu, tophat_staged.cu, dual_tophat.cu, adaptive_mean.cu
+// and the shift chains call it).
 cudaError_t filter_stage_launched();
 
 // Whether a kernel may move whole groups of n bytes (16: a u8 quad): W a

@@ -26,7 +26,8 @@
 // is given, allocates nothing (the caller passes outputs and scratch) and
 // returns cudaGetLastError().  Images are (T, H, W) uint8, row-major,
 // contiguous.  lt_filter_stage_launches counts the kernels launched, those
-// of tophat_staged.cu and dual_tophat.cu too.
+// of tophat_staged.cu, dual_tophat.cu, adaptive_mean.cu and the shift
+// chains too.
 //
 // What bounds them on the H100: shared-memory traffic and issue slots for
 // the stencils, HBM bytes for the tail.  Each kernel reads its u8 inputs

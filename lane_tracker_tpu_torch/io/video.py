@@ -21,6 +21,7 @@ count) so the device pipeline always sees chunks of one shape.
 
 from __future__ import annotations
 
+import importlib
 import pathlib
 import shutil
 import subprocess
@@ -150,7 +151,7 @@ def _pil_image():
     """PIL's Image module, imported only where an image directory is
     read or written."""
     try:
-        from PIL import Image
+        Image = importlib.import_module("PIL.Image")
     except ImportError as e:
         raise ImportError(
             "image directories need Pillow (PIL), which is not installed; "

@@ -32,10 +32,9 @@ import torch
 
 from lane_tracker_tpu_torch.kernels.build import load_library
 from lane_tracker_tpu_torch.kernels.filter_stage import (
-    _check,
+    _call,
     _on_cuda,
     _runs_table,
-    _stream,
     _tophat_k,
 )
 from lane_tracker_tpu_torch.ops.morphology import tophat_ellipse
@@ -102,11 +101,10 @@ def _launch(img: torch.Tensor, kt, kb, C, noise, block):
     th = torch.empty_like(x)
     keep = torch.empty_like(x) if noise else None
     runs = _runs_table(_tophat_k(kt))
-    _check(load_library().lt_channel_stage(
-        x.data_ptr(), th.data_ptr(), None if keep is None else keep.data_ptr(),
-        runs.ctypes.data, len(runs), int(kt), int(kb), int(C), kn, Cn, nthr,
-        want, T, H, W, _stream()),
-        "lt_channel_stage")
+    _call(x.device, load_library().lt_channel_stage,
+          x.data_ptr(), th.data_ptr(),
+          None if keep is None else keep.data_ptr(), runs.ctypes.data,
+          len(runs), int(kt), int(kb), int(C), kn, Cn, nthr, want, T, H, W)
     if squeeze:
         th = th[0]
         keep = None if keep is None else keep[0]

@@ -2,10 +2,12 @@
 
 Each public function takes (T, H, W) uint8 tensors.  On CUDA tensors it
 launches a hand-written sm_90a kernel from csrc/ (built at first use,
-kernels/build.py) on the current stream, or raises; on CPU tensors it runs
-the plain PyTorch twin defined beside it.  There is no fallback between
-the two: the device of the inputs decides.  Every CUDA launch adds one to
-``LAUNCHES[<function name>]``; twins never count.
+kernels/build.py) on its device's current stream, with that device
+current, or raises; on CPU tensors it runs the plain PyTorch twin defined
+beside it.  There is no fallback between the two: the device of the
+inputs decides, and inputs on two devices raise before any launch.
+Every CUDA launch adds one to ``LAUNCHES[<function name>]``; twins never
+count.
 
 Replaced TPU kernels (lane_tracker_tpu/kernels/filter_stage2.py), attempt 1:
 
@@ -54,7 +56,8 @@ running arm sums; the open + prefix tail keeps 32 binary pixels a word
 (the open as ANDs and ORs of shifted words, the prefixes from popcounts);
 the probes' tophats run the tophat's tile; the adaptive mean keeps running
 sums.
-``kernel_launches()`` reads the library's own count of kernel launches.
+``kernel_launches()`` reads the library's own count of kernel launches
+(every launcher of this module's kernels adds to it).
 """
 
 from __future__ import annotations
@@ -139,10 +142,7 @@ def _on_cuda(*imgs: torch.Tensor) -> bool:
             raise ValueError(
                 f"expected (T, H, W) uint8 tensors of one shape, got "
                 f"{tuple(x.shape)} {x.dtype}")
-    devices = {x.device for x in imgs}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
-    device = devices.pop()
+    device = _one_device(*imgs)
     if device.type == "cpu":
         return False
     if device.type != "cuda":
@@ -191,13 +191,31 @@ def _threshold_k(ksize) -> int:
     return k
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+
+def _one_device(*tensors: torch.Tensor) -> torch.device:
+    """The one device a call's tensors lie on; ValueError, before any
+    launch, if they lie on several."""
+    devices = {x.device for x in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            f"inputs on several devices: {sorted(map(str, devices))}")
+    return devices.pop()
+
+
+def _call(device: torch.device, entry, *args) -> None:
+    """Call the library's C launcher ``entry`` with ``args`` and, last,
+    the stream, with ``device`` (the inputs') current, on its current
+    stream.  The launchers read the current device (cudaGetDevice) and
+    set their kernels' shared-memory attributes on it
+    (cudaFuncSetAttribute), so a call on another card's tensors must make
+    that card current.  Raises on a CUDA error."""
+    with torch.cuda.device(device):
+        _check(entry(*args, torch.cuda.current_stream(device).cuda_stream),
+               entry.__name__)
 
 
 def _launch_tophat(img: torch.Tensor, ksize: int) -> torch.Tensor:
@@ -206,9 +224,9 @@ def _launch_tophat(img: torch.Tensor, ksize: int) -> torch.Tensor:
     T, H, W = img.shape
     out = torch.empty_like(img)
     runs = _runs_table(int(ksize))
-    _check(load_library().lt_tophat(
-        img.data_ptr(), out.data_ptr(), None, runs.ctypes.data, len(runs),
-        int(ksize), T, H, W, _stream()), "lt_tophat")
+    _call(img.device, load_library().lt_tophat,
+          img.data_ptr(), out.data_ptr(), None, runs.ctypes.data, len(runs),
+          int(ksize), T, H, W)
     return out
 
 
@@ -224,10 +242,9 @@ def _launch_open_prefix(merged: torch.Tensor, open_k: int) -> tuple:
     T, H, W = merged.shape
     out, pref = torch.empty_like(merged), _prefix_buffer(merged)
     runs = _runs_table(int(open_k))
-    _check(load_library().lt_open_prefix(
-        merged.data_ptr(), out.data_ptr(), pref.data_ptr(), runs.ctypes.data,
-        len(runs), int(open_k), T, H, W, _count_shift(W), _stream()),
-        "lt_open_prefix")
+    _call(merged.device, load_library().lt_open_prefix,
+          merged.data_ptr(), out.data_ptr(), pref.data_ptr(), runs.ctypes.data,
+          len(runs), int(open_k), T, H, W, _count_shift(W))
     return out, pref
 
 
@@ -238,12 +255,11 @@ def _launch_thr_merge_open(r_th, b_feat, keep, kb, Cb, open_k) -> tuple:
     out, pref = torch.empty_like(r_th), _prefix_buffer(r_th)
     b_th = torch.empty_like(r_th)
     runs = _runs_table(int(open_k))
-    _check(load_library().lt_thr_merge_open(
-        r_th.data_ptr(), b_feat.data_ptr(),
-        None if keep is None else keep.data_ptr(), out.data_ptr(),
-        pref.data_ptr(), b_th.data_ptr(), runs.ctypes.data, len(runs),
-        int(open_k), T, H, W, int(kb), int(Cb), _count_shift(W), _stream()),
-        "lt_thr_merge_open")
+    _call(r_th.device, load_library().lt_thr_merge_open,
+          r_th.data_ptr(), b_feat.data_ptr(),
+          None if keep is None else keep.data_ptr(), out.data_ptr(),
+          pref.data_ptr(), b_th.data_ptr(), runs.ctypes.data, len(runs),
+          int(open_k), T, H, W, int(kb), int(Cb), _count_shift(W))
     return out, pref
 
 
@@ -252,20 +268,19 @@ def _launch_merge_open(r_th, b_th, keep, open_k) -> tuple:
     T, H, W = r_th.shape
     out, pref = torch.empty_like(r_th), _prefix_buffer(r_th)
     runs = _runs_table(int(open_k))
-    _check(load_library().lt_merge_open(
-        r_th.data_ptr(), b_th.data_ptr(),
-        None if keep is None else keep.data_ptr(), out.data_ptr(),
-        pref.data_ptr(), runs.ctypes.data, len(runs), int(open_k), T, H, W,
-        _count_shift(W), _stream()), "lt_merge_open")
+    _call(r_th.device, load_library().lt_merge_open,
+          r_th.data_ptr(), b_th.data_ptr(),
+          None if keep is None else keep.data_ptr(), out.data_ptr(),
+          pref.data_ptr(), runs.ctypes.data, len(runs), int(open_k), T, H, W,
+          _count_shift(W))
     return out, pref
 
 
 def _launch_adaptive_mean(img: torch.Tensor, k: int, C: int) -> torch.Tensor:
     T, H, W = img.shape
     out = torch.empty_like(img)
-    _check(load_library().lt_adaptive_mean(
-        img.data_ptr(), out.data_ptr(), T, H, W, int(k), int(C), _stream()),
-        "lt_adaptive_mean")
+    _call(img.device, load_library().lt_adaptive_mean,
+          img.data_ptr(), out.data_ptr(), T, H, W, int(k), int(C))
     return out
 
 
@@ -273,9 +288,9 @@ def _launch_threshold(img: torch.Tensor, k: int, C: int,
                       noise_thresh: int) -> torch.Tensor:
     T, H, W = img.shape
     out = torch.empty_like(img)
-    _check(load_library().lt_cross_threshold(
-        img.data_ptr(), out.data_ptr(), T, H, W, int(k), int(C),
-        int(noise_thresh), _stream()), "lt_cross_threshold")
+    _call(img.device, load_library().lt_cross_threshold,
+          img.data_ptr(), out.data_ptr(), T, H, W, int(k), int(C),
+          int(noise_thresh))
     return out
 
 
@@ -315,9 +330,9 @@ def _launch_staged(img: torch.Tensor, ksize: int, code: int) -> torch.Tensor:
     T, H, W = img.shape
     out = torch.empty_like(img)
     runs = _runs_table(int(ksize))
-    _check(load_library().lt_tophat_staged(
-        img.data_ptr(), out.data_ptr(), None, runs.ctypes.data, len(runs),
-        int(ksize), T, H, W, int(code), _stream()), "lt_tophat_staged")
+    _call(img.device, load_library().lt_tophat_staged,
+          img.data_ptr(), out.data_ptr(), None, runs.ctypes.data, len(runs),
+          int(ksize), T, H, W, int(code))
     return out
 
 
@@ -367,10 +382,10 @@ def dual_tophat(a: torch.Tensor, b: torch.Tensor, ka: int, kb: int):
     T, H, W = a.shape
     out_a, out_b = torch.empty_like(a), torch.empty_like(b)
     runs_a, runs_b = _runs_table(ka), _runs_table(kb)
-    _check(load_library().lt_dual_tophat(
-        a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
-        None, None, runs_a.ctypes.data, len(runs_a), ka, runs_b.ctypes.data,
-        len(runs_b), kb, T, H, W, _stream()), "lt_dual_tophat")
+    _call(a.device, load_library().lt_dual_tophat,
+          a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+          None, None, runs_a.ctypes.data, len(runs_a), ka, runs_b.ctypes.data,
+          len(runs_b), kb, T, H, W)
     LAUNCHES["dual_tophat"] += 1
     return out_a, out_b
 

@@ -92,6 +92,15 @@ class ResampleGrid(nn.Module):
     def is_float(self) -> bool:
         return self.w00.dtype == torch.float64
 
+    def copy_to(self, device) -> "ResampleGrid":
+        """A new grid with a copy of every buffer on ``device``."""
+        new = ResampleGrid.__new__(ResampleGrid)
+        nn.Module.__init__(new)
+        new.dst_shape, new.src_size = self.dst_shape, self.src_size
+        for name, buf in self.named_buffers(recurse=False):
+            new.register_buffer(name, buf.to(device, copy=True))
+        return new
+
 
 # Every nonzero weight at least 2^-20 (an f32, so its last bit at least
 # 2^-43) and their sum at most 4: then each tap product, each f32 partial

@@ -46,6 +46,7 @@ from lane_tracker_tpu_torch.calib.undistort import (
 )
 from lane_tracker_tpu_torch.device import DEFAULT_DEVICE, entry_device
 from lane_tracker_tpu_torch.kernels.build import load_library
+from lane_tracker_tpu_torch.kernels.filter_stage import _call, _one_device
 
 LANE = 128
 SOURCE = {"banded_pass2": "lane_tracker_tpu_torch/csrc/resample_mxu2.cu"}
@@ -187,12 +188,11 @@ def _pass2_on_cuda(t1: torch.Tensor, wpack: torch.Tensor, out_width: int
     if not 1 <= out_width <= wpack.shape[1] * LANE:
         raise ValueError(f"out_width {out_width} outside the tiles' "
                          f"{wpack.shape[1] * LANE} columns")
-    if t1.device != wpack.device:
-        raise ValueError(f"t1 on {t1.device}, wpack on {wpack.device}")
-    if t1.device.type == "cpu":
+    device = _one_device(t1, wpack)
+    if device.type == "cpu":
         return False
-    if t1.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t1.device}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
     if not (t1.is_contiguous() and wpack.is_contiguous()):
         raise ValueError("CUDA kernel inputs must be contiguous")
     return True
@@ -224,11 +224,9 @@ def pass2(t1: torch.Tensor, wpack: torch.Tensor,
     T, C, Ho, Ws = t1.shape
     out = torch.empty((T, C, Ho, out_width), dtype=torch.uint8,
                       device=t1.device)
-    rc = load_library().lt_banded_pass2(
-        t1.data_ptr(), wpack.data_ptr(), out.data_ptr(), T * C, Ho, Ws,
-        out_width, wpack.shape[1], torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lt_banded_pass2 failed: CUDA error {rc}")
+    _call(t1.device, load_library().lt_banded_pass2,
+          t1.data_ptr(), wpack.data_ptr(), out.data_ptr(), T * C, Ho, Ws,
+          out_width, wpack.shape[1])
     LAUNCHES["banded_pass2"] += 1
     return out
 

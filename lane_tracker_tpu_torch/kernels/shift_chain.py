@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from lane_tracker_tpu_torch.kernels.build import load_library
-from lane_tracker_tpu_torch.kernels.filter_stage import _check, _stream
+from lane_tracker_tpu_torch.kernels.filter_stage import _call, _check
 
 SOURCE = {"shift_chain": "lane_tracker_tpu_torch/csrc/shift_chain.cu",
           "shift_chain_2d": "lane_tracker_tpu_torch/csrc/shift_chain.cu"}
@@ -408,15 +408,15 @@ def shift_chain(x: torch.Tensor, v: Variant | str, k: int = K) -> torch.Tensor:
     if v.body == "morph_chain8":
         # the scratch between launches; q and bar are unused
         p = torch.empty_like(x)
-        _check(lib.lt_shift_chain_2d(
-            x.data_ptr(), out.data_ptr(), p.data_ptr(), None, None, h, w,
-            v.n_passes(k), *shifts, _stream()), "lt_shift_chain_2d")
+        _call(x.device, lib.lt_shift_chain_2d,
+              x.data_ptr(), out.data_ptr(), p.data_ptr(), None, None, h, w,
+              v.n_passes(k), *shifts)
         LAUNCHES["shift_chain_2d"] += 1
         return out
     c1, c2 = (*map(float, v.consts), 0.0, 0.0)[:2]
-    _check(lib.lt_shift_chain(
-        x.data_ptr(), out.data_ptr(), h, w, _DTYPE_CODE[v.dtype],
-        _BODY_CODE[v.body], _BOUND_CODE[v.boundary], axis, *shifts,
-        v.n_passes(k), float(v.fill), c1, c2, _stream()), "lt_shift_chain")
+    _call(x.device, lib.lt_shift_chain,
+          x.data_ptr(), out.data_ptr(), h, w, _DTYPE_CODE[v.dtype],
+          _BODY_CODE[v.body], _BOUND_CODE[v.boundary], axis, *shifts,
+          v.n_passes(k), float(v.fill), c1, c2)
     LAUNCHES["shift_chain"] += 1
     return out

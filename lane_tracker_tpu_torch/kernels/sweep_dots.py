@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from lane_tracker_tpu_torch.kernels.build import load_library
-from lane_tracker_tpu_torch.kernels.filter_stage import _check, _stream
+from lane_tracker_tpu_torch.kernels.filter_stage import _call, _one_device
 
 SOURCE = {"sweep_dots": "lane_tracker_tpu_torch/csrc/sweep_dots.cu"}
 REPLACES = {"sweep_dots": "scripts/mosaic_probe6.py:35"}
@@ -128,11 +128,12 @@ def sweep_dots(x: torch.Tensor, tri: torch.Tensor, kind: str, *,
     multiples of 16, NP of 64, R at most 608; the products read rows
     0..16 + block and columns col0..col0 + KP of each frame."""
     _validate(x, tri, kind, block, col0, sweeps)
-    if x.device.type == "cpu":
+    device = _one_device(x, tri)
+    if device.type == "cpu":
         return sweep_dots_plain(x, tri, kind, block=block, col0=col0,
                                 sweeps=sweeps)
-    if x.device.type != "cuda" or tri.device != x.device:
-        raise ValueError(f"no kernel for devices {x.device}, {tri.device}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
     if not (x.is_contiguous() and tri.is_contiguous()):
         raise ValueError("CUDA kernel inputs must be contiguous")
     if tri.data_ptr() % 16:
@@ -145,9 +146,9 @@ def sweep_dots(x: torch.Tensor, tri: torch.Tensor, kind: str, *,
                            device=x.device)
     count = torch.empty(t, dtype=torch.int32, device=x.device)
     kp, n = tri.shape
-    _check(load_library().lt_sweep_dots(
-        x.data_ptr(), tri.data_ptr(), out.data_ptr(), swept.data_ptr(),
-        partials.data_ptr(), count.data_ptr(), t, rows, cols, block, col0,
-        kp, n, sweeps, KINDS[kind], _stream()), "lt_sweep_dots")
+    _call(device, load_library().lt_sweep_dots,
+          x.data_ptr(), tri.data_ptr(), out.data_ptr(), swept.data_ptr(),
+          partials.data_ptr(), count.data_ptr(), t, rows, cols, block, col0,
+          kp, n, sweeps, KINDS[kind])
     LAUNCHES["sweep_dots"] += 1
     return out, swept

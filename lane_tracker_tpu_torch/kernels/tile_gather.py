@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from lane_tracker_tpu_torch.kernels.build import load_library
-from lane_tracker_tpu_torch.kernels.filter_stage import _check, _stream
+from lane_tracker_tpu_torch.kernels.filter_stage import _call, _one_device
 
 SOURCE = {"tile_gather": "lane_tracker_tpu_torch/csrc/tile_gather.cu"}
 REPLACES = {"tile_gather": "scripts/mosaic_probe11.py:49"}
@@ -100,18 +100,17 @@ def tile_gather(src: torch.Tensor, li: torch.Tensor, si: torch.Tensor,
     """``reps`` reps of op over the (8, 128) tiles of src (H, W) int32,
     with the tile-local indices li and si: (H, W) int32."""
     code = _validate(src, li, si, op, reps)
-    if src.device.type == "cpu":
+    device = _one_device(src, li, si)
+    if device.type == "cpu":
         return tile_gather_plain(src, li, si, op, reps)
-    if src.device.type != "cuda" or any(a.device != src.device
-                                        for a in (li, si)):
-        raise ValueError(f"no kernel for devices "
-                         f"{[str(a.device) for a in (src, li, si)]}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
     if not all(a.is_contiguous() for a in (src, li, si)):
         raise ValueError("CUDA kernel inputs must be contiguous")
     out = torch.empty_like(src)
     h, w = src.shape
-    _check(load_library().lt_tile_gather(
-        src.data_ptr(), li.data_ptr(), si.data_ptr(), out.data_ptr(), h, w,
-        code, reps, _stream()), "lt_tile_gather")
+    _call(device, load_library().lt_tile_gather,
+          src.data_ptr(), li.data_ptr(), si.data_ptr(), out.data_ptr(), h, w,
+          code, reps)
     LAUNCHES["tile_gather"] += 1
     return out

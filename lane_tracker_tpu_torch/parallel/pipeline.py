@@ -47,10 +47,10 @@ from lane_tracker_tpu_torch.tracker.step import (
 MODES = ("cond", "hoist", "two_phase")
 
 
-def _stack(items: list):
+def _stack(items: list, dim: int = 0):
     """Stack a list of same-type NamedTuples field by field."""
     cls = type(items[0])
-    return cls(*(None if fs[0] is None else torch.stack(fs)
+    return cls(*(None if fs[0] is None else torch.stack(fs, dim)
                  for fs in zip(*items)))
 
 

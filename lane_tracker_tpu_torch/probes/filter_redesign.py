@@ -226,10 +226,9 @@ def earlier_staged(lib, img, k, code):
     T_, H, W = img.shape
     out, scratch = torch.empty_like(img), torch.empty_like(img)
     runs = fs._runs_table(int(k))
-    fs._check(lib.lt_tophat_staged(
-        img.data_ptr(), out.data_ptr(), scratch.data_ptr(), runs.ctypes.data,
-        len(runs), int(k), T_, H, W, int(code), fs._stream()),
-        "lt_tophat_staged")
+    fs._call(img.device, lib.lt_tophat_staged,
+             img.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+             runs.ctypes.data, len(runs), int(k), T_, H, W, int(code))
     return out
 
 
@@ -240,11 +239,10 @@ def earlier_dual(lib, a, b, ka, kb):
     out_a, out_b = torch.empty_like(a), torch.empty_like(b)
     sa, sb = torch.empty_like(a), torch.empty_like(b)
     runs_a, runs_b = fs._runs_table(int(ka)), fs._runs_table(int(kb))
-    fs._check(lib.lt_dual_tophat(
-        a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
-        sa.data_ptr(), sb.data_ptr(), runs_a.ctypes.data, len(runs_a),
-        int(ka), runs_b.ctypes.data, len(runs_b), int(kb), T_, H, W,
-        fs._stream()), "lt_dual_tophat")
+    fs._call(a.device, lib.lt_dual_tophat,
+             a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+             sa.data_ptr(), sb.data_ptr(), runs_a.ctypes.data, len(runs_a),
+             int(ka), runs_b.ctypes.data, len(runs_b), int(kb), T_, H, W)
     return out_a, out_b
 
 
@@ -307,10 +305,10 @@ def earlier_chain2d(lib, x, v, bar):
     h, w = x.shape
     out, p, q = (torch.empty_like(x) for _ in range(3))
     a1, a2 = v.shifts
-    fs._check(lib.lt_shift_chain_2d(
-        x.data_ptr(), out.data_ptr(), p.data_ptr(), q.data_ptr(),
-        bar.data_ptr(), h, w, v.n_passes(), a1 % w, a2 % w, a1 % h, a2 % h,
-        fs._stream()), "lt_shift_chain_2d")
+    fs._call(x.device, lib.lt_shift_chain_2d,
+             x.data_ptr(), out.data_ptr(), p.data_ptr(), q.data_ptr(),
+             bar.data_ptr(), h, w, v.n_passes(), a1 % w, a2 % w, a1 % h,
+             a2 % h)
     return out
 
 

@@ -198,6 +198,26 @@ class TrackerParams(nn.Module):
             **geometry,
         ).to(device)
 
+    def copy_to(self, device) -> "TrackerParams":
+        """A new TrackerParams with a copy of every buffer on ``device``
+        (the fleet's ``parallel.mesh.replicate``): each grid copied, the
+        static geometry shared."""
+        device = entry_device(device)
+
+        def grid(g):
+            return None if g is None else g.copy_to(device)
+
+        return TrackerParams(
+            grid(self.grid_und_roi), grid(self.grid_warp_roi),
+            self.fwd_u.cpu().numpy(), self.fwd_v.cpu().numpy(),
+            img_size=self.img_size, warped_size=self.warped_size,
+            mppv=self.mppv, mpph=self.mpph, pipeline=self.pipeline,
+            raw_roi=self.raw_roi, col_roi=self.col_roi,
+            col_comp=self.col_comp, grid_und=grid(self.grid_und),
+            grid_warp=grid(self.grid_warp),
+            unwarp_grid=grid(self.unwarp_grid),
+        ).to(device)
+
 
 def params_from_jax(leaves, aux, device=DEFAULT_DEVICE) -> TrackerParams:
     """The port's params from the JAX package's ``TrackerParams``, with

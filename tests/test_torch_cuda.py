@@ -308,13 +308,14 @@ def test_open_tail_equals_twin_on_ragged_shapes(cuda, shape, k):
 def test_adaptive_mean_equals_twin_on_ragged_shapes(cuda, shape, k):
     """The redesigned adaptive mean (replicate clamp at ragged edges, byte
     staging where W % 16 != 0 or the data is misaligned) equals its twin
-    at every k up to the kernel's limit, one launch a call."""
+    at every k up to the kernel's limit, one launch a call, which the
+    library's own count sees."""
     img = _stripes(shape, sum(shape) + k)
     want = fs.adaptive_mean_plain(img, k, -5)
     x = img.to(cuda)
     fs.reset_launches()
-    got = fs.adaptive_mean(x, k, -5)
-    assert fs.LAUNCHES["adaptive_mean"] == 1
+    got, n = _counted(lambda: fs.adaptive_mean(x, k, -5))
+    assert fs.LAUNCHES["adaptive_mean"] == 1 and n == 1
     _same(got.cpu(), want)
     _same(fs.adaptive_mean(_misaligned(x), k, -5), got)
     for C in (300, -300, 7):  # idelta past +-256 decides every pixel
@@ -364,6 +365,32 @@ def test_filter_kernels_reject_large_k_before_launch(cuda):
             fn()
     assert fs.kernel_launches() == n0
     assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}
+
+
+def test_wrappers_launch_on_their_inputs_device(cuda):
+    """Inputs on the card and on the CPU raise before any launch.  With a
+    second card, a call on its tensors while the first is current
+    launches there and equals the twin (one card: that part cannot run,
+    tests/test_torch_launch_device.py holds the device switch on the
+    CPU)."""
+    x = _stripes((2, 60, 96), 3).to(cuda)
+    fs.reset_launches()
+    n0 = fs.kernel_launches()
+    for fn in (lambda: fs.merge_open(x, x.cpu()),
+               lambda: fs.thr_merge_open(x, x.cpu(), 35, 5),
+               lambda: fs.tophat_riders(x, 29, [(x.cpu(), 15, 8, -1)]),
+               lambda: fs.dual_tophat(x, x.cpu(), 29, 55)):
+        with pytest.raises(ValueError, match="several devices"):
+            fn()
+    assert fs.kernel_launches() == n0
+    assert fs.LAUNCHES == {name: 0 for name in fs.REPLACES}
+    if torch.cuda.device_count() > 1:
+        y = x.to("cuda:1")
+        with torch.cuda.device(0):
+            got = fs.tophat_ellipse(y, 29)
+            torch.cuda.synchronize(y.device)
+        assert got.device == y.device
+        assert torch.equal(got.cpu(), fs.tophat_ellipse_plain(x.cpu(), 29))
 
 
 def test_dual_tophat_launch_count(cuda):

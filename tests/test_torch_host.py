@@ -474,6 +474,156 @@ def test_stills_npz_equals_pil_decode():
             f, np.asarray(Image.open(ASSETS_DIR / n).convert("RGB")))
 
 
+def test_homography_solve_and_projection_copies():
+    src = [(242, 695), (564, 473), (721, 473), (1064, 695)]
+    dst = [(439, 1100), (439, 380), (643, 380), (643, 1100)]
+    M = t_hom.get_perspective_transform(src, dst)
+    np.testing.assert_array_equal(M, j_hom.get_perspective_transform(src,
+                                                                      dst))
+    pts = np.random.default_rng(0).uniform(0, 1280, (5, 7, 2))
+    np.testing.assert_array_equal(t_hom.project_points(M, pts),
+                                  j_hom.project_points(M, pts))
+
+
+@pytest.mark.parametrize("geometry", [((128, 96), (96, 128)),
+                                      ((1280, 720), (1080, 1100))])
+def test_synthetic_calibration_and_tiny_config_copies(geometry):
+    import lane_tracker_tpu.calib.synthetic as j_syn
+    import lane_tracker_tpu_torch.calib.synthetic as t_syn
+
+    (jc, jw), (tc, tw) = (j_syn.make_synthetic_calibration(*geometry),
+                          t_syn.make_synthetic_calibration(*geometry))
+    assert type(tc).__module__.startswith("lane_tracker_tpu_torch")
+    for a, b in ((tc, jc), (tw, jw)):
+        for f in dataclasses.fields(b):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert type(x) is type(y), f.name
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+    tcfg, jcfg = t_syn.tiny_config(), j_syn.tiny_config()
+    assert isinstance(tcfg, t_cfg.TrackerConfig)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+
+
+def _assert_warp_params_equal(a, b):
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert type(x) is type(y), f.name
+        np.testing.assert_array_equal(x, y, err_msg=f.name)
+
+
+def test_warp_calibration_copies():
+    import lane_tracker_tpu.calib.perspective as j_per
+    import lane_tracker_tpu_torch.calib.perspective as t_per
+
+    _assert_warp_params_equal(t_per.reference_warp_calibration(),
+                              j_per.reference_warp_calibration())
+    args = ([(10.5, 90), (40, 60), (60, 61), (90, 92)],
+            [(30, 128), (30, 40), (66, 40), (66, 128)], (128, 96),
+            (96, 128), 19.5, 14.0)
+    _assert_warp_params_equal(
+        t_per.calibrate_warp(*args, patch_width_m=3.5, patch_height_m=3.0),
+        j_per.calibrate_warp(*args, patch_width_m=3.5, patch_height_m=3.0))
+
+
+def test_camera_calibration_copy():
+    """``calibrate_camera`` on chessboard corners projected from a known
+    camera (no image, no cv2): the port's result is the JAX package's,
+    bit for bit, and recovers the camera."""
+    import lane_tracker_tpu.calib.camera as j_cam
+    import lane_tracker_tpu_torch.calib.camera as t_cam
+
+    obj = t_cam.chessboard_object_points(9, 6)
+    np.testing.assert_array_equal(obj, j_cam.chessboard_object_points(9, 6))
+    rng = np.random.default_rng(5)
+    truth = [1150.0, 1140.0, 640.0, 360.0, -0.24, 0.08, 1e-3, -5e-4, -0.02]
+    params = np.array(truth + [v for _ in range(5) for v in (
+        *rng.uniform(-0.35, 0.35, 3), *rng.uniform(-4, 4, 2),
+        rng.uniform(18, 26))])
+    image_points = j_cam._project(params, [obj] * 5)
+    got = t_cam.calibrate_camera([obj] * 5, image_points, (1280, 720))
+    want = j_cam.calibrate_camera([obj] * 5, image_points, (1280, 720))
+    np.testing.assert_array_equal(got[0].cam_matrix, want[0].cam_matrix)
+    np.testing.assert_array_equal(got[0].dist_coeffs, want[0].dist_coeffs)
+    assert got[1] == want[1]
+    for (ra, ta), (rb, tb) in zip(got[2], want[2]):
+        np.testing.assert_array_equal(ra, rb)
+        np.testing.assert_array_equal(ta, tb)
+    k = got[0].cam_matrix
+    np.testing.assert_allclose([k[0, 0], k[1, 1], k[0, 2], k[1, 2]],
+                               truth[:4], rtol=1e-6)
+    assert got[1] < 1e-6
+    with pytest.raises(ValueError, match="3 views"):
+        t_cam.calibrate_camera([obj] * 2, image_points[:2], (1280, 720))
+
+
+def test_calibrate_cli_warp_npz_equals_jax(tmp_path):
+    import lane_tracker_tpu.calibrate as j_cli
+    import lane_tracker_tpu_torch.calibrate as t_cli
+
+    cam, _ = j_load(ASSETS_DIR / "calibration.npz")
+    np.savez(tmp_path / "camera.npz", cam_matrix=cam.cam_matrix,
+             dist_coeffs=cam.dist_coeffs)
+    argv = ["warp", str(tmp_path / "camera.npz"), "--src", "242,695",
+            "564,473", "721,473", "1064,695", "--dst", "439,1100",
+            "439,380", "643,380", "643,1100", "--image-size", "1280x720",
+            "--warped-size", "1080x1100", "--patch-px", "196x146"]
+    assert t_cli.main(argv + ["--out", str(tmp_path / "t.npz")]) == 0
+    assert j_cli.main(argv + ["--out", str(tmp_path / "j.npz")]) == 0
+    with np.load(tmp_path / "t.npz") as a, np.load(tmp_path / "j.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype, key
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_calibrate_cli_camera_needs_cv2(tmp_path, monkeypatch):
+    """Without cv2 (as on the card's machine) ``camera`` raises its clear
+    error before reading a photo."""
+    import lane_tracker_tpu_torch.calibrate as t_cli
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(RuntimeError, match="requires cv2"):
+        t_cli.main(["camera", str(tmp_path / "*.jpg"), "--out",
+                    str(tmp_path / "camera.npz")])
+
+
+def test_debug_mode_raises_at_the_first_non_finite_op():
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from lane_tracker_tpu_torch.utils.debug import debug_mode
+
+    x = torch.tensor([0.0, 1.0])
+    with debug_mode():
+        y = torch.exp(x) + 1.0  # finite: no error
+        torch.empty(64)  # uninitialised memory is not a result
+        with pytest.raises(FloatingPointError, match="aten.log"):
+            torch.log(x)
+        with pytest.raises(FloatingPointError, match="aten.div"):
+            x / x
+    assert bool(torch.isfinite(y).all())
+    assert _get_current_dispatch_mode() is None
+    assert bool(torch.isinf(torch.log(x)).any())  # restored on exit
+    with pytest.raises(KeyError):
+        with debug_mode():
+            raise KeyError("inside")
+    assert _get_current_dispatch_mode() is None  # restored after a raise
+    with debug_mode(nan_checks=False):
+        torch.log(x)
+
+
+def test_assert_states_equal():
+    from lane_tracker_tpu_torch.utils.debug import assert_states_equal
+
+    a = init_state(4, 2, 16, device="cpu")
+    assert_states_equal(a, init_state(4, 2, 16, device="cpu"))
+    b = a._replace(ecc=a.ecc + 1e-4)
+    with pytest.raises(AssertionError, match="ecc"):
+        assert_states_equal(a, b)
+    assert_states_equal(a, b, atol=1e-3)
+    with pytest.raises(AssertionError, match="counter"):
+        assert_states_equal(a, a._replace(counter=a.counter + 1), atol=0.5)
+
+
 # The prologue of a subprocess that cannot import the modules ``mods``
 # (their names and submodules), as on a machine without them.
 BLOCK_IMPORTS = """
@@ -509,7 +659,14 @@ for name in ("lane_tracker_tpu_torch.kernels.shift_chain",
              "lane_tracker_tpu_torch.io.native_loader",
              "lane_tracker_tpu_torch.utils.profiling",
              "lane_tracker_tpu_torch.process_video",
-             "lane_tracker_tpu_torch.__main__"):
+             "lane_tracker_tpu_torch.__main__",
+             "lane_tracker_tpu_torch.parallel.streams",
+             "lane_tracker_tpu_torch.parallel.mesh",
+             "lane_tracker_tpu_torch.calibrate",
+             "lane_tracker_tpu_torch.calib.camera",
+             "lane_tracker_tpu_torch.calib.perspective",
+             "lane_tracker_tpu_torch.calib.synthetic",
+             "lane_tracker_tpu_torch.utils.debug"):
     assert name in sys.modules, "not walked: " + name
 print("ok")
 """
