@@ -1,7 +1,8 @@
 """Camera undistortion sampling grids, Brown-Conrady model (numpy only).
 
 Copied from lane_tracker_tpu/calib/undistort.py (distort_points,
-undistort_source_coords, undistort_grid, fused_undistort_warp_coords);
+undistort_source_coords, undistort_grid, fused_undistort_warp_coords,
+fused_undistort_warp_grid);
 tests/test_torch_host.py pins the grid and the fused coordinates equal to
 the original's.  The remap is built once on the host in
 float64 and quantized with OpenCV's 1/32-px fixed-point scheme, so the
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from lane_tracker_tpu_torch.calib.homography import (
+    float_grid,
     perspective_source_coords,
     quantize_grid,
 )
@@ -71,3 +73,15 @@ def fused_undistort_warp_coords(cam_matrix, dist_coeffs, M, src_size, dst_size):
     banded warp's pass-2 taps)."""
     ux, uy = perspective_source_coords(M, dst_size)
     return distort_points(cam_matrix, dist_coeffs, ux, uy)
+
+
+def fused_undistort_warp_grid(cam_matrix, dist_coeffs, M, src_size, dst_size,
+                              mode="float"):
+    """Gather grid of the fused undistort + warp (copied from
+    lane_tracker_tpu/calib/undistort.py:103-114): mode 'float' (full float
+    bilinear) or 'fixed' (1/32-px quantized, classic OpenCV)."""
+    sx, sy = fused_undistort_warp_coords(cam_matrix, dist_coeffs, M, src_size,
+                                         dst_size)
+    if mode == "float":
+        return float_grid(sx, sy, src_size)
+    return quantize_grid(sx, sy, src_size)

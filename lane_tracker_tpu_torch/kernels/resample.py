@@ -62,7 +62,7 @@ class ResampleGrid(nn.Module):
     weights are held as float64 copies of their float32 values, the dtype
     ``combine_taps`` computes its multiply-adds in, so no chunk converts
     them again.  ``rounded`` lists the flattened pixels whose multiply-adds
-    take ``_fma``'s round-to-odd correction (``needs_fma``); it is empty
+    take ``fma_f32``'s round-to-odd correction (``needs_fma``); it is empty
     for fixed grids.
     """
 
@@ -94,11 +94,40 @@ class ResampleGrid(nn.Module):
 
     def copy_to(self, device) -> "ResampleGrid":
         """A new grid with a copy of every buffer on ``device``."""
-        new = ResampleGrid.__new__(ResampleGrid)
+        return self._with(self.dst_shape, self.src_size, {
+            name: buf.to(device, copy=True)
+            for name, buf in self.named_buffers(recurse=False)})
+
+    def band(self, y0: int, y1: int) -> tuple["ResampleGrid", tuple]:
+        """Destination rows [y0, y1) of this grid, re-based onto the source
+        rows they read: (the band's grid, (s0, s1)), the band reading
+        source rows [s0, s1).  Resampling those source rows through it
+        gives exactly rows [y0, y1) of resampling the whole source: every
+        pixel keeps its taps, weights and ``rounded`` flag.  One host read
+        of the band's tap rows."""
+        H, W = self.dst_shape
+        Ws, Hs = self.src_size
+        if not 0 <= y0 < y1 <= H:
+            raise ValueError(f"rows [{y0}, {y1}) outside 0..{H}")
+        lo, hi = y0 * W, y1 * W
+        base = self.base[lo:hi]
+        rows = (base // Ws).aminmax()
+        s0 = int(rows.min)
+        s1 = min(int(rows.max) + 2, Hs)  # +1 lower tap, +1 exclusive
+        r = self.rounded
+        bufs = {"base": base - s0 * Ws,
+                **{k: getattr(self, k)[lo:hi]
+                   for k in ("w00", "w01", "w10", "w11")},
+                "rounded": r[(r >= lo) & (r < hi)] - lo}
+        return self._with((y1 - y0, W), (Ws, s1 - s0), bufs), (s0, s1)
+
+    @classmethod
+    def _with(cls, dst_shape, src_size, buffers: dict) -> "ResampleGrid":
+        new = cls.__new__(cls)
         nn.Module.__init__(new)
-        new.dst_shape, new.src_size = self.dst_shape, self.src_size
-        for name, buf in self.named_buffers(recurse=False):
-            new.register_buffer(name, buf.to(device, copy=True))
+        new.dst_shape, new.src_size = tuple(dst_shape), tuple(src_size)
+        for name, buf in buffers.items():
+            new.register_buffer(name, buf)
         return new
 
 
@@ -114,7 +143,7 @@ EXACT_MAX_WEIGHT_SUM = 4.0
 def needs_fma(*ws: np.ndarray) -> np.ndarray:
     """Per pixel of float weights ``ws`` (one array per slot): True where
     the plain float64 multiply-add may round twice, so ``combine_taps``
-    needs ``_fma`` there; False where it is exact (see EXACT_MIN_WEIGHT)."""
+    needs ``fma_f32`` there; False where it is exact (see EXACT_MIN_WEIGHT)."""
     ws = [np.asarray(w, np.float64) for w in ws]
     tiny = np.zeros(ws[0].shape, bool)
     for w in ws:
@@ -122,23 +151,23 @@ def needs_fma(*ws: np.ndarray) -> np.ndarray:
     return tiny | ~(sum(np.abs(w) for w in ws) <= EXACT_MAX_WEIGHT_SUM)
 
 
-def _fma(p: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``fma(p, w, c)``: the correctly rounded f32 of the exact ``p*w + c``
-    for uint8 taps ``p``, float64-held f32 weights ``w`` and an f32
-    partial sum ``c``, on any device.
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fma(a, b, c)``: the correctly rounded f32 of the exact ``a*b + c``
+    for tensors holding f32 values (uint8, float32, or float64 holding
+    f32 values), on any device; float32 out.
 
-    The product (8 by 24 significant bits) is exact in float64.  The
-    float64 sum ``s`` and its TwoSum residual ``e`` give the exact sum
-    ``s + e``; rounding it to odd (step ``s`` one place toward zero where
-    ``e`` has the opposite sign, then set its last bit where ``e != 0``)
-    gives a float64 whose rounding to nearest f32 equals the rounding of
-    the exact sum, because 53 >= 24 + 2 (round-to-odd at two or more extra
-    bits never turns into a tie, nor moves off one).  So this is one f32
-    rounding, as a true fma, for every input."""
-    a = p * w  # uint8 * float64: exact
-    s = a + c  # c promotes to float64 exactly
-    bb = s - a
-    e = (a - (s - bb)).add_(c - bb)
+    The product of two f32 values (24 by 24 significant bits) is exact in
+    float64.  The float64 sum ``s`` and its TwoSum residual ``e`` give the
+    exact sum ``s + e``; rounding it to odd (step ``s`` one place toward
+    zero where ``e`` has the opposite sign, then set its last bit where
+    ``e != 0``) gives a float64 whose rounding to nearest f32 equals the
+    rounding of the exact sum, because 53 >= 24 + 2 (round-to-odd at two
+    or more extra bits never turns into a tie, nor moves off one).  So
+    this is one f32 rounding, as a true fma, for every input."""
+    p = a.double() * b.double()  # exact; c promotes inside the adds
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)).add_(c - bb)
     # e and s of opposite signs: the exact sum lies below s in magnitude.
     bits = s.view(torch.int64).sub_((e * s < 0).long())
     return bits.bitwise_or_((e != 0).long()).view(torch.float64).float()
@@ -146,10 +175,10 @@ def _fma(p: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _fma_chain(p00, p01, p10, p11, ws):
     """The f32 chain ``fma(p11, w11, fma(p10, w10, fma(p00, w00, p01 *
-    w01)))`` with ``_fma``."""
+    w01)))`` with ``fma_f32``."""
     acc = (p01 * ws[1]).float()  # exact in float64, rounded once
     for p, w in ((p00, ws[0]), (p10, ws[2]), (p11, ws[3])):
-        acc = _fma(p, w, acc)
+        acc = fma_f32(p, w, acc)
     return acc
 
 
@@ -164,7 +193,7 @@ def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
     round-half-even and clip; bit-exact with the reference on the CPU.
     Each fma is a float64 multiply-add rounded to f32, exact wherever
     ``needs_fma`` is False; the pixels in ``grid.rounded`` are then taken
-    again through ``_fma``.  Fixed grids: 2^15 int weights,
+    again through ``fma_f32``.  Fixed grids: 2^15 int weights,
     ``(acc + 2^14) >> 15``, clip.
     """
     ws = [w[:, None] for w in (grid.w00, grid.w01, grid.w10, grid.w11)]
@@ -197,3 +226,21 @@ def bilinear_gather(img: torch.Tensor, grid: ResampleGrid) -> torch.Tensor:
             for off in (0, 1, Ws, Ws + 1)]
     out = combine_taps(*taps, grid)
     return out.reshape(T, *grid.dst_shape, C)
+
+
+def bilinear_gather_pair(a: torch.Tensor, b: torch.Tensor,
+                         grid: ResampleGrid) -> tuple:
+    """Resample two single-channel uint8 images, (Hs, Ws) or (T, Hs, Ws)
+    each, through the same grid: exactly the taps, weights and arithmetic
+    of two ``bilinear_gather`` calls, gathered once as two channels.  The
+    reference's u32 byte packing of the pair (resample.py:146-189) is a TPU
+    gather-count device; its ``bias_b``, which only the 'turbo' pipeline
+    passes, is not carried over."""
+    if a.shape != b.shape or a.dim() not in (2, 3):
+        raise ValueError(f"expected two (H, W) or (T, H, W) images of one "
+                         f"shape, got {tuple(a.shape)} and {tuple(b.shape)}")
+    pair = torch.stack([a, b], dim=-1)
+    out = bilinear_gather(pair if a.dim() == 3 else pair[None], grid)
+    if a.dim() == 2:
+        out = out[0]
+    return out[..., 0], out[..., 1]

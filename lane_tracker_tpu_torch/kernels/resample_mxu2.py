@@ -25,7 +25,7 @@ documented fidelity loss.
   ``lt_banded_pass2``) uses ``__fmaf_rn`` to match, and the plain twin
   ``pass2_plain`` takes the fma in float64, rounded once to f32 (one
   rounding whenever the two addends' bits span at most 53 places, as
-  ``kernels.resample._fma``).  The TPU kernel's band DMA and its
+  ``kernels.resample.fma_f32``).  The TPU kernel's band DMA and its
   mostly-zero (640, 128) weight tile on the MXU are a TPU layout, not the
   function, and are not carried over; t1 stays in (T, C, Ho, Ws) order,
   so the reference's two transposes go too.

@@ -21,6 +21,8 @@ as ``filter_lane_points_channels`` (ops/filters.py:62-153):
   the standalone threshold kernel's noise route.
 
 Each arrow is one of the kernels in kernels/filter_stage.py.
+``filter_lane_points`` (ops/filters.py:156) is the same stage on warped
+RGB frames, LAB-B by the LUT chain.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from lane_tracker_tpu_torch.kernels.filter_stage import (
     tophat_ellipse,
     tophat_riders,
 )
+from lane_tracker_tpu_torch.ops.color import rgb2lab_b_u8
 from lane_tracker_tpu_torch.ops.integrals import RowPrefixes
 from lane_tracker_tpu_torch.tracker.config import FilterConfig
 
@@ -78,3 +81,23 @@ def filter_stage(rgb_r: torch.Tensor, lab_b: torch.Tensor,
                               open_k=f.open_k)
     b_th = bilateral_threshold(b_feat, f.ksize_b, f.C_b)
     return merge_open(r_th, b_th, keep, open_k=f.open_k)
+
+
+def filter_lane_points(warped_rgb: torch.Tensor,
+                       filter_type: str = "bilateral", ksize_r: int = 25,
+                       C_r: int = 8, ksize_b: int = 35, C_b: int = 5,
+                       mask_noise: bool = False, ksize_noise: int = 65,
+                       C_noise: int = 10, noise_thresh: int = 135
+                       ) -> torch.Tensor:
+    """The filter stage's 0/255 binary of a warped (H, W, 3) or (T, H, W,
+    3) uint8 RGB frame: ``filter_stage`` of its R channel and its LAB-B
+    (the LUT chain, ``rgb2lab_b_u8``), with the reference's structuring
+    elements (29, 55, open 5).  The reference's defaults."""
+    f = FilterConfig(filter_type=filter_type, ksize_r=ksize_r, C_r=C_r,
+                     ksize_b=ksize_b, C_b=C_b, mask_noise=mask_noise,
+                     noise_thresh=noise_thresh, ksize_noise=ksize_noise,
+                     C_noise=C_noise)
+    frames = warped_rgb if warped_rgb.dim() == 4 else warped_rgb[None]
+    binary, _ = filter_stage(frames[..., 0].contiguous(),
+                             rgb2lab_b_u8(frames), f)
+    return binary if warped_rgb.dim() == 4 else binary[0]

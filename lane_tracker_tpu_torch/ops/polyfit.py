@@ -1,6 +1,6 @@
 """Quadratic least squares, poly sampling, validity, radius, eccentricity.
 
-Port of lane_tracker_tpu/ops/polyfit.py:49-235.  The fit consumes per-row
+Port of lane_tracker_tpu/ops/polyfit.py:35-235.  The fit consumes per-row
 pixel counts and x-sums (from prefix-sum interval lookups), standardises y
 by the data moments and solves the 3x3 normal equations in float32 with
 the reference's arithmetic order.  The solve is written out (Gaussian
@@ -38,6 +38,17 @@ def _solve3(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x1 = (A[..., 1, 3] - A[..., 1, 2] * x2) / A[..., 1, 1]
     x0 = (A[..., 0, 3] - A[..., 0, 1] * x1 - A[..., 0, 2] * x2) / A[..., 0, 0]
     return torch.stack([x0, x1, x2], dim=-1)
+
+
+def fit_poly_mask(mask: torch.Tensor) -> torch.Tensor:
+    """x = A y^2 + B y + C over the True (nonzero) pixels of an (..., H,
+    W) mask -> (..., 3) float32 [A, B, C]: ``fit_poly_rows`` of its
+    per-row counts and x-sums (exact in float32 below 2^24).  Undefined
+    below 3 distinct rows, as the reference's; callers gate on detection."""
+    w = (mask != 0).float()
+    W = mask.shape[-1]
+    xs = torch.arange(W, dtype=torch.float32, device=mask.device)
+    return fit_poly_rows(w.sum(-1), (w * xs).sum(-1), W)
 
 
 def fit_poly_rows(row_n: torch.Tensor, row_sx: torch.Tensor,
@@ -157,10 +168,23 @@ def check_validity(left_coeffs, right_coeffs, n_left, n_right, warped_size,
     return dist_ok & (n1 < thr) & (n2 < thr)
 
 
+def metric_coeffs(coeffs: torch.Tensor, mppv: float,
+                  mpph: float) -> torch.Tensor:
+    """The metric-space fit of a pixel-space one, (..., 3) -> (..., 3):
+    [A mpph / mppv^2, B mpph / mppv, C mpph], the closed-form
+    reparametrisation of the least squares (the reference's second
+    np.polyfit, lane_tracker.py:534-535)."""
+    return torch.stack([coeffs[..., 0] * f32(mpph) / f32(mppv * mppv),
+                        coeffs[..., 1] * f32(mpph) / f32(mppv),
+                        coeffs[..., 2] * f32(mpph)], dim=-1)
+
+
 def curve_radius_m(coeffs: torch.Tensor, warped_size, mppv: float,
                    mpph: float) -> torch.Tensor:
     """Curve radius in meters at y_eval = warped height, truncated.  The
-    metric fit is the closed-form reparametrisation of the pixel fit."""
+    metric fit's first two coefficients are ``metric_coeffs``', computed
+    here without the stack: the back half that calls this is
+    launch-bound."""
     m0 = coeffs[..., 0] * f32(mpph) / f32(mppv * mppv)
     m1 = coeffs[..., 1] * f32(mpph) / f32(mppv)
     y_eval = float(int(warped_size[1]))

@@ -1,9 +1,10 @@
 """Adaptive thresholds and ``cv2.inRange`` (plain torch).
 
 Port of lane_tracker_tpu/ops/threshold.py:26-173: the bilateral adaptive
-threshold in mode 'floor' only (the only mode the tracker uses), the
-adaptive mean threshold of the second attempt's 'neighborhood' filter, and
-``in_range`` for the noise mask.  The reference's bilateral threshold
+threshold (``bilateral_adaptive_threshold``, both modes; ``cross_threshold``
+is its mode 'floor', the one the tracker uses, and the twin of the
+cross-threshold kernel), the adaptive mean threshold of the second
+attempt's 'neighborhood' filter, and ``in_range`` for the noise mask.  The reference's bilateral threshold
 (lane_tracker.py:14-83) passes a pixel iff it beats the mean of BOTH the
 left and right arms, or BOTH the up and down arms, of a 1-px cross of
 radius ``ksize`` by margin C.  Arm sums come from int32 prefix sums along
@@ -36,6 +37,49 @@ def _arm_sums(x: torch.Tensor, dim: int, k: int):
     return before, after
 
 
+def _cross_hit(img: torch.Tensor, k: int, C: int, mode: str) -> torch.Tensor:
+    """The cross test of a (..., H, W) uint8 image: mode 'floor' passes a
+    pixel iff both horizontal arm sums are < k*x - C*k, or both vertical
+    ones are; mode 'ceil' iff both are > k*x + C*k."""
+    p = img.to(torch.int32)
+    left, right = _arm_sums(p, p.dim() - 1, k)
+    up, down = _arm_sums(p, p.dim() - 2, k)
+    if mode == "floor":
+        t = k * p - int(C) * k
+        return ((left < t) & (right < t)) | ((up < t) & (down < t))
+    t = k * p + int(C) * k
+    return ((left > t) & (right > t)) | ((up > t) & (down > t))
+
+
+def bilateral_adaptive_threshold(img: torch.Tensor, ksize: int = 30,
+                                 C: int = 0, mode: str = "floor",
+                                 true_value: int = 255,
+                                 false_value: int = 0) -> torch.Tensor:
+    """The reference's cross-kernel adaptive threshold of a (..., H, W)
+    uint8 image (lane_tracker.py:14-83): ``true_value`` where the pixel
+    beats the mean of both opposing arms of a 1-px cross of radius
+    ``ksize`` by more than C (mode 'floor'; 'ceil' the other way), else
+    ``false_value``.  Exact integer sums; equal to the JAX package's int16
+    arithmetic wherever that does not wrap (255 k + |C| k < 2^15, k <= 128
+    at C = 0).  On CUDA tensors mode 'floor' with 255/0 is the
+    cross-threshold kernel (``kernels.filter_stage.bilateral_threshold``),
+    at most ``THRESHOLD_MAX_K``."""
+    if mode not in ("floor", "ceil"):
+        raise ValueError("mode must be 'floor' or 'ceil'")
+    k = int(ksize)
+    if img.is_cuda and mode == "floor" and (true_value, false_value) == (
+            255, 0):
+        # Imported here: the kernels' module imports this one.
+        from lane_tracker_tpu_torch.kernels.filter_stage import (
+            bilateral_threshold,
+        )
+
+        x = img.reshape((-1,) + img.shape[-2:]).contiguous()
+        return bilateral_threshold(x, k, C).reshape(img.shape)
+    hit = _cross_hit(img, k, C, mode)
+    return torch.where(hit, int(true_value), int(false_value)).to(torch.uint8)
+
+
 def cross_threshold(img: torch.Tensor, ksize: int, C: int,
                     noise_thresh: int = -1) -> torch.Tensor:
     """Bilateral cross threshold (mode 'floor') of a (..., H, W) uint8
@@ -43,12 +87,7 @@ def cross_threshold(img: torch.Tensor, ksize: int, C: int,
     vertical ones are.  With ``noise_thresh >= 0`` returns the noise
     keep-mask ``(x < noise_thresh) | hit`` instead (the reference's
     ``~inRange(x, noise_thresh, 255) | thr(x)``)."""
-    k = int(ksize)
-    p = img.to(torch.int32)
-    left, right = _arm_sums(p, p.dim() - 1, k)
-    up, down = _arm_sums(p, p.dim() - 2, k)
-    t = k * p - int(C) * k
-    hit = ((left < t) & (right < t)) | ((up < t) & (down < t))
+    hit = _cross_hit(img, int(ksize), C, "floor")
     if noise_thresh >= 0:
         hit = hit | (in_range(img, noise_thresh, 255) == 0)
     return torch.where(hit, 255, 0).to(torch.uint8)

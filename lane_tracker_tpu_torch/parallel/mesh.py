@@ -6,8 +6,10 @@ Port of lane_tracker_tpu/parallel/mesh.py.  The reference's 1-D
 and stream shard i lives on device i.  There is no gradient or weight
 traffic; the only cross-device step is summing the fleet's metrics.
 
-``stream_row_mesh`` (rows of a frame sharded within a stream, with the
-halo exchanges XLA SPMD inserts) is not ported (ROADMAP).
+``stream_row_mesh`` adds the second axis, a frame's warped rows split
+within a stream: n_stream tuples of n_rows devices, each tuple a
+``row_devices`` for ``pipeline.chunk_process`` (parallel/rows.py, where
+each band recomputes its halo instead of the exchanges XLA SPMD inserts).
 """
 
 from __future__ import annotations
@@ -34,6 +36,27 @@ def stream_mesh(n_devices: int | None = None,
     if not mesh:
         raise ValueError("a stream mesh needs at least one device")
     return mesh
+
+
+def stream_row_mesh(n_stream: int, n_rows: int,
+                    devices=None) -> tuple[tuple[torch.device, ...], ...]:
+    """``n_stream`` tuples of ``n_rows`` devices (streams x image rows):
+    the first ``n_stream * n_rows`` of ``devices`` (which may repeat a
+    device, several bands on one card), else of the CUDA devices.  Without
+    CUDA the default raises."""
+    n = int(n_stream) * int(n_rows)
+    if n < 1:
+        raise ValueError(f"a {n_stream} x {n_rows} mesh has no devices")
+    if devices is None:
+        entry_device(DEFAULT_DEVICE)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [_indexed(entry_device(d)) for d in devices]
+    if len(devices) < n:
+        raise ValueError(f"a {n_stream} x {n_rows} mesh needs {n} devices, "
+                         f"got {len(devices)}")
+    return tuple(tuple(devices[s * n_rows:(s + 1) * n_rows])
+                 for s in range(n_stream))
 
 
 def _indexed(device: torch.device) -> torch.device:

@@ -18,6 +18,13 @@ does; all three modes give identical outputs:
   filter runs once on the whole chunk and the chunk is rescanned from the
   original state with both attempts.
 
+With ``row_devices`` the front half splits the warped rows over those
+devices (parallel/rows.py) and gives the same artifacts bit for bit.
+
+``build_chunk_processor`` is the processor cached per static config, as
+the reference's jit-compiled one, that ``LaneTracker.process_chunk`` and
+the CLI call.
+
 Each stage runs inside a ``torch.profiler.record_function`` range named
 ``lt.<stage>`` (warp_lab, filter, embed_search, second_attempt, back_half,
 overlay); two_phase's ranges are siblings, one ``lt.back_half`` per scan.
@@ -27,10 +34,12 @@ scripts/torch_chunk_breakdown.py reads them from a profile.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.profiler import record_function
 
+from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
 from lane_tracker_tpu_torch.tracker.config import TrackerConfig
 from lane_tracker_tpu_torch.tracker.state import TrackerState
 from lane_tracker_tpu_torch.tracker.step import (
@@ -90,13 +99,16 @@ def two_phase_scan(state: TrackerState, arts: FrontArtifacts,
 def chunk_process(state: TrackerState, frames: torch.Tensor,
                   params: TrackerParams, config: TrackerConfig,
                   with_overlay: bool = True,
-                  second_attempt: str | None = None):
+                  second_attempt: str | None = None, row_devices=None):
     """Process a (T, Hc, Wc, 3) uint8 chunk on ``frames.device``.
 
     ``second_attempt`` is 'cond', 'hoist' or 'two_phase' (module
     docstring); None means 'cond'.  'cond' reads attempt 1's validity on
     the host once per frame; 'hoist' and 'two_phase' never wait on the
     device inside the per-frame loop (two_phase waits once per chunk).
+    ``row_devices`` (one row of ``mesh.stream_row_mesh``) splits the front
+    half's warped rows over those devices; the rest runs on
+    ``row_devices[0]``, which holds ``state`` and ``params``.
 
     Returns (state, outputs): a StepOutput with a leading T axis;
     ``overlay`` is (T, Hc, Wc, 3) when ``with_overlay`` else None.
@@ -104,8 +116,14 @@ def chunk_process(state: TrackerState, frames: torch.Tensor,
     mode = second_attempt or "cond"
     if mode not in MODES:
         raise ValueError(f"unknown second_attempt mode {mode!r}")
-    arts = front_artifacts_batch(frames, params, config,
-                                 hoist_second_attempt=(mode == "hoist"))
+    hoist = mode == "hoist"
+    if row_devices is None:
+        arts = front_artifacts_batch(frames, params, config,
+                                     hoist_second_attempt=hoist)
+    else:
+        arts = front_artifacts_rows(frames, params, config, row_devices,
+                                    hoist_second_attempt=hoist)
+        frames = frames.to(row_devices[0])
     if mode == "two_phase" and has_second_attempt(config):
         state, (outs, metas) = two_phase_scan(state, arts, params, config)
     else:
@@ -117,3 +135,23 @@ def chunk_process(state: TrackerState, frames: torch.Tensor,
             outs = outs._replace(overlay=render_frame(frames, metas, params,
                                                       config))
     return state, outs
+
+
+@functools.lru_cache(maxsize=16)
+def build_chunk_processor(config: TrackerConfig, with_overlay: bool = True,
+                          hoist_second_attempt: bool = False,
+                          second_attempt: str | None = None):
+    """The chunk processor ``fn(state, frames, params)`` of a static
+    config, cached per config and options (the reference's jit-compiled
+    processor, lane_tracker_tpu/parallel/pipeline.py:138).
+    ``hoist_second_attempt=True`` is the reference's older spelling of
+    ``second_attempt='hoist'``."""
+    mode = second_attempt or ("hoist" if hoist_second_attempt else "cond")
+    if mode not in MODES:
+        raise ValueError(f"unknown second_attempt mode {mode!r}")
+
+    def fn(state, frames, params):
+        return chunk_process(state, frames, params, config, with_overlay,
+                             mode)
+
+    return fn

@@ -2,10 +2,10 @@
 
 Port of lane_tracker_tpu/process_video.py:27-219: load calibration,
 construct the tracker's params and state, stream a video through the
-chunk pipeline (``parallel.pipeline.chunk_process``) on the card, write
-the annotated output, and print the success ratio.  The same arguments,
-defaults and printed lines, plus ``--device`` (default ``cuda``; the
-counterpart of the reference's ``JAX_PLATFORMS``).
+chunk processor (``parallel.pipeline.build_chunk_processor``) on the
+card, write the annotated output, and print the success ratio.  The same
+arguments, defaults and printed lines, plus ``--device`` (default
+``cuda``; the counterpart of the reference's ``JAX_PLATFORMS``).
 
 Usage:
     python -m lane_tracker_tpu_torch input.mp4 output.mp4 \\
@@ -90,7 +90,7 @@ def run(argv=None):
     from lane_tracker_tpu_torch.calib.io import load_calibration_npz
     from lane_tracker_tpu_torch.device import entry_device
     from lane_tracker_tpu_torch.io.video import open_sink, open_source
-    from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
+    from lane_tracker_tpu_torch.parallel.pipeline import build_chunk_processor
     from lane_tracker_tpu_torch.render.text import draw_text
     from lane_tracker_tpu_torch.tracker.config import PRESETS
     from lane_tracker_tpu_torch.tracker.step import (
@@ -128,10 +128,11 @@ def run(argv=None):
         )
     sink = None if args.no_output else open_sink(args.output, src.size, src.fps)
 
+    process = build_chunk_processor(config, with_overlay=not args.no_output,
+                                    second_attempt=args.second_attempt)
+
     def step(state, chunk):
-        return chunk_process(state, torch.from_numpy(chunk).to(device), params,
-                             config, with_overlay=not args.no_output,
-                             second_attempt=args.second_attempt)
+        return process(state, torch.from_numpy(chunk).to(device), params)
 
     state = make_initial_state(config, params.warped_size, device)
     meter = FpsMeter()

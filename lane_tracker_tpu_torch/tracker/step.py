@@ -13,7 +13,11 @@ Port of lane_tracker_tpu/tracker/step.py for the 'fast', 'corridor' and
   (fixed-point undistort over the raw rows the warp needs, then the float
   bird's-eye warp) and LAB-B, with the frame batch as a tensor axis;
   'compat' undistorts the whole frame and takes LAB-B by the LUT chain.
-* ``front_artifacts_batch`` (step.py:781-814) and
+* ``front_artifacts_batch`` (step.py:781-814): its row-local stages
+  (``front_rows``: warp + LAB, the filters), which parallel/rows.py runs
+  per band of rows, then its stages over whole frames (``front_search``);
+  its one-frame forms ``front_half`` (step.py:636) and
+  ``front_artifacts`` (step.py:817), and
   ``second_attempt_artifacts_batch`` (step.py:761-778), ``_embed_cols`` /
   ``_embed_prefixes`` (step.py:471-520), ``_run_attempt``
   (step.py:563-633) with the corridor certificate, ``back_half``
@@ -78,8 +82,11 @@ from lane_tracker_tpu_torch.tracker.config import (
 from lane_tracker_tpu_torch.tracker.state import TrackerState, init_state
 
 PIPELINES = ("fast", "corridor", "compat")
-# The corridor's compute margin: the filter chain's influence radius
-# (tophat55 erode+dilate 54 + ksize_b=35 window 17 + open5 4 = 75), padded.
+# The corridor's compute margin, the JAX package's (step.py:265), which it
+# sizes by a filter reach of 75.  By ``parallel.rows.filter_reach`` the
+# reach is 93 (the cross threshold's arms are ksize pixels long), so a
+# crafted input can change the kept edge columns
+# (tests/test_torch_rows.py); kept at 80 so that 'corridor' equals JAX's.
 CORRIDOR_MARGIN = 80
 
 
@@ -320,6 +327,27 @@ class RenderMeta(NamedTuple):
     draw: torch.Tensor  # () bool
 
 
+def warp_chain(params: TrackerParams):
+    """The two-stage resample of ``params``: (undistort grid, warp grid,
+    the first raw frame row the undistort grid reads, the LAB-B function).
+    'fast' and 'corridor' undistort the raw rows the warp samples and take
+    LAB-B by the float path; 'compat' undistorts the whole frame and takes
+    LAB-B by the LUT chain."""
+    if params.pipeline == "compat":
+        return params.grid_und, params.grid_warp, 0, rgb2lab_b_u8
+    return (params.grid_und_roi, params.grid_warp_roi, params.raw_roi[0],
+            rgb2lab_b_fast)
+
+
+def warp_rows(frames: torch.Tensor, g_und: ResampleGrid, g_warp: ResampleGrid,
+              raw0: int, lab):
+    """Warped R and LAB-B of a (T, Hc, Wc, 3) uint8 chunk through the
+    grids ``g_und`` (reading raw rows from ``raw0``) then ``g_warp``."""
+    raw = frames[:, raw0:raw0 + g_und.src_size[1]]
+    warped = bilinear_gather(bilinear_gather(raw, g_und), g_warp)
+    return warped[..., 0].contiguous(), lab(warped)
+
+
 def warp_channels(frames: torch.Tensor, params: TrackerParams):
     """Warped R and LAB-B channels of a (T, Hc, Wc, 3) uint8 chunk.
 
@@ -327,14 +355,7 @@ def warp_channels(frames: torch.Tensor, params: TrackerParams):
     rows the warp samples, then the float bird's-eye warp (cropped to the
     corridor's compute columns), then LAB-B of the warped RGB.  'compat'
     undistorts the whole frame and takes LAB-B by the LUT chain."""
-    if params.pipeline == "compat":
-        und = bilinear_gather(frames, params.grid_und)
-        warped = bilinear_gather(und, params.grid_warp)
-        return warped[..., 0].contiguous(), rgb2lab_b_u8(warped)
-    ry0, ry1 = params.raw_roi
-    und = bilinear_gather(frames[:, ry0:ry1], params.grid_und_roi)
-    warped = bilinear_gather(und, params.grid_warp_roi)
-    return warped[..., 0].contiguous(), rgb2lab_b_fast(warped)
+    return warp_rows(frames, *warp_chain(params))
 
 
 def _embed_cols(binary: torch.Tensor, params: TrackerParams) -> torch.Tensor:
@@ -407,6 +428,56 @@ def second_attempt_artifacts_batch(r_chan: torch.Tensor, b_chan: torch.Tensor,
     return _embed_search(binary2, pref2, params, sa.search)
 
 
+class FrontRows(NamedTuple):
+    """The row-local products of the front half, every field (T, rows,
+    ...), so that rows of a chunk are a slice of each: the warped
+    channels, the attempt-1 binary and its packed row prefixes, and the
+    hoisted attempt-2's (else None)."""
+
+    r_chan: torch.Tensor
+    b_chan: torch.Tensor
+    binary: torch.Tensor
+    packed: torch.Tensor
+    binary2: torch.Tensor | None = None
+    packed2: torch.Tensor | None = None
+
+
+def front_rows(frames: torch.Tensor, g_und: ResampleGrid,
+               g_warp: ResampleGrid, raw0: int, lab, config: TrackerConfig,
+               hoist: bool) -> FrontRows:
+    """The front half's row-local stages of a (T, Hc, Wc, 3) uint8 chunk:
+    the warp + LAB through the grids (``warp_rows``), the attempt-1 filter
+    and, with ``hoist``, the attempt-2 filter."""
+    with record_function("lt.warp_lab"):
+        r_chan, b_chan = warp_rows(frames, g_und, g_warp, raw0, lab)
+    with record_function("lt.filter"):
+        binary, pref = filter_stage(r_chan, b_chan, config.filter)
+    rows = FrontRows(r_chan, b_chan, binary, pref.packed)
+    if hoist:
+        with record_function("lt.second_attempt"):
+            binary2, pref2 = filter_stage(r_chan, b_chan, _sa_config().filter)
+        rows = rows._replace(binary2=binary2, packed2=pref2.packed)
+    return rows
+
+
+def front_search(rows: FrontRows, params: TrackerParams,
+                 config: TrackerConfig) -> FrontArtifacts:
+    """The front half's stages over whole frames: each attempt's corridor
+    embedding and blind sliding-window intervals (the search sums columns
+    over many rows, so it is not row-local)."""
+    with record_function("lt.embed_search"):
+        pref, iv_sws = _embed_search(rows.binary, RowPrefixes(rows.packed),
+                                     params, config.search)
+    pref2 = iv2 = None
+    if rows.binary2 is not None:
+        with record_function("lt.second_attempt"):
+            pref2, iv2 = _embed_search(rows.binary2,
+                                       RowPrefixes(rows.packed2), params,
+                                       _sa_config().search)
+    return FrontArtifacts(r_chan=rows.r_chan, b_chan=rows.b_chan, pref=pref,
+                          iv_sws=iv_sws, pref2=pref2, iv_sws2=iv2)
+
+
 def front_artifacts_batch(frames: torch.Tensor, params: TrackerParams,
                           config: TrackerConfig,
                           hoist_second_attempt: bool = False
@@ -416,18 +487,29 @@ def front_artifacts_batch(frames: torch.Tensor, params: TrackerParams,
     blind sliding-window intervals, all batched over T.  With
     ``hoist_second_attempt`` (and a config that has a second attempt) the
     attempt-2 products are computed too, for every frame."""
-    with record_function("lt.warp_lab"):
-        r_chan, b_chan = warp_channels(frames, params)
-    with record_function("lt.filter"):
-        binary, pref = filter_stage(r_chan, b_chan, config.filter)
-    with record_function("lt.embed_search"):
-        pref, iv_sws = _embed_search(binary, pref, params, config.search)
-    pref2 = iv2 = None
-    if hoist_second_attempt and has_second_attempt(config):
-        with record_function("lt.second_attempt"):
-            pref2, iv2 = second_attempt_artifacts_batch(r_chan, b_chan, params)
-    return FrontArtifacts(r_chan=r_chan, b_chan=b_chan, pref=pref,
-                          iv_sws=iv_sws, pref2=pref2, iv_sws2=iv2)
+    hoist = hoist_second_attempt and has_second_attempt(config)
+    return front_search(front_rows(frames, *warp_chain(params), config,
+                                   hoist), params, config)
+
+
+def front_half(frame: torch.Tensor, params: TrackerParams,
+               config: TrackerConfig):
+    """One (Hc, Wc, 3) uint8 frame's stateless front half (step.py:636):
+    (warped R, warped LAB-B, the attempt-1 binary embedded into the full
+    warped width)."""
+    r_chan, b_chan = warp_channels(frame[None], params)
+    binary, _ = filter_stage(r_chan, b_chan, config.filter)
+    return r_chan[0], b_chan[0], _embed_cols(binary, params)[0]
+
+
+def front_artifacts(frame: torch.Tensor, params: TrackerParams,
+                    config: TrackerConfig,
+                    hoist_second_attempt: bool = False) -> FrontArtifacts:
+    """Everything the back half needs of one (Hc, Wc, 3) uint8 frame
+    (step.py:817): ``front_artifacts_batch`` of a batch of one, without
+    the T axis."""
+    return frame_artifacts(front_artifacts_batch(
+        frame[None], params, config, hoist_second_attempt), 0)
 
 
 def _run_attempt(state: TrackerState, cfg: TrackerConfig, scfg, params,

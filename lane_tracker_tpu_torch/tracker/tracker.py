@@ -6,7 +6,7 @@ Port of lane_tracker_tpu/tracker/tracker.py:33-433: the same constructor
 ``load_state``, ``get_success_ratio()`` (lane_tracker.py:178-181) and the
 diagnostics narration, print for print.  Per-call kwargs become a static
 ``TrackerConfig``; the per-frame step (``tracker.step.build_step``) or
-the chunk pipeline (``parallel.pipeline.chunk_process``) runs on the
+the chunk pipeline (``parallel.pipeline.build_chunk_processor``) runs on the
 tracker's device, and host-side post-processing adds the text
 annotations (and the optional debug visualizations).
 
@@ -28,7 +28,7 @@ from lane_tracker_tpu_torch.kernels.resample import (
     bilinear_gather,
     slot_remap,
 )
-from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
+from lane_tracker_tpu_torch.parallel.pipeline import build_chunk_processor
 from lane_tracker_tpu_torch.render.split import triple_split_view
 from lane_tracker_tpu_torch.render.text import draw_text
 from lane_tracker_tpu_torch.render.viz import search_visualization
@@ -387,7 +387,8 @@ class LaneTracker:
         **kwargs,
     ):
         """Throughput API: process a (T, H, W, 3) uint8 chunk of consecutive
-        frames through ``parallel.pipeline.chunk_process``.
+        frames through ``parallel.pipeline.build_chunk_processor``'s
+        processor for the config.
 
         Same keyword surface and semantics as :meth:`process` (minus the
         per-frame debug flags ``visualize_search``/``split_view``/
@@ -422,10 +423,9 @@ class LaneTracker:
         if frames.dim() != 4:
             raise ValueError("process_chunk expects a (T, H, W, 3) batch")
         self._prev_state = self._state
-        self._state, outs = chunk_process(
-            self._state, frames,
-            self.params, config, with_overlay=bool(with_overlay),
-            second_attempt=str(second_attempt))
+        step = build_chunk_processor(config, with_overlay=bool(with_overlay),
+                                     second_attempt=str(second_attempt))
+        self._state, outs = step(self._state, frames, self.params)
         valid = _host(outs.valid)
         self.counter += int(valid.shape[0])
         self.success += int(valid.sum())

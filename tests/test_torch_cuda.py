@@ -810,3 +810,76 @@ def test_queued_ms_times_the_queued_calls(cuda):
 
     lo, hi = (queued_ms(lambda n=n: fn(n), 10) for n in tg.REPS)
     assert 0 < lo < hi
+
+
+# ---- the names and paths the port added beside the kernels (gaps) ----
+
+
+def test_gaps_motion_frames_on_the_card(cuda):
+    """Frames 448-451 (a dropout from 450) made on the card equal the CPU
+    generator's, every value."""
+    from lane_tracker_tpu_torch.io import motion
+
+    t = range(448, 452)
+    scenes = motion.load_scenes()
+    got = torch.stack([motion.motion_frame(i, scenes) for i in t])
+    assert got.is_cuda
+    cpu = motion.load_scenes("cpu")
+    _same(got.cpu(), torch.stack([motion.motion_frame(i, cpu) for i in t]))
+
+
+def test_gaps_bilateral_adaptive_threshold_on_the_card(cuda, setup):
+    """Mode 'floor' with 255/0 launches the cross-threshold kernel; the
+    other forms run the plain arithmetic; both equal the CPU's."""
+    from lane_tracker_tpu_torch.ops.threshold import (
+        bilateral_adaptive_threshold,
+    )
+
+    _, _, frames = setup
+    img = frames[:2, 400:700, :, 1].contiguous()
+    for kw, launches in (({}, 1), ({"mode": "ceil", "C": 3}, 0),
+                         ({"true_value": 1, "false_value": 7}, 0)):
+        fs.reset_launches()
+        got = bilateral_adaptive_threshold(img.to(cuda), ksize=25, **kw)
+        assert fs.LAUNCHES["bilateral_threshold"] == launches
+        _same(got.cpu(), bilateral_adaptive_threshold(img, ksize=25, **kw))
+
+
+def test_gaps_api_names_on_the_card(cuda, setup):
+    """``filter_lane_points`` and ``bilinear_gather_pair`` on the card
+    equal the CPU's."""
+    from lane_tracker_tpu_torch.kernels.resample import bilinear_gather_pair
+    from lane_tracker_tpu_torch.ops.filters import filter_lane_points
+
+    params, gparams, frames = setup
+    warped = frames[:2, 450:720, 300:700].contiguous()
+    for kw in ({}, {"mask_noise": True}):
+        _same(filter_lane_points(warped.to(cuda), **kw).cpu(),
+              filter_lane_points(warped, **kw))
+    r0 = params.raw_roi[0]
+    a = frames[0, r0:r0 + params.grid_und_roi.src_size[1], :, 0]
+    b = frames[0, r0:r0 + params.grid_und_roi.src_size[1], :, 2]
+    got = bilinear_gather_pair(a.to(cuda), b.to(cuda), gparams.grid_und_roi)
+    want = bilinear_gather_pair(a, b, params.grid_und_roi)
+    for g, w in zip(got, want):
+        _same(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n_bands", [2, 3])
+def test_gaps_row_sharded_front_half_on_the_card(cuda, setup, n_bands):
+    """The front half over bands of this card equals the unsharded one,
+    every field, with the second attempt hoisted."""
+    from lane_tracker_tpu_torch.parallel.mesh import stream_row_mesh
+    from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
+    from lane_tracker_tpu_torch.tracker.step import front_artifacts_batch
+
+    _, gparams, frames = setup
+    cfg = PRESETS["demo1"]
+    g = frames.to(cuda)
+    g[3] = 0
+    row_devices = stream_row_mesh(1, n_bands, devices=["cuda"] * n_bands)[0]
+    want = front_artifacts_batch(g, gparams, cfg, True)
+    got = front_artifacts_rows(g, gparams, cfg, row_devices, True)
+    for x, y in zip(got, want):
+        for a, b in (zip(x, y) if isinstance(x, tuple) else ((x, y),)):
+            _same(a, b)

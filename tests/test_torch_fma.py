@@ -1,6 +1,6 @@
 """The float warp combine's multiply-add against exact arithmetic and JAX.
 
-``resample._fma(p, w, c)`` must be the correctly rounded f32 of the exact
+``resample.fma_f32(p, w, c)`` must be the correctly rounded f32 of the exact
 ``p*w + c`` (one rounding, as a true fma).  The reference here is exact:
 ``fractions.Fraction`` arithmetic, rounded to f32 by hand (nearest, ties
 to even).  The adversarial triples are built so that rounding the sum to
@@ -65,7 +65,7 @@ def exact_fma(p, w, c):
 
 
 def port_fma(p, w, c):
-    return t_resample._fma(torch.from_numpy(np.asarray(p, np.uint8)),
+    return t_resample.fma_f32(torch.from_numpy(np.asarray(p, np.uint8)),
                            torch.from_numpy(np.asarray(w, np.float64)),
                            torch.from_numpy(np.asarray(c, np.float32))).numpy()
 
@@ -85,7 +85,7 @@ def adversarial_triples():
 
 def test_adversarial_triples_need_one_rounding():
     """The triples really break float64-then-f32 rounding, and the port's
-    _fma rounds them once."""
+    fma_f32 rounds them once."""
     p, w, c = adversarial_triples()
     assert np.all(np.float32(w) == w)  # the weights are f32 values
     want = exact_fma(p, w, c)
@@ -174,7 +174,7 @@ def _near_ties(tg, n, rng, per_pixel=4096, keep=48):
     ws = [w[:, None] for w in (tg.w00, tg.w01, tg.w10, tg.w11)]
     acc = (t[:, :, 1].double() * ws[1]).float()
     for slot, w in ((0, ws[0]), (2, ws[2]), (3, ws[3])):
-        acc = t_resample._fma(t[:, :, slot], w, acc)
+        acc = t_resample.fma_f32(t[:, :, slot], w, acc)
     dist = (acc - torch.floor(acc) - 0.5).abs().amin(-1).numpy()
     order = np.argsort(dist, axis=0)[:keep]  # (keep, n)
     return np.take_along_axis(taps, order[:, :, None, None], axis=0)
@@ -225,7 +225,7 @@ def test_combine_taps_float64_sum_exact_where_unflagged(pipeline):
     """On the whole warp grid, with taps at 0, 1, 254, 255 and random: at
     every pixel outside ``grid.rounded`` each float64 multiply-add of the
     chain is exact (its TwoSum residual is 0), so its one f32 rounding is
-    the fma's; and combine_taps equals the chain of ``_fma`` everywhere."""
+    the fma's; and combine_taps equals the chain of ``fma_f32`` everywhere."""
     g = _port_warp_grid(pipeline)
     n = g.base.numel()
     assert 0 < g.rounded.numel() < n // 1000

@@ -657,11 +657,13 @@ for name in ("lane_tracker_tpu_torch.kernels.shift_chain",
              "lane_tracker_tpu_torch.render.viz",
              "lane_tracker_tpu_torch.io.video",
              "lane_tracker_tpu_torch.io.native_loader",
+             "lane_tracker_tpu_torch.io.motion",
              "lane_tracker_tpu_torch.utils.profiling",
              "lane_tracker_tpu_torch.process_video",
              "lane_tracker_tpu_torch.__main__",
              "lane_tracker_tpu_torch.parallel.streams",
              "lane_tracker_tpu_torch.parallel.mesh",
+             "lane_tracker_tpu_torch.parallel.rows",
              "lane_tracker_tpu_torch.calibrate",
              "lane_tracker_tpu_torch.calib.camera",
              "lane_tracker_tpu_torch.calib.perspective",
@@ -672,11 +674,11 @@ print("ok")
 """
 
 
-@pytest.mark.parametrize("blocked", ["jax", "PIL", "lane_tracker_tpu"])
+@pytest.mark.parametrize("blocked", ["jax", "PIL", "lane_tracker_tpu", "cv2"])
 def test_port_imports_without(blocked):
-    """Every module of the port imports with jax, PIL or the JAX package
-    unavailable (the card's machine has neither jax nor PIL), the
-    probes' modules among them."""
+    """Every module of the port imports with jax, PIL, OpenCV or the JAX
+    package unavailable (the card's machine has neither jax nor PIL nor
+    OpenCV), the probes' modules and the motion frames among them."""
     res = subprocess.run(
         [sys.executable, "-c", _BLOCKER.format(mods=(blocked,), mod=blocked)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
