@@ -150,6 +150,31 @@ Phases (each raises at the first failure; nothing is skipped):
    the unsharded call in every output and state field on both chunks.
    The phase then releases its memory and prints its wall time, and
    ``LaneTracker.process`` is timed right before and right after it.
+15. Opt-in modes (runs after phase 14, before phase 10): (a) 'turbo' and
+   (b) 'half' (demo1, halved by ``halve_config`` for 'half') through
+   ``chunk_process`` (two_phase, overlay on, fresh state) on the 64
+   stills and the fail16 chunk: the attempt-1 kernels launched, the
+   fallback's exactly when some attempt 1 failed, the validity trace equal
+   to the JAX package's (assets/mode_oracle.npz, written on the CPU by
+   scripts/torch_mode_oracle.py) on all 64 frames and the curves within
+   0.01 px RMSE of its; the first 8 frames (outputs and final state) equal
+   to the port's CPU run, decisions and integer state exactly, curves
+   within 0.01 px; printed, not gated: the trace and ``rmse_px_max``
+   against assets/bench_oracle*.npz ('half''s curves mapped to full
+   resolution), beside the JAX package's own on the same frames.  Before
+   the chunks, (d) the five filter wrappers against their plain twins at
+   each pipeline's channels ('turbo''s (64, 1100, 1080), 'half''s (64, 550,
+   540) at the halved sizes and ``SECOND_ATTEMPT_HALF``'s).  (c)
+   ``LaneTracker(latency_mode=True)`` on 8 stills, 'fast' and 'turbo',
+   equal to ``latency_mode=False`` in every output and annotated frame;
+   ``warp_channels`` at T=1 by rowmm equal to the gather bit for bit;
+   printed: both warps' and both ``process`` calls' ms a frame (median of
+   16 after 4 warm-up, CUDA events) and the one-hot tensors' bytes.  (e)
+   Printed, no claim: 'fast', 'turbo' and 'half' in turns, the stills
+   chunk's ms (state carried) and ``warp_channels``' ms a chunk (the
+   ``lt.warp_lab`` range's work), and peak device memory.  Each path's
+   launches go to the kernels line's ``path_launches``.  The phase then
+   releases its memory, and ``LaneTracker.process`` is timed after it.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    ``LaneTracker.process`` ms a frame (median over 16 frames after a
@@ -177,7 +202,9 @@ its bound: the larger of the bytes it must move over the HBM rate and the
 operations it does over the card's rate for their type (``bound``); the
 last line is ``{"ok": true, "device": {...}}``.  Each kernel's entry
 also carries ``path_launches``: its launches on phase 12's paths
-(``process`` over 8 frames, 'compat' on 64, 'neighborhood' + mask_noise),
+(``process`` over 8 frames, 'compat' on 64, 'neighborhood' + mask_noise)
+and phase 15's ('turbo' and 'half' on each chunk, the latency mode's
+two trackers over 8 frames each),
 and ``fleet_launches``: its wrapper's calls in each schedule's first
 phase 13 step on each load, ``fleet_kernel_launches``: the kernels those
 calls launched by the library's own count, and ``fleet_max_abs_err``: its
@@ -229,6 +256,14 @@ T_BENCH = 512  # bench.py's chunk, and the oracles' length
 MOTION_RMSE_LIMIT_PX = 0.7672
 MOTION_SAMPLED = (0, 8, 37, 150, 300, 451, 511)
 ROW_BANDS = (2, 4)
+# Phase 15, the opt-in modes: 'turbo' and 'half' against the JAX package's
+# results (assets/mode_oracle.npz, scripts/torch_mode_oracle.py) within the
+# fit contract; the latency mode on 'fast' and 'turbo'; the times.
+MODE_PIPELINES = ("turbo", "half")
+MODE_RMSE_LIMIT_PX = 0.01
+LATENCY_PIPELINES = ("fast", "turbo")
+TIMED_PIPELINES = ("fast", "turbo", "half")
+MODE_TIMED_CHUNKS = 3
 FLEET_S = 8
 FLEET_T = 32
 FLEET_PIPELINE = "fast"
@@ -1180,7 +1215,6 @@ def gaps_phase(stills, oracles, build_params, cfg, card):
     from lane_tracker_tpu_torch.tracker.step import (
         front_artifacts_batch,
         make_initial_state,
-        warp_chain,
         warp_rows,
     )
 
@@ -1261,7 +1295,6 @@ def gaps_phase(stills, oracles, build_params, cfg, card):
 
     # The row-sharded front half over ROW_BANDS bands of this card.
     chunk64, fail64 = gstills[:T_SLICE], gfail[:T_SLICE]
-    lab = warp_chain(gp)[3]
     for n in ROW_BANDS:
         row_devices = stream_row_mesh(1, n, devices=["cuda:0"] * n)[0]
         check(row_devices == (torch.device("cuda", 0),) * n,
@@ -1278,10 +1311,10 @@ def gaps_phase(stills, oracles, build_params, cfg, card):
                   f"{diff}")
             check(not diff, f"rows: {n} bands differ from the unsharded "
                   f"front half in {diff}")
-        bands = row_plan(gp, row_devices, front_halo(cfg, True))
+        bands = row_plan(gp, row_devices, front_halo(cfg, True, gp))
         for band in bands:
             r_ext, b_ext = warp_rows(chunk64[:, band.raw[0]:band.raw[1]],
-                                     band.g_und, band.g_warp, 0, lab)
+                                     band.chain)
             errs, _ = filter_parity(r_ext, b_ext, cfg.filter,
                                     SECOND_ATTEMPT.filter)
             report_parity(f"rows {n} bands, band {band.rows}", errs,
@@ -1312,6 +1345,261 @@ def gaps_phase(stills, oracles, build_params, cfg, card):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[gaps] phase 14 took {time.perf_counter() - t_phase:.1f} s; "
+          f"after it the caching allocator holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB ({card})")
+
+
+def rescale_coeffs(coeffs, s):
+    """x(y) coefficients fitted in an s-times-downscaled warped space in
+    full-resolution warped coordinates (copied from
+    scripts/approx_quality.py:28-42): a full-resolution u is the downscaled
+    (u - d) / s, d = (s - 1) / 2, so x_f(y_f) = s * x_h((y_f - d) / s) + d."""
+    import numpy as np
+
+    c2, c1, c0 = (float(c) for c in coeffs)
+    d = (s - 1) / 2.0
+    return np.array([s * c2 / (s * s),
+                     s * (c1 / s - 2 * c2 * d / (s * s)),
+                     s * (c2 * d * d / (s * s) - c1 * d / s + c0) + d])
+
+
+def bench_rmse(valid, left, right, oracle, s):
+    """(frames whose validity differs from the live reference's oracle,
+    rmse_px_max against its curves on frames valid in both) of a trace and
+    its (T, 3) coefficients fitted at 1/s of the warped resolution."""
+    import numpy as np
+
+    T = len(valid)
+    n_diff = int((np.asarray(valid) != oracle["valid"][:T]).sum())
+    rs = [curve_rmse_px(rescale_coeffs(mine[t], s) if s != 1 else mine[t],
+                        ref[t], 1100)
+          for t in range(T) if valid[t] and oracle["valid"][t]
+          for mine, ref in ((left, oracle["left"]), (right, oracle["right"]))]
+    return n_diff, max(rs)
+
+
+def frame_ms(fn):
+    """Median ms of ``fn(i)`` a call by CUDA events, over N_PROCESS_TIMED
+    calls after 4 warm-up calls; (median, min, max)."""
+    import numpy as np
+    import torch
+
+    for i in range(4):
+        fn(i)
+    ms = []
+    for i in range(N_PROCESS_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(i)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms)), min(ms), max(ms)
+
+
+def modes_phase(stills, oracles, build_params, new_tracker, cfg, card,
+                path_launches):
+    """Phase 15: the opt-in modes ('turbo', 'half', the latency mode)
+    against the JAX package's results and their own CPU path, the five
+    filter wrappers at their shapes, and their times.  Adds each path's
+    launches to ``path_launches``; releases its memory at the end."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lane_tracker_tpu_torch.kernels import filter_stage as fs
+    from lane_tracker_tpu_torch.parallel import chunk_process
+    from lane_tracker_tpu_torch.timing import cuda_ms
+    from lane_tracker_tpu_torch.tracker.config import halve_config
+    from lane_tracker_tpu_torch.tracker.step import (
+        _sa_config,
+        make_initial_state,
+        warp_channels,
+    )
+
+    t_phase = time.perf_counter()
+    with np.load(REPO / "assets" / "mode_oracle.npz") as z:
+        jax_oracle = {k: z[k] for k in z.files}
+    chunk = torch.from_numpy(stills[np.arange(T_SLICE) % len(stills)])
+    fail = chunk.clone()
+    fail[::FAIL_EVERY] = 0
+    tag_f = f"fail{FAIL_EVERY}"
+    chunks = {"stills": chunk, tag_f: fail}
+    bench = {"stills": oracles["bench_oracle"],
+             tag_f: oracles[f"bench_oracle_fail{FAIL_EVERY}"]}
+    gchunk = chunk.cuda()
+
+    def config_of(pipeline):
+        return halve_config(cfg) if pipeline == "half" else cfg
+
+    def fresh(params, pcfg, device="cuda"):
+        return make_initial_state(pcfg, params.warped_size, device)
+
+    # ---- (a) 'turbo' and (b) 'half' against the JAX package ----
+    for pipeline in MODE_PIPELINES:
+        gp, cp = build_params(pipeline), build_params(pipeline, device="cpu")
+        pcfg = config_of(pipeline)
+        H, s = gp.warped_size[1], gp.res_scale
+        # (d) The five filter wrappers at this pipeline's channels, its
+        # config's sizes and its second attempt's.
+        r, b = warp_channels(gchunk, gp)
+        errs, _ = filter_parity(r, b, pcfg.filter, _sa_config(gp).filter)
+        report_parity(f"modes {pipeline}", errs, r.shape)
+        del r, b, errs
+        for tag, frames in chunks.items():
+            g = frames.cuda()
+            fs.reset_launches()
+            _, out = chunk_process(fresh(gp, pcfg), g, gp, pcfg,
+                                   with_overlay=True,
+                                   second_attempt="two_phase")
+            torch.cuda.synchronize()
+            got = {k: n for k, n in fs.LAUNCHES.items() if n}
+            path_launches[f"{pipeline} {tag}"] = got
+            print(f"[modes] '{pipeline}' chunk_process T={T_SLICE} on "
+                  f"{tag} (two_phase, overlay on, fresh state; warped "
+                  f"{gp.warped_size}): launches {got}")
+            check(all(got.get(name) for name in ATTEMPT1),
+                  f"{pipeline} {tag}: an attempt-1 kernel did not launch")
+            fallback = not bool(out.a1_valid.all())
+            check(all(got.get(name, 0) == (n if fallback else 0)
+                      for name, n in SECOND_ATTEMPT_LAUNCHES.items()),
+                  f"{pipeline} {tag}: the fallback's launches do not "
+                  "match its schedule")
+            check(tuple(out.overlay.shape) == (T_SLICE, 720, 1280, 3),
+                  f"{pipeline} {tag}: overlay shape")
+            key = f"{pipeline}_{tag}"
+            joracle = {k: jax_oracle[f"{key}_{k}"]
+                       for k in ("valid", "left", "right")}
+            rmse_jax = gate_oracle(f"modes {pipeline} {tag} vs JAX", out,
+                                   joracle, H, MODE_RMSE_LIMIT_PX)
+            valid = out.valid.cpu().numpy()
+            n_mine, r_mine = bench_rmse(valid, out.left_coeffs.cpu().numpy(),
+                                        out.right_coeffs.cpu().numpy(),
+                                        bench[tag], s)
+            n_jax, r_jax = bench_rmse(joracle["valid"], joracle["left"],
+                                      joracle["right"], bench[tag], s)
+            print(f"[modes] '{pipeline}' {tag}: validity trace equal to "
+                  f"JAX's on all {T_SLICE} frames, curves {rmse_jax} px "
+                  f"from JAX's (limit {MODE_RMSE_LIMIT_PX}); against the "
+                  f"live reference's oracle (not gated): frames differing "
+                  f"{n_mine} (JAX {n_jax}), rmse_px_max {r_mine} (JAX's own "
+                  f"{r_jax}) ({card})")
+            # The card's first T_CPU frames against the CPU path, state
+            # included.
+            cpu_frames = frames[:T_CPU]
+            c_state, c_out = chunk_process(fresh(cp, pcfg, "cpu"), cpu_frames,
+                                           cp, pcfg, with_overlay=True,
+                                           second_attempt="two_phase")
+            g_state, g_out = chunk_process(fresh(gp, pcfg), g[:T_CPU], gp,
+                                           pcfg, with_overlay=True,
+                                           second_attempt="two_phase")
+            compare_cpu(f"modes {pipeline} {tag}", out, c_out)
+            for tree, ctree in ((g_out, c_out), (g_state, c_state)):
+                for name in exact_fields(tree):
+                    check(torch_equal(getattr(tree, name).cpu(),
+                                      getattr(ctree, name)),
+                          f"{pipeline} {tag}: card and CPU differ in {name}")
+            rmse_cpu = max(
+                [curves_rmse_max(getattr(out, n)[:T_CPU], getattr(c_out, n),
+                                 H)
+                 for n in ("left_coeffs", "right_coeffs")]
+                + [curves_rmse_max(getattr(g_state, n), getattr(c_state, n),
+                                   H) for n in COEFF_STATE])
+            print(f"[modes] '{pipeline}' {tag}: card vs CPU on {T_CPU} "
+                  f"frames: decisions and integer state equal, curves "
+                  f"{rmse_cpu} px apart")
+            check(rmse_cpu <= MODE_RMSE_LIMIT_PX,
+                  f"{pipeline} {tag}: card and CPU curves too far apart")
+            del out, g, g_out, g_state
+        del gp, cp
+
+    # ---- (c) The latency mode ----
+    kw = process_kwargs(cfg)
+    frames8 = stills[np.arange(N_PROCESS) % len(stills)]
+    for pipeline in LATENCY_PIPELINES:
+        trackers = {mode: new_tracker(pipeline=pipeline, latency_mode=mode)
+                    for mode in (True, False)}
+        lp, gp = trackers[True].params, trackers[False].params
+        check(lp.mm_und is not None and lp.mm_warp is not None
+              and lp.mm_und.onehot.is_cuda,
+              f"latency mode ('{pipeline}') built no tile structures on the "
+              "card")
+        onehot_bytes = (lp.mm_und.onehot.nbytes + lp.mm_warp.onehot.nbytes)
+        frame1 = gchunk[:1]
+        warps = [warp_channels(frame1, p) for p in (lp, gp)]
+        check(all(torch.equal(a, b) for a, b in zip(*warps)),
+              f"'{pipeline}': warp_channels at T=1 by rowmm differs from the "
+              "gather")
+        fs.reset_launches()
+        for frame in frames8:
+            annotated = {mode: t.process(frame, **kw)
+                         for mode, t in trackers.items()}
+            a, b = (trackers[m].last_output for m in (True, False))
+            diff = [n for n in a._fields if not torch_equal(getattr(a, n),
+                                                            getattr(b, n))]
+            check(not diff and np.array_equal(annotated[True],
+                                              annotated[False]),
+                  f"'{pipeline}' latency mode differs from the gather in "
+                  f"{diff or 'the annotated frame'}")
+        torch.cuda.synchronize()
+        path_launches[f"latency {pipeline}"] = {
+            k: n for k, n in fs.LAUNCHES.items() if n}
+        warp_t = {mode: frame_ms(lambda i, p=p: warp_channels(
+            gchunk[i % T_SLICE:i % T_SLICE + 1], p))
+            for mode, p in ((True, lp), (False, gp))}
+        proc_t = {mode: frame_ms(lambda i, t=t: t.process(
+            frames8[i % N_PROCESS], **kw))
+            for mode, t in trackers.items()}
+        print(f"[modes] latency mode '{pipeline}': {N_PROCESS} frames of "
+              f"process (both trackers 2 x {N_PROCESS} launches "
+              f"{path_launches[f'latency {pipeline}']}) equal to the gather's "
+              f"in every output and annotated frame; warp_channels at T=1 "
+              f"bit for bit; one-hot tensors {onehot_bytes / 2**20:.1f} MiB "
+              f"(bf16); warp_channels ms a frame, rowmm {warp_t[True]} / "
+              f"gather {warp_t[False]}; process ms a frame, rowmm "
+              f"{proc_t[True]} / gather {proc_t[False]} (median, min, max of "
+              f"{N_PROCESS_TIMED} after 4 warm-up, CUDA events) ({card})")
+        del trackers, lp, gp, warps
+
+    # ---- (e) Times, 'fast', 'turbo' and 'half' in turns (no claim) ----
+    timed = {p: (build_params(p), config_of(p)) for p in TIMED_PIPELINES}
+    peaks, times = {}, {}
+    for pipeline in TIMED_PIPELINES + TIMED_PIPELINES[::-1]:
+        params, pcfg = timed[pipeline]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st, _ = chunk_process(fresh(params, pcfg), gchunk, params, pcfg,
+                              second_attempt="two_phase")
+        torch.cuda.synchronize()
+        peaks.setdefault(pipeline, []).append(
+            torch.cuda.max_memory_allocated() / 2**30)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MODE_TIMED_CHUNKS):
+            st, _ = chunk_process(st, gchunk, params, pcfg,
+                                  second_attempt="two_phase")
+        end.record()
+        torch.cuda.synchronize()
+        chunk_t = start.elapsed_time(end) / MODE_TIMED_CHUNKS
+        warp_t = cuda_ms(lambda: warp_channels(gchunk, params), 3)
+        times.setdefault(pipeline, []).append((chunk_t, warp_t))
+    for pipeline, ts in times.items():
+        print(f"[modes] '{pipeline}' stills T={T_SLICE} (two_phase, state "
+              f"carried): chunk ms {[round(c, 3) for c, _ in ts]}, "
+              f"warp_channels (lt.warp_lab's work) ms a chunk "
+              f"{[round(w, 3) for _, w in ts]} (two turns; chunk: mean of "
+              f"{MODE_TIMED_CHUNKS} after a warm-up, warp: mean of 3, CUDA "
+              f"events), peak device memory "
+              f"{[round(p, 3) for p in peaks[pipeline]]} GiB "
+              f"(max_memory_allocated, a warm-up chunk) ({card})")
+
+    del timed, gchunk, chunk, fail, chunks, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[modes] phase 15 took {time.perf_counter() - t_phase:.1f} s; "
           f"after it the caching allocator holds "
           f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB ({card})")
 
@@ -1751,11 +2039,13 @@ def main(argv):
     kw = process_kwargs(cfg)
     path_launches = {}
 
-    def new_tracker(**device):
+    def new_tracker(**kw):
+        """demo1's LaneTracker; ``kw``: ``device``, ``pipeline``,
+        ``latency_mode``."""
         return LaneTracker(
             warp.image_width_height, warp.warped_width_height,
             cam.cam_matrix, cam.dist_coeffs, (warp.M, warp.Minv),
-            (warp.mppv, warp.mpph), validity=cfg.validity, **device)
+            (warp.mppv, warp.mpph), validity=cfg.validity, **kw)
 
     frames8 = stills[np.arange(N_PROCESS) % len(stills)]
     tracker = new_tracker()
@@ -1923,22 +2213,12 @@ def main(argv):
         """The per-frame API: one frame a call, state carried, host work
         (text, the overlay's copy to the host) included; the tracker."""
         ttr = new_tracker()
-        for frame in frames8[:4]:
-            ttr.process(frame, **kw)
-        frame_ms = []
-        for i in range(N_PROCESS_TIMED):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            ttr.process(frames8[i % N_PROCESS], **kw)
-            end.record()
-            end.synchronize()
-            frame_ms.append(start.elapsed_time(end))
+        med, lo, hi = frame_ms(lambda i: ttr.process(frames8[i % N_PROCESS],
+                                                     **kw))
         print(f"[timing] LaneTracker.process ('fast', demo1), {when}: "
-              f"median {float(np.median(frame_ms)):.3f} ms a frame over "
-              f"{N_PROCESS_TIMED} frames after 4 warm-up frames (min "
-              f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}; CUDA events) "
-              f"({card})")
+              f"median {med:.3f} ms a frame over {N_PROCESS_TIMED} frames "
+              f"after 4 warm-up frames (min {lo:.3f}, max {hi:.3f}; CUDA "
+              f"events) ({card})")
         return ttr
 
     # The same timing before phase 13 as in phase 10 after it, in one run.
@@ -1952,6 +2232,11 @@ def main(argv):
     time_process("before phase 14")
     gaps_phase(stills, oracles, build_params, cfg, card)
     time_process("after phase 14")
+
+    # ---- 15. Opt-in modes (before the timing phase) ----
+    modes_phase(stills, oracles, build_params, new_tracker, cfg, card,
+                path_launches)
+    time_process("after phase 15")
 
     # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):

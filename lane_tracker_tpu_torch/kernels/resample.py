@@ -182,10 +182,11 @@ def _fma_chain(p00, p01, p10, p11, ws):
     return acc
 
 
-def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
+def combine_taps(p00, p01, p10, p11, grid: ResampleGrid, bias=None):
     """Weighted combine of the four window-slot taps (the reference's one
     arithmetic definition, resample.py:103-130).  Taps are (..., N, C)
-    uint8; weights broadcast over the trailing channel axis.
+    uint8 (or float32 holding 0..255); weights broadcast over the trailing
+    channel axis.
 
     Float grids: the f32 sum of the four tap products in the fused
     multiply-add chain XLA contracts the reference's sum into,
@@ -193,7 +194,10 @@ def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
     round-half-even and clip; bit-exact with the reference on the CPU.
     Each fma is a float64 multiply-add rounded to f32, exact wherever
     ``needs_fma`` is False; the pixels in ``grid.rounded`` are then taken
-    again through ``fma_f32``.  Fixed grids: 2^15 int weights,
+    again through ``fma_f32``.  ``bias`` (float grids only): a float32
+    tensor broadcasting against the (..., N, C) sum, added to the f32 sum
+    in f32 before the rounding, as the reference adds it after its fma
+    chain (resample.py:119-120).  Fixed grids: 2^15 int weights,
     ``(acc + 2^14) >> 15``, clip.
     """
     ws = [w[:, None] for w in (grid.w00, grid.w01, grid.w10, grid.w11)]
@@ -206,16 +210,33 @@ def combine_taps(p00, p01, p10, p11, grid: ResampleGrid):
             acc.index_copy_(-2, idx, _fma_chain(
                 *(p.index_select(-2, idx) for p in (p00, p01, p10, p11)),
                 [w[idx] for w in ws]))
+        if bias is not None:
+            acc = acc + bias.float()
         return torch.round(acc).clamp_(0, 255).to(torch.uint8)
+    if bias is not None:
+        raise NotImplementedError(
+            "bias is only supported on float-weight grids")
     acc = (p00.int() * ws[0] + p01.int() * ws[1]
            + p10.int() * ws[2] + p11.int() * ws[3])
     return ((acc + _ROUND) >> COEF_BITS).clamp_(0, 255).to(torch.uint8)
 
 
-def bilinear_gather(img: torch.Tensor, grid: ResampleGrid) -> torch.Tensor:
+def pair_bias(bias_b: torch.Tensor | None):
+    """The (N, 2) bias of a stacked (a, b) pair that adds ``bias_b``, a
+    destination-shaped float32 map, to channel b alone (adding 0.0 leaves
+    channel a's sum as it is), or None."""
+    if bias_b is None:
+        return None
+    b = bias_b.reshape(-1).float()
+    return torch.stack([torch.zeros_like(b), b], dim=-1)
+
+
+def bilinear_gather(img: torch.Tensor, grid: ResampleGrid,
+                    bias=None) -> torch.Tensor:
     """Resample a (T, Hs, Ws, C) uint8 batch through ``grid``.
 
     Returns (T, H, W, C) uint8 with (H, W) = ``grid.dst_shape``.
+    ``bias``: as ``combine_taps``'s, (N, C) or (N, 1) for N = H * W.
     """
     T, Hs, Ws, C = img.shape
     if (Ws, Hs) != grid.src_size:
@@ -224,23 +245,29 @@ def bilinear_gather(img: torch.Tensor, grid: ResampleGrid) -> torch.Tensor:
     flat = img.reshape(T, Hs * Ws, C)
     taps = [flat.index_select(1, grid.base + off)
             for off in (0, 1, Ws, Ws + 1)]
-    out = combine_taps(*taps, grid)
+    out = combine_taps(*taps, grid, bias=bias)
     return out.reshape(T, *grid.dst_shape, C)
 
 
 def bilinear_gather_pair(a: torch.Tensor, b: torch.Tensor,
-                         grid: ResampleGrid) -> tuple:
+                         grid: ResampleGrid, bias_b=None) -> tuple:
     """Resample two single-channel uint8 images, (Hs, Ws) or (T, Hs, Ws)
     each, through the same grid: exactly the taps, weights and arithmetic
     of two ``bilinear_gather`` calls, gathered once as two channels.  The
     reference's u32 byte packing of the pair (resample.py:146-189) is a TPU
-    gather-count device; its ``bias_b``, which only the 'turbo' pipeline
-    passes, is not carried over."""
+    gather-count device.
+
+    ``bias_b`` (float grids only): a destination-shaped float32 map added
+    to channel b's sum before the rounding.  The 'turbo' pipeline passes
+    128 * (1 - sum of the weights), so that a channel whose black encodes
+    as 128 (LAB-B) reads 128 where the grid samples outside the source
+    (out-of-bounds taps carry weight 0)."""
     if a.shape != b.shape or a.dim() not in (2, 3):
         raise ValueError(f"expected two (H, W) or (T, H, W) images of one "
                          f"shape, got {tuple(a.shape)} and {tuple(b.shape)}")
     pair = torch.stack([a, b], dim=-1)
-    out = bilinear_gather(pair if a.dim() == 3 else pair[None], grid)
+    out = bilinear_gather(pair if a.dim() == 3 else pair[None], grid,
+                          bias=pair_bias(bias_b))
     if a.dim() == 2:
         out = out[0]
-    return out[..., 0], out[..., 1]
+    return out[..., 0].contiguous(), out[..., 1].contiguous()

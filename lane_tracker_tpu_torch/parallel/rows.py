@@ -12,7 +12,8 @@ recomputes its halo instead of exchanging it.  Band i of the warped rows
   the attempt-2 filter) on its rows plus ``halo`` rows above and below,
   clamped only at the frame's true top and bottom (its grids are those
   rows of the frame's grids, ``ResampleGrid.band``, reading only the raw
-  rows they need);
+  rows they need; 'turbo''s fill bias those rows of the bias; in the
+  latency mode each band grid's own tile structure, ``build_rowmm``);
 * keeps its own rows of the channels, the binaries and the packed row
   prefixes (a row's prefixes read only that row).
 
@@ -36,20 +37,17 @@ from typing import NamedTuple
 
 import torch
 
-from lane_tracker_tpu_torch.kernels.resample import ResampleGrid
+from lane_tracker_tpu_torch.kernels.resample_rowmm import build_rowmm
 from lane_tracker_tpu_torch.ops.morphology import ellipse_runs
-from lane_tracker_tpu_torch.tracker.config import (
-    SECOND_ATTEMPT,
-    FilterConfig,
-    TrackerConfig,
-)
+from lane_tracker_tpu_torch.tracker.config import FilterConfig, TrackerConfig
 from lane_tracker_tpu_torch.tracker.step import (
     FrontArtifacts,
     FrontRows,
     TrackerParams,
+    WarpChain,
     front_rows,
     front_search,
-    has_second_attempt,
+    hoisted_filter,
     warp_chain,
 )
 
@@ -83,14 +81,14 @@ def filter_reach(f: FilterConfig) -> int:
     return max(branches) + 2 * _ellipse_reach(f.open_k)
 
 
-def front_halo(config: TrackerConfig, hoist_second_attempt: bool) -> int:
+def front_halo(config: TrackerConfig, hoist_second_attempt: bool,
+               params: TrackerParams) -> int:
     """The rows a band computes beyond its own, above and below: the
-    attempt-1 filter's reach, and the second attempt's where it is
-    hoisted into the front half."""
+    attempt-1 filter's reach, and the second attempt's (``params``', the
+    halved set for 'half') where it is hoisted into the front half."""
+    second = hoisted_filter(params, config, hoist_second_attempt)
     halo = filter_reach(config.filter)
-    if hoist_second_attempt and has_second_attempt(config):
-        halo = max(halo, filter_reach(SECOND_ATTEMPT.filter))
-    return halo
+    return halo if second is None else max(halo, filter_reach(second))
 
 
 def row_bounds(H: int, n: int) -> list[tuple[int, int]]:
@@ -107,8 +105,14 @@ class Band(NamedTuple):
     rows: tuple[int, int]  # its own warped rows [a, b)
     keep: tuple[int, int]  # those rows within its extended rows
     raw: tuple[int, int]  # the raw frame rows its grids read
-    g_und: ResampleGrid  # the undistort grid of its extended rows
-    g_warp: ResampleGrid  # the warp grid of its extended rows
+    chain: WarpChain  # the resample of its extended rows, on its device
+
+
+def _band_rowmm(grid, full, device):
+    """A band grid's own tile structure, on ``device``, where the frame's
+    grid has one (``full``), else None."""
+    built = None if full is None else build_rowmm(grid)
+    return None if built is None else built.to(device)
 
 
 _PLANS: "weakref.WeakKeyDictionary[TrackerParams, dict]" = (
@@ -117,23 +121,29 @@ _PLANS: "weakref.WeakKeyDictionary[TrackerParams, dict]" = (
 
 def row_plan(params: TrackerParams, row_devices, halo: int) -> tuple:
     """The bands of ``params``' warped rows over ``row_devices`` with
-    ``halo`` rows beyond each, their grids on their devices; cached per
-    params, devices and halo (the grids' rows are read on the host once)."""
+    ``halo`` rows beyond each, their resample chains on their devices;
+    cached per params, devices and halo (the grids' rows are read on the
+    host once)."""
     devices = tuple(torch.device(d) for d in row_devices)
     plans = _PLANS.setdefault(params, {})
     key = (devices, int(halo))
     if key in plans:
         return plans[key]
-    g_und, g_warp, raw0, _ = warp_chain(params)
-    H = g_warp.dst_shape[0]
+    chain = warp_chain(params)
+    H, W = chain.g_warp.dst_shape
     bands = []
     for dev, (a, b) in zip(devices, row_bounds(H, len(devices))):
         ea, eb = max(0, a - halo), min(H, b + halo)
-        warp_band, (u0, u1) = g_warp.band(ea, eb)
-        und_band, (r0, r1) = g_und.band(u0, u1)
+        warp_band, (u0, u1) = chain.g_warp.band(ea, eb)
+        und_band, (r0, r1) = chain.g_und.band(u0, u1)
+        bias = (None if chain.bias is None
+                else chain.bias[ea * W:eb * W].to(dev))
+        band_chain = chain._replace(
+            g_und=und_band.to(dev), g_warp=warp_band.to(dev), raw0=0,
+            bias=bias, mm_und=_band_rowmm(und_band, chain.mm_und, dev),
+            mm_warp=_band_rowmm(warp_band, chain.mm_warp, dev))
         bands.append(Band(dev, (a, b), (a - ea, b - ea),
-                          (raw0 + r0, raw0 + r1), und_band.to(dev),
-                          warp_band.to(dev)))
+                          (chain.raw0 + r0, chain.raw0 + r1), band_chain))
     plans[key] = tuple(bands)
     return plans[key]
 
@@ -145,13 +155,13 @@ def front_artifacts_rows(frames: torch.Tensor, params: TrackerParams,
     """``front_artifacts_batch`` of a (T, Hc, Wc, 3) uint8 chunk with the
     warped rows split over ``row_devices`` (module docstring); the
     artifacts on ``row_devices[0]``, which holds ``params``."""
-    hoist = hoist_second_attempt and has_second_attempt(config)
-    lab = warp_chain(params)[3]
+    second = hoisted_filter(params, config, hoist_second_attempt)
+    halo = front_halo(config, hoist_second_attempt, params)
     dev0 = torch.device(row_devices[0])
     parts = []
-    for band in row_plan(params, row_devices, front_halo(config, hoist)):
+    for band in row_plan(params, row_devices, halo):
         raw = frames[:, band.raw[0]:band.raw[1]].to(band.device)
-        ext = front_rows(raw, band.g_und, band.g_warp, 0, lab, config, hoist)
+        ext = front_rows(raw, band.chain, config, second)
         lo, hi = band.keep
         parts.append([None if x is None else x[:, lo:hi].to(dev0)
                       for x in ext])

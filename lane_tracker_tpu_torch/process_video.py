@@ -40,10 +40,10 @@ def build_arg_parser():
     p.add_argument(
         "--pipeline",
         default="fast",
-        choices=["fast", "compat"],
-        help="channel-packed exact two-stage warp (fast) or the "
-        "reference-exact LUT chain (compat); the reference's approximate "
-        "'turbo' is not offered (it is not ported)",
+        choices=["fast", "compat", "turbo"],
+        help="channel-packed exact two-stage warp (fast), the "
+        "reference-exact LUT chain (compat), or the measured approximation "
+        "'turbo' (LAB-B warped as a channel)",
     )
     p.add_argument(
         "--second-attempt",

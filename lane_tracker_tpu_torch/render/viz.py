@@ -9,10 +9,16 @@ from the pre-step state; it is for debugging only and never touches the
 hot loop.
 
 The binary is the tracker's own: the frame's channels from
-``warp_channels`` (the tracker's branch for its pipeline), the port's
+``warp_channels`` (the tracker's branch for its pipeline: 'turbo''s
+reordered chain, as the reference's turbo branch, viz.py:28-34; the
+latency mode's tile structures, bit for bit the gather), the port's
 ``filter_stage`` (the kernels on the card, their plain versions on the
 CPU) and, in 'corridor', the corridor embedding the tracker searches.
-The drawing is host numpy, as the reference's.
+In 'half' that is the halved filter: the config's halved structuring
+elements and, after a second attempt, ``SECOND_ATTEMPT_HALF``; the
+reference's picture filters with the full-size elements there (its
+viz.py:68-82 passes none) and ``SECOND_ATTEMPT``, a binary its tracker
+did not search.  The drawing is host numpy, as the reference's.
 """
 
 from __future__ import annotations
@@ -23,8 +29,11 @@ import torch
 from lane_tracker_tpu_torch.ops.filters import filter_stage
 from lane_tracker_tpu_torch.ops.polyfit import ploty_grid, poly_points_meta
 from lane_tracker_tpu_torch.ops.search import band_search, sliding_window_search
-from lane_tracker_tpu_torch.tracker.config import SECOND_ATTEMPT
-from lane_tracker_tpu_torch.tracker.step import _embed_cols, warp_channels
+from lane_tracker_tpu_torch.tracker.step import (
+    _embed_cols,
+    _sa_config,
+    warp_channels,
+)
 
 
 def _poly_graph_points(coeffs, warped_size, partial=1.0):
@@ -51,7 +60,7 @@ def search_visualization(tracker, frame: torch.Tensor, config, out):
     state = tracker._prev_state if tracker._prev_state is not None else tracker._state
     W, H = params.warped_size
     # Reproduce the binary input of the attempt that produced the result.
-    cfg = config if int(out.n_attempts) == 1 else SECOND_ATTEMPT
+    cfg = config if int(out.n_attempts) == 1 else _sa_config(params)
     r, b = warp_channels(frame[None], params)
     binary_t = _embed_cols(filter_stage(r, b, cfg.filter)[0], params)[0]
     scfg = cfg.search

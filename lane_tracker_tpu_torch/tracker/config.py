@@ -1,10 +1,10 @@
 """Tracker configuration: frozen dataclasses of static knobs.
 
 Copied from lane_tracker_tpu/tracker/config.py (FilterConfig,
-SearchConfig, ValidityConfig, TrackerConfig, SECOND_ATTEMPT, PRESETS);
-tests/test_torch_host.py pins every field equal to the original.  The
-'half' pipeline's halve_config is not carried over: the port builds only
-'fast' and 'corridor'.
+SearchConfig, ValidityConfig, TrackerConfig, SECOND_ATTEMPT, PRESETS, and
+the 'half' pipeline's ``halve_config``, ``_odd_half`` and
+``SECOND_ATTEMPT_HALF`` of config.py:128-180); tests/test_torch_host.py
+pins every field and every halved config equal to the original.
 
 ``PRESETS`` carries the known-good per-video parameter sets of the
 reference's tracker_settings.md ('demo1', 'demo2', 'demo3') plus
@@ -30,7 +30,8 @@ class FilterConfig:
     ksize_noise: int = 65
     C_noise: int = 10
     # Structuring-element sizes.  The reference hardcodes 29/55/5
-    # (lane_tracker.py:203-205, 234-238).
+    # (lane_tracker.py:203-205, 234-238); the 'half' pipeline scales them
+    # with the warped resolution (halve_config below).
     tophat_r: int = 29
     tophat_b: int = 55
     open_k: int = 5
@@ -116,6 +117,59 @@ SECOND_ATTEMPT = TrackerConfig(
         partial=1.0,
     ),
 )
+
+
+def _odd_half(k: int) -> int:
+    """Scale an odd window/SE size to half resolution: floor-halve, then
+    force odd (OpenCV kernels are odd-sized), floor 3."""
+    return max(3, (k // 2) | 1)
+
+
+def halve_config(cfg: TrackerConfig) -> TrackerConfig:
+    """Scale a TrackerConfig to the 'half' pipeline's half-resolution
+    warped space.
+
+    Pixel-denominated knobs halve (window/SE sizes to the nearest odd,
+    px distances exactly); intensity offsets (C_*, noise_thresh),
+    fractions (mu, start_slice, partial), slopes (tangent_thresh,
+    invariant under uniform scaling) and frame-count policies
+    (n_fail/n_reset/n_average/no_success_limit/n_tries) stay put.
+    """
+    f, s, v = cfg.filter, cfg.search, cfg.validity
+    return dataclasses.replace(
+        cfg,
+        filter=dataclasses.replace(
+            f,
+            ksize_r=_odd_half(f.ksize_r),
+            ksize_b=_odd_half(f.ksize_b),
+            ksize_noise=_odd_half(f.ksize_noise),
+            tophat_r=_odd_half(f.tophat_r),
+            tophat_b=_odd_half(f.tophat_b),
+            open_k=_odd_half(f.open_k),
+        ),
+        search=dataclasses.replace(
+            s,
+            window_width=max(1, s.window_width // 2),
+            window_height=max(1, s.window_height // 2),
+            search_range=max(1, s.search_range // 2),
+            ignore_sides=s.ignore_sides // 2,
+            ignore_bottom=s.ignore_bottom // 2,
+            bandwidth=max(1, s.bandwidth // 2),
+        ),
+        validity=dataclasses.replace(
+            v,
+            min_dist_y1=v.min_dist_y1 / 2,
+            max_dist_y1=v.max_dist_y1 / 2,
+            min_dist_y2=v.min_dist_y2 / 2,
+            max_dist_y2=v.max_dist_y2 / 2,
+            min_dist_y3=v.min_dist_y3 / 2,
+            max_dist_y3=v.max_dist_y3 / 2,
+        ),
+    )
+
+
+# The second-attempt set scaled for the 'half' pipeline's warped space.
+SECOND_ATTEMPT_HALF = halve_config(SECOND_ATTEMPT)
 
 
 def _demo(filter_kw, search_kw, validity_kw, n_tries):

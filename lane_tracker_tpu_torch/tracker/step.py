@@ -1,18 +1,23 @@
 """The tracking step: calibration params, batched front half, back half.
 
-Port of lane_tracker_tpu/tracker/step.py for the 'fast', 'corridor' and
-'compat' pipelines:
+Port of lane_tracker_tpu/tracker/step.py for every pipeline ('fast',
+'corridor', 'compat', 'turbo', 'half') and the rowmm latency mode:
 
 * ``TrackerParams`` (step.py:77-305): an ``nn.Module`` whose resampling
   grids and overlay coordinates are buffers, so ``.to(device)`` moves them;
   static geometry stays plain attributes.  ``_roi_grids`` (step.py:351-387)
   and the corridor crop (step.py:239-276) are copied host numpy.  'compat'
   keeps the full-frame undistort and warp grids and the unwarp grid of
-  ``Minv`` instead of the ROI grids.
+  ``Minv`` instead of the ROI grids; 'half' is 'fast' at a scaled
+  calibration (``half_geometry``); 'turbo' carries the LAB-B fill bias;
+  ``with_rowmm`` adds the latency mode's tile structures.
 * ``warp_channels`` (step.py:390-468): the exact two-stage resample
   (fixed-point undistort over the raw rows the warp needs, then the float
   bird's-eye warp) and LAB-B, with the frame batch as a tensor axis;
-  'compat' undistorts the whole frame and takes LAB-B by the LUT chain.
+  'compat' undistorts the whole frame and takes LAB-B by the LUT chain;
+  'turbo' takes LAB-B on the undistorted band and warps R and LAB-B as
+  one pair with the fill bias; with the rowmm structures either stage
+  runs as slab reads and one-hot contractions (bit for bit the gather).
 * ``front_artifacts_batch`` (step.py:781-814): its row-local stages
   (``front_rows``: warp + LAB, the filters), which parallel/rows.py runs
   per band of rows, then its stages over whole frames (``front_search``);
@@ -30,14 +35,13 @@ The reference's ``lax.cond`` between band and sliding-window search is
 "compute both, ``torch.where``", so the per-frame back half never waits on
 the device.  Its per-frame ``lax.cond`` on the second attempt ('cond'
 mode) is a host read of attempt 1's validity: only a failing frame runs
-the 'neighborhood' filter.  'turbo', 'half' and the rowmm resampler are
-not ported and raise.
+the 'neighborhood' filter.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -50,7 +54,14 @@ from lane_tracker_tpu_torch.device import DEFAULT_DEVICE, entry_device
 from lane_tracker_tpu_torch.kernels.resample import (
     ResampleGrid,
     bilinear_gather,
+    bilinear_gather_pair,
     slot_remap,
+)
+from lane_tracker_tpu_torch.kernels.resample_rowmm import (
+    RowMMGrid,
+    bilinear_gather_pair_rowmm,
+    bilinear_gather_rowmm,
+    build_rowmm,
 )
 from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast, rgb2lab_b_u8
 from lane_tracker_tpu_torch.ops.filters import filter_stage
@@ -77,11 +88,13 @@ from lane_tracker_tpu_torch.render.lane import (
 )
 from lane_tracker_tpu_torch.tracker.config import (
     SECOND_ATTEMPT,
+    SECOND_ATTEMPT_HALF,
+    FilterConfig,
     TrackerConfig,
 )
 from lane_tracker_tpu_torch.tracker.state import TrackerState, init_state
 
-PIPELINES = ("fast", "corridor", "compat")
+PIPELINES = ("fast", "compat", "turbo", "corridor", "half")
 # The corridor's compute margin, the JAX package's (step.py:265), which it
 # sizes by a filter reach of 75.  By ``parallel.rows.filter_reach`` the
 # reach is 93 (the cross threshold's arms are ksize pixels long), so a
@@ -117,33 +130,71 @@ def _roi_grids(und_q: dict, g_warp: dict, img_size):
     return g_und_roi, g_warp_roi, (ry0, ry1)
 
 
-class TrackerParams(nn.Module):
-    """Calibration-derived constants of the 'fast', 'corridor' and
-    'compat' pipelines.
+def half_geometry(M, Minv, warped_size, mppv, mpph):
+    """The 'half' pipeline's scaled calibration (step.py:193-214): the
+    half-resolution pixel (x, y) has its centre at full-resolution
+    (2x + 0.5, 2y + 0.5), so M_h = S @ M with S = [[.5, 0, -.25], [0, .5,
+    -.25], [0, 0, 1]], Minv_h = Minv @ S^-1, the warped size halves and
+    the metres per pixel double.  Returns (M_h, Minv_h, warped_size_h,
+    mppv_h, mpph_h)."""
+    S = np.array([[0.5, 0.0, -0.25],
+                  [0.0, 0.5, -0.25],
+                  [0.0, 0.0, 1.0]])
+    return (S @ np.asarray(M), np.asarray(Minv) @ np.linalg.inv(S),
+            (int(warped_size[0]) // 2, int(warped_size[1]) // 2),
+            float(mppv) * 2, float(mpph) * 2)
 
-    Buffers: the resampling grids ('fast' and 'corridor': the two ROI
-    grids; 'compat': the full-frame undistort and warp grids and the
-    unwarp grid, the others None) and the direct overlay's per-camera-pixel
-    bird's-eye coordinates (``fwd_u``, ``fwd_v``).  Attributes: the static
-    geometry, as the reference's pytree aux.
+
+def _tensor(x) -> torch.Tensor:
+    """A tensor as it is, else a copy of an array as a CPU tensor."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+
+
+def _grid_bias(g_warp: dict) -> np.ndarray:
+    """'turbo''s LAB-B fill bias of a remapped warp grid: float32
+    128 * (1 - the weights' sum) a destination pixel (step.py:281-285);
+    LAB-B of black is 128, but out-of-image taps carry weight 0."""
+    wsum = g_warp["w00"] + g_warp["w01"] + g_warp["w10"] + g_warp["w11"]
+    return 128.0 * (1.0 - wsum.astype(np.float32))
+
+
+class TrackerParams(nn.Module):
+    """Calibration-derived constants of a pipeline.
+
+    Buffers: the resampling grids ('fast', 'corridor', 'turbo' and
+    'half': the two ROI grids; 'compat': the full-frame undistort and warp
+    grids and the unwarp grid, the others None), the direct overlay's
+    per-camera-pixel bird's-eye coordinates (``fwd_u``, ``fwd_v``),
+    'turbo''s ``warp_b_bias`` (flattened over the warped pixels) and the
+    latency mode's ``mm_und`` / ``mm_warp`` (``with_rowmm``).  Attributes:
+    the static geometry, as the reference's pytree aux; 'half' holds the
+    scaled geometry with ``res_scale`` 2.
     """
 
     def __init__(self, grid_und_roi: ResampleGrid | None,
                  grid_warp_roi: ResampleGrid | None, fwd_u, fwd_v, *,
                  img_size, warped_size, mppv, mpph, pipeline, raw_roi,
                  col_roi=None, col_comp=None, grid_und=None, grid_warp=None,
-                 unwarp_grid=None):
+                 unwarp_grid=None, res_scale=1, warp_b_bias=None,
+                 mm_und: RowMMGrid | None = None,
+                 mm_warp: RowMMGrid | None = None):
         super().__init__()
         if pipeline not in PIPELINES:
-            raise NotImplementedError(
-                f"pipeline {pipeline!r}: the port builds only {PIPELINES}")
+            raise ValueError("pipeline must be 'fast', 'compat', 'turbo', "
+                             "'corridor' or 'half'")
         self.grid_und_roi = grid_und_roi
         self.grid_warp_roi = grid_warp_roi
         self.grid_und = grid_und
         self.grid_warp = grid_warp
         self.unwarp_grid = unwarp_grid
-        self.register_buffer("fwd_u", torch.tensor(np.asarray(fwd_u)))
-        self.register_buffer("fwd_v", torch.tensor(np.asarray(fwd_v)))
+        self.mm_und = mm_und
+        self.mm_warp = mm_warp
+        self.register_buffer("fwd_u", _tensor(fwd_u))
+        self.register_buffer("fwd_v", _tensor(fwd_v))
+        self.register_buffer(
+            "warp_b_bias",
+            None if warp_b_bias is None
+            else _tensor(warp_b_bias).float().reshape(-1))
         self.img_size = tuple(int(v) for v in img_size)
         self.warped_size = tuple(int(v) for v in warped_size)
         self.mppv = float(mppv)
@@ -152,6 +203,7 @@ class TrackerParams(nn.Module):
         self.raw_roi = tuple(int(v) for v in raw_roi)
         self.col_roi = None if col_roi is None else tuple(map(int, col_roi))
         self.col_comp = None if col_comp is None else tuple(map(int, col_comp))
+        self.res_scale = int(res_scale)
 
     @classmethod
     def build(cls, cam_matrix, dist_coeffs, M, Minv, img_size, warped_size,
@@ -160,16 +212,24 @@ class TrackerParams(nn.Module):
               device=DEFAULT_DEVICE) -> "TrackerParams":
         """Host-side build from a calibration, with the buffers on
         ``device`` (the card unless the caller passes ``device="cpu"``).
-        Only the 'compat' unwarp reads ``Minv``."""
+        Only the 'compat' unwarp reads ``Minv``.  'half' builds 'fast' at
+        ``half_geometry``'s scaled calibration; its configs must be scaled
+        with ``config.halve_config`` (``LaneTracker`` does this)."""
         device = entry_device(device)
         img_size = tuple(int(v) for v in img_size)
         warped_size = tuple(int(v) for v in warped_size)
+        res_scale = 1
+        if pipeline == "half":
+            res_scale = 2
+            M, Minv, warped_size, mppv, mpph = half_geometry(
+                M, Minv, warped_size, mppv, mpph)
         fu, fv = forward_bv_grid(np.asarray(M), img_size, warped_size)
         und_q = undistort_grid(cam_matrix, dist_coeffs, img_size)
         g_warp = slot_remap(
             perspective_grid(np.asarray(M), img_size, warped_size))
         geometry = dict(img_size=img_size, warped_size=warped_size,
-                        mppv=mppv, mpph=mpph, pipeline=pipeline)
+                        mppv=mppv, mpph=mpph, pipeline=pipeline,
+                        res_scale=res_scale)
         if pipeline == "compat":
             unwarp = perspective_grid(np.asarray(Minv), warped_size, img_size)
             return cls(
@@ -202,28 +262,81 @@ class TrackerParams(nn.Module):
             ResampleGrid.from_remapped(g_und_roi),
             ResampleGrid.from_remapped(g_warp_roi),
             fu, fv, raw_roi=raw_roi, col_roi=col_roi, col_comp=col_comp,
+            warp_b_bias=(_grid_bias(g_warp_roi) if pipeline == "turbo"
+                         else None),
             **geometry,
         ).to(device)
+
+    def _replaced(self, grid=lambda g: g, **changes) -> "TrackerParams":
+        """A new TrackerParams with each grid, tile structure and buffer
+        passed through ``grid`` and the fields in ``changes`` replaced;
+        the static geometry is shared."""
+        def opt(x):
+            return None if x is None else grid(x)
+
+        fields = dict(
+            grid_und_roi=opt(self.grid_und_roi),
+            grid_warp_roi=opt(self.grid_warp_roi),
+            fwd_u=grid(self.fwd_u), fwd_v=grid(self.fwd_v),
+            img_size=self.img_size, warped_size=self.warped_size,
+            mppv=self.mppv, mpph=self.mpph, pipeline=self.pipeline,
+            raw_roi=self.raw_roi, col_roi=self.col_roi,
+            col_comp=self.col_comp, grid_und=opt(self.grid_und),
+            grid_warp=opt(self.grid_warp), unwarp_grid=opt(self.unwarp_grid),
+            res_scale=self.res_scale, warp_b_bias=opt(self.warp_b_bias),
+            mm_und=opt(self.mm_und), mm_warp=opt(self.mm_warp))
+        fields.update(changes)
+        und, warp, fu, fv = (fields.pop(k) for k in (
+            "grid_und_roi", "grid_warp_roi", "fwd_u", "fwd_v"))
+        return TrackerParams(und, warp, fu, fv, **fields)
 
     def copy_to(self, device) -> "TrackerParams":
         """A new TrackerParams with a copy of every buffer on ``device``
         (the fleet's ``parallel.mesh.replicate``): each grid copied, the
         static geometry shared."""
         device = entry_device(device)
+        return self._replaced(lambda x: (
+            x.to(device, copy=True) if isinstance(x, torch.Tensor)
+            else x.copy_to(device)))
 
-        def grid(g):
-            return None if g is None else g.copy_to(device)
+    def with_rowmm(self) -> "TrackerParams":
+        """Params carrying the latency mode's tile structures (step.py:
+        158-173): the two-stage warp runs as slab reads + one-hot
+        contractions (kernels/resample_rowmm.py), bit for bit the gather.
+        The one-hot tensors take about 380 MB on the card ('fast').
+        'compat', and params without ROI grids, return themselves; a grid
+        with no tile structure keeps its gather."""
+        if self.pipeline == "compat" or self.grid_und_roi is None:
+            return self
+        dev = self.fwd_u.device
 
-        return TrackerParams(
-            grid(self.grid_und_roi), grid(self.grid_warp_roi),
-            self.fwd_u.cpu().numpy(), self.fwd_v.cpu().numpy(),
-            img_size=self.img_size, warped_size=self.warped_size,
-            mppv=self.mppv, mpph=self.mpph, pipeline=self.pipeline,
-            raw_roi=self.raw_roi, col_roi=self.col_roi,
-            col_comp=self.col_comp, grid_und=grid(self.grid_und),
-            grid_warp=grid(self.grid_warp),
-            unwarp_grid=grid(self.unwarp_grid),
-        ).to(device)
+        def mm(g):
+            built = build_rowmm(g)
+            return None if built is None else built.to(dev)
+
+        return self._replaced(mm_und=mm(self.grid_und_roi),
+                              mm_warp=mm(self.grid_warp_roi))
+
+
+def _rowmm_from_jax(leaves: list, grids) -> list:
+    """The latency mode's tile structures of params from the JAX package:
+    each rebuilt from its carried grid (``build_rowmm``, whose sizes and
+    meta the reference keeps in the treedef), then held equal to the
+    carried (iy0, starts, onehot) leaves, three a structure, in order."""
+    built = [build_rowmm(g) for g in grids]
+    present = [m for m in built if m is not None]
+    if len(leaves) != 3 * len(present):
+        raise ValueError(f"{len(leaves)} rowmm leaves for "
+                         f"{len(present)} tile structures")
+    for i, m in enumerate(present):
+        iy0, starts, onehot = leaves[3 * i:3 * i + 3]
+        if not (np.array_equal(iy0, m.iy0.numpy())
+                and np.array_equal(starts, m.starts.numpy())
+                and np.array_equal(np.asarray(onehot, np.float32),
+                                   m.onehot.float().numpy())):
+            raise ValueError("the carried rowmm leaves differ from the "
+                             "structure of their grid")
+    return built
 
 
 def params_from_jax(leaves, aux, device=DEFAULT_DEVICE) -> TrackerParams:
@@ -233,22 +346,27 @@ def params_from_jax(leaves, aux, device=DEFAULT_DEVICE) -> TrackerParams:
 
     ``leaves``: ``jax.tree_util.tree_leaves(params)`` as numpy arrays, in
     the reference's order (grid_und, grid_warp, grid_und_roi,
-    grid_warp_roi, unwarp_grid as five leaves each, then fwd_u, fwd_v; a
-    None grid has no leaves, so 'compat', without the ROI grids, has 17);
-    ``aux``: ``params.tree_flatten()[1]``.  Params of 'fast', 'corridor'
-    and 'compat' without the rowmm structures are accepted.
+    grid_warp_roi, unwarp_grid as five leaves each, then fwd_u, fwd_v,
+    'turbo''s warp_b_bias, then with ``with_rowmm`` the (iy0, starts,
+    onehot) of mm_und and mm_warp; a None has no leaves, so 'compat',
+    without the ROI grids, has 17, 'fast' 27, 'turbo' 28); ``aux``:
+    ``params.tree_flatten()[1]``.  Every pipeline is accepted, 'half'
+    with its ``res_scale`` of 2.
     """
     device = entry_device(device)
     (img_size, warped_size, mppv, mpph, pipeline, raw_roi, _backend, col_roi,
      col_comp, res_scale) = aux
-    n_leaves = 17 if pipeline == "compat" else 27
-    if pipeline not in PIPELINES or res_scale != 1 or len(leaves) != n_leaves:
-        raise NotImplementedError(
-            f"params of pipeline {pipeline!r} with {len(leaves)} leaves")
+    if pipeline not in PIPELINES or res_scale != (2 if pipeline == "half"
+                                                  else 1):
+        raise ValueError(f"params of pipeline {pipeline!r} with res_scale "
+                         f"{res_scale}")
     leaves = [np.asarray(x) for x in leaves]
     geometry = dict(img_size=img_size, warped_size=warped_size, mppv=mppv,
-                    mpph=mpph, pipeline=pipeline, raw_roi=raw_roi)
+                    mpph=mpph, pipeline=pipeline, raw_roi=raw_roi,
+                    res_scale=res_scale)
     if pipeline == "compat":
+        if len(leaves) != 17:
+            raise ValueError(f"'compat' params with {len(leaves)} leaves")
         return TrackerParams(
             None, None, leaves[15], leaves[16],
             grid_und=ResampleGrid(*leaves[0:5], src_size=img_size),
@@ -260,9 +378,15 @@ def params_from_jax(leaves, aux, device=DEFAULT_DEVICE) -> TrackerParams:
     warp = leaves[15:20]
     g_und = ResampleGrid(*und, src_size=(img_size[0], raw_roi[1] - raw_roi[0]))
     g_warp = ResampleGrid(*warp, src_size=(img_size[0], und[0].shape[0]))
+    n = 28 if pipeline == "turbo" else 27
+    if len(leaves) < n:
+        raise ValueError(f"{pipeline!r} params with {len(leaves)} leaves")
+    mm_und, mm_warp = (_rowmm_from_jax(leaves[n:], (g_und, g_warp))
+                       if len(leaves) > n else (None, None))
     return TrackerParams(
         g_und, g_warp, leaves[25], leaves[26], col_roi=col_roi,
-        col_comp=col_comp, **geometry,
+        col_comp=col_comp, warp_b_bias=leaves[27] if n == 28 else None,
+        mm_und=mm_und, mm_warp=mm_warp, **geometry,
     ).to(device)
 
 
@@ -327,25 +451,64 @@ class RenderMeta(NamedTuple):
     draw: torch.Tensor  # () bool
 
 
-def warp_chain(params: TrackerParams):
-    """The two-stage resample of ``params``: (undistort grid, warp grid,
-    the first raw frame row the undistort grid reads, the LAB-B function).
-    'fast' and 'corridor' undistort the raw rows the warp samples and take
-    LAB-B by the float path; 'compat' undistorts the whole frame and takes
-    LAB-B by the LUT chain."""
+class WarpChain(NamedTuple):
+    """The two-stage resample of a pipeline, as ``warp_rows`` runs it:
+    the undistort grid reading raw rows from ``raw0``, the warp grid, the
+    LAB-B function, and 'turbo''s order with its fill bias (one value a
+    warped pixel of ``g_warp``), and the latency mode's tile structures
+    (None: the per-pixel gather)."""
+
+    g_und: ResampleGrid
+    g_warp: ResampleGrid
+    raw0: int
+    lab: Callable
+    turbo: bool = False
+    bias: torch.Tensor | None = None
+    mm_und: RowMMGrid | None = None
+    mm_warp: RowMMGrid | None = None
+
+
+def warp_chain(params: TrackerParams) -> WarpChain:
+    """The two-stage resample of ``params``.  'fast', 'corridor', 'turbo'
+    and 'half' undistort the raw rows the warp samples and take LAB-B by
+    the float path; 'compat' undistorts the whole frame and takes LAB-B by
+    the LUT chain."""
     if params.pipeline == "compat":
-        return params.grid_und, params.grid_warp, 0, rgb2lab_b_u8
-    return (params.grid_und_roi, params.grid_warp_roi, params.raw_roi[0],
-            rgb2lab_b_fast)
+        return WarpChain(params.grid_und, params.grid_warp, 0, rgb2lab_b_u8)
+    return WarpChain(params.grid_und_roi, params.grid_warp_roi,
+                     params.raw_roi[0], rgb2lab_b_fast,
+                     turbo=params.pipeline == "turbo",
+                     bias=params.warp_b_bias, mm_und=params.mm_und,
+                     mm_warp=params.mm_warp)
 
 
-def warp_rows(frames: torch.Tensor, g_und: ResampleGrid, g_warp: ResampleGrid,
-              raw0: int, lab):
-    """Warped R and LAB-B of a (T, Hc, Wc, 3) uint8 chunk through the
-    grids ``g_und`` (reading raw rows from ``raw0``) then ``g_warp``."""
-    raw = frames[:, raw0:raw0 + g_und.src_size[1]]
-    warped = bilinear_gather(bilinear_gather(raw, g_und), g_warp)
-    return warped[..., 0].contiguous(), lab(warped)
+def _gather(img: torch.Tensor, grid: ResampleGrid, mm: RowMMGrid | None):
+    """``bilinear_gather``, by the tile structure ``mm`` where there is
+    one (bit for bit the same)."""
+    if mm is None:
+        return bilinear_gather(img, grid)
+    return bilinear_gather_rowmm(img, grid, mm)
+
+
+def warp_rows(frames: torch.Tensor, chain: WarpChain):
+    """Warped R and LAB-B of a (T, Hc, Wc, 3) uint8 chunk through
+    ``chain``, in the reference's order of operations (step.py:417-468):
+    the undistort, then for 'turbo' LAB-B of the undistorted band and one
+    pair resample of (R, LAB-B) with the fill bias, else the warp of the
+    RGB and LAB-B of the warped frame."""
+    raw = frames[:, chain.raw0:chain.raw0 + chain.g_und.src_size[1]]
+    und = _gather(raw, chain.g_und, chain.mm_und)
+    if chain.turbo:
+        # 'turbo' (step.py:433-455): interpolate(LAB(x)) instead of
+        # LAB(interpolate(x)) across the warp, a measured approximation.
+        r_u, lab_u = und[..., 0].contiguous(), chain.lab(und)
+        if chain.mm_warp is None:
+            return bilinear_gather_pair(r_u, lab_u, chain.g_warp,
+                                        bias_b=chain.bias)
+        return bilinear_gather_pair_rowmm(r_u, lab_u, chain.g_warp,
+                                          chain.mm_warp, bias_b=chain.bias)
+    warped = _gather(und, chain.g_warp, chain.mm_warp)
+    return warped[..., 0].contiguous(), chain.lab(warped)
 
 
 def warp_channels(frames: torch.Tensor, params: TrackerParams):
@@ -354,8 +517,9 @@ def warp_channels(frames: torch.Tensor, params: TrackerParams):
     The reference's exact two-stage chain: fixed-point undistort of the raw
     rows the warp samples, then the float bird's-eye warp (cropped to the
     corridor's compute columns), then LAB-B of the warped RGB.  'compat'
-    undistorts the whole frame and takes LAB-B by the LUT chain."""
-    return warp_rows(frames, *warp_chain(params))
+    undistorts the whole frame and takes LAB-B by the LUT chain; 'turbo'
+    warps LAB-B of the undistorted band (``warp_rows``)."""
+    return warp_rows(frames, warp_chain(params))
 
 
 def _embed_cols(binary: torch.Tensor, params: TrackerParams) -> torch.Tensor:
@@ -397,10 +561,10 @@ def _embed_prefixes(pref: RowPrefixes, params: TrackerParams) -> RowPrefixes:
     return RowPrefixes(packed=out)
 
 
-def _sa_config() -> TrackerConfig:
+def _sa_config(params: TrackerParams) -> TrackerConfig:
     """The hardcoded second-attempt parameter set (lane_tracker.py:
-    1081-1099); the reference scales it only for 'half', not ported."""
-    return SECOND_ATTEMPT
+    1081-1099), scaled where the warped space is ('half', step.py:676)."""
+    return SECOND_ATTEMPT_HALF if params.res_scale == 2 else SECOND_ATTEMPT
 
 
 def has_second_attempt(config: TrackerConfig) -> bool:
@@ -423,7 +587,7 @@ def second_attempt_artifacts_batch(r_chan: torch.Tensor, b_chan: torch.Tensor,
     """Attempt-2 front products (state-free) of a (T, H, W) channel batch:
     the hardcoded 'neighborhood' filter (lane_tracker.py:1081-1099), its
     embedded prefixes and blind intervals.  Returns (pref2, iv_sws2)."""
-    sa = _sa_config()
+    sa = _sa_config(params)
     binary2, pref2 = filter_stage(r_chan, b_chan, sa.filter)
     return _embed_search(binary2, pref2, params, sa.search)
 
@@ -442,20 +606,20 @@ class FrontRows(NamedTuple):
     packed2: torch.Tensor | None = None
 
 
-def front_rows(frames: torch.Tensor, g_und: ResampleGrid,
-               g_warp: ResampleGrid, raw0: int, lab, config: TrackerConfig,
-               hoist: bool) -> FrontRows:
+def front_rows(frames: torch.Tensor, chain: WarpChain, config: TrackerConfig,
+               second: FilterConfig | None) -> FrontRows:
     """The front half's row-local stages of a (T, Hc, Wc, 3) uint8 chunk:
-    the warp + LAB through the grids (``warp_rows``), the attempt-1 filter
-    and, with ``hoist``, the attempt-2 filter."""
+    the warp + LAB through ``chain`` (``warp_rows``), the attempt-1 filter
+    and, where ``second`` (the hoisted attempt 2's filter) is given, that
+    filter."""
     with record_function("lt.warp_lab"):
-        r_chan, b_chan = warp_rows(frames, g_und, g_warp, raw0, lab)
+        r_chan, b_chan = warp_rows(frames, chain)
     with record_function("lt.filter"):
         binary, pref = filter_stage(r_chan, b_chan, config.filter)
     rows = FrontRows(r_chan, b_chan, binary, pref.packed)
-    if hoist:
+    if second is not None:
         with record_function("lt.second_attempt"):
-            binary2, pref2 = filter_stage(r_chan, b_chan, _sa_config().filter)
+            binary2, pref2 = filter_stage(r_chan, b_chan, second)
         rows = rows._replace(binary2=binary2, packed2=pref2.packed)
     return rows
 
@@ -473,9 +637,19 @@ def front_search(rows: FrontRows, params: TrackerParams,
         with record_function("lt.second_attempt"):
             pref2, iv2 = _embed_search(rows.binary2,
                                        RowPrefixes(rows.packed2), params,
-                                       _sa_config().search)
+                                       _sa_config(params).search)
     return FrontArtifacts(r_chan=rows.r_chan, b_chan=rows.b_chan, pref=pref,
                           iv_sws=iv_sws, pref2=pref2, iv_sws2=iv2)
+
+
+def hoisted_filter(params: TrackerParams, config: TrackerConfig,
+                   hoist_second_attempt: bool) -> FilterConfig | None:
+    """The attempt-2 filter the front half runs for every frame: the
+    second attempt's (``_sa_config``) with ``hoist_second_attempt`` and a
+    config that has a second attempt, else None."""
+    if hoist_second_attempt and has_second_attempt(config):
+        return _sa_config(params).filter
+    return None
 
 
 def front_artifacts_batch(frames: torch.Tensor, params: TrackerParams,
@@ -487,9 +661,9 @@ def front_artifacts_batch(frames: torch.Tensor, params: TrackerParams,
     blind sliding-window intervals, all batched over T.  With
     ``hoist_second_attempt`` (and a config that has a second attempt) the
     attempt-2 products are computed too, for every frame."""
-    hoist = hoist_second_attempt and has_second_attempt(config)
-    return front_search(front_rows(frames, *warp_chain(params), config,
-                                   hoist), params, config)
+    second = hoisted_filter(params, config, hoist_second_attempt)
+    return front_search(front_rows(frames, warp_chain(params), config,
+                                   second), params, config)
 
 
 def front_half(frame: torch.Tensor, params: TrackerParams,
@@ -581,7 +755,7 @@ def back_half(state: TrackerState, art: FrontArtifacts,
     a1 = _run_attempt(state, config, config.search, params, ploty_validity,
                       art.pref, art.iv_sws)
     if has_second_attempt(config):
-        sa = _sa_config()
+        sa = _sa_config(params)
         if art.pref2 is not None:
             a2 = _run_attempt(state, config, sa.search, params,
                               ploty_validity, art.pref2, art.iv_sws2)

@@ -8,10 +8,10 @@ diagnostics narration, print for print.  Per-call kwargs become a static
 ``TrackerConfig``; the per-frame step (``tracker.step.build_step``) or
 the chunk pipeline (``parallel.pipeline.build_chunk_processor``) runs on the
 tracker's device, and host-side post-processing adds the text
-annotations (and the optional debug visualizations).
-
-Not ported (they raise NotImplementedError): ``latency_mode`` (the rowmm
-resampler) and the 'turbo' and 'half' pipelines.
+annotations (and the optional debug visualizations).  Every pipeline of
+the reference and its ``latency_mode`` are ported; 'half' scales the
+per-call configs to its half-resolution warped space (``halve_config``),
+and diagnostics and snapshots speak in that space, as the reference's.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from lane_tracker_tpu_torch.tracker.config import (
     SearchConfig,
     TrackerConfig,
     ValidityConfig,
+    halve_config,
 )
 from lane_tracker_tpu_torch.tracker.state import (
     TrackerState,
@@ -46,6 +47,7 @@ from lane_tracker_tpu_torch.tracker.state import (
 from lane_tracker_tpu_torch.tracker.step import (
     TrackerParams,
     build_step,
+    half_geometry,
     make_initial_state,
 )
 
@@ -67,9 +69,16 @@ class LaneTracker:
             resample chain, ROI-cropped, with the filter kernels),
             'corridor' ('fast' restricted to the decision corridor plus
             its filter-influence margin, with the per-frame
-            ``corridor_ok`` certificate) or 'compat' (the full-frame chain
-            with the LUT LAB conversion and the unwarped lane mask).
-        latency_mode: the reference's rowmm resampler; not ported.
+            ``corridor_ok`` certificate), 'compat' (the full-frame chain
+            with the LUT LAB conversion and the unwarped lane mask), or
+            one of the reference's opt-in measured approximations: 'half'
+            (the whole warped space at half resolution: scaled
+            calibration, doubled m/px, px-denominated knobs halved
+            automatically) or 'turbo' (LAB-B taken on the undistorted
+            band and warped as a channel).
+        latency_mode: the two-stage warp by slab reads and one-hot
+            contractions (``TrackerParams.with_rowmm``; bit for bit the
+            gather; about 380 MB of one-hot tensors on the card).
         device: where the tracker's tensors live, the card unless the
             caller passes ``device="cpu"`` (raises without CUDA).
     """
@@ -91,10 +100,6 @@ class LaneTracker:
         latency_mode: bool = False,
         device=DEFAULT_DEVICE,
     ):
-        if latency_mode:
-            raise NotImplementedError(
-                "latency_mode: the rowmm resampler "
-                "(lane_tracker_tpu/kernels/resample_rowmm.py) is not ported")
         self.device = entry_device(device)
         self.img_size = tuple(int(v) for v in img_size)
         self.warped_size = tuple(int(v) for v in warped_size)
@@ -116,6 +121,12 @@ class LaneTracker:
             pipeline=pipeline,
             device=self.device,
         )
+        if self.params.res_scale == 2:
+            # The split view's full-frame warp is the compute space's.
+            self._M = half_geometry(self._M, warp_matrices[1],
+                                    self.warped_size, 1.0, 1.0)[0]
+        if latency_mode:
+            self.params = self.params.with_rowmm()
         self._split_grid = None
         self._state: TrackerState | None = None
         self._prev_state: TrackerState | None = None
@@ -127,6 +138,8 @@ class LaneTracker:
 
     def _ensure_state(self, config: TrackerConfig):
         if self._state is None:
+            # params.warped_size is the compute space's ('half' scales it
+            # down from the caller's warped_size).
             self._state = make_initial_state(config, self.params.warped_size,
                                              self.device)
 
@@ -178,7 +191,7 @@ class LaneTracker:
         partial,
         n_tries,
     ) -> TrackerConfig:
-        return TrackerConfig(
+        cfg = TrackerConfig(
             filter=FilterConfig(
                 filter_type=filter_type,
                 ksize_r=int(ksize_r),
@@ -208,11 +221,17 @@ class LaneTracker:
             n_reset=self.n_reset,
             n_average=self.n_average,
         )
+        if self.params.res_scale == 2:
+            # 'half': the caller speaks full-resolution px; the compute
+            # space is half-resolution, so px-denominated knobs halve.
+            cfg = halve_config(cfg)
+        return cfg
 
     def _narrate_validity(self, lc, rc, n_left, n_right, v):
         """Print the reference's exact check_validity diagnostics message
         (lane_tracker.py:596-627), recomputed in closed form from the
-        fitted coefficients."""
+        fitted coefficients, in the compute space ('half''s is scaled
+        down)."""
         ws = self.params.warped_size
         W = ws[0] if v.y_eval_from_width else ws[1]
         nmin = min(int(n_left), int(n_right))

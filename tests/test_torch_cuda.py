@@ -44,6 +44,10 @@ chain lengths equal to its twin, and at reps 0, 1, 16 and 64 on (8, 128),
 above the tile (tests/test_torch_gather_design.py's inputs).  One launch
 per call.
 ``timing.queued_ms`` times calls queued behind its spin kernel.
+The opt-in modes: the latency mode's bf16 one-hot contractions give the
+gather's warped channels bit for bit ('fast', 'turbo', 'half'; T=1 and
+8), and 'turbo' and 'half' chunks give the CPU's decisions and integer
+state.
 """
 
 import dataclasses
@@ -883,3 +887,59 @@ def test_gaps_row_sharded_front_half_on_the_card(cuda, setup, n_bands):
     for x, y in zip(got, want):
         for a, b in (zip(x, y) if isinstance(x, tuple) else ((x, y),)):
             _same(a, b)
+
+
+# ---- the opt-in modes on the card ('turbo', 'half', the latency mode) ----
+
+
+def _mode_params(pipeline, **device):
+    cam, warp = load_calibration_npz(ASSETS / "calibration.npz")
+    return TrackerParams.build(
+        cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+        warp.image_width_height, warp.warped_width_height, warp.mppv,
+        warp.mpph, pipeline=pipeline, **device)
+
+
+@pytest.mark.parametrize("pipeline", ["fast", "turbo", "half"])
+def test_modes_rowmm_warp_equals_gather_on_the_card(cuda, setup, pipeline):
+    """The latency mode's bf16 one-hot contractions on the card give the
+    gather's warped channels bit for bit, at T=1 and T=8."""
+    from lane_tracker_tpu_torch.tracker.step import warp_channels
+
+    _, _, frames = setup
+    gp = _mode_params(pipeline)
+    gm = gp.with_rowmm()
+    assert gm.mm_und.onehot.is_cuda
+    assert gm.mm_und.onehot.dtype == torch.bfloat16
+    g = frames.to(cuda)
+    for batch in (g[:1], g):
+        for got, want in zip(warp_channels(batch, gm),
+                             warp_channels(batch, gp)):
+            _same(got, want)
+
+
+@pytest.mark.parametrize("pipeline", ["turbo", "half"])
+def test_modes_chunk_on_card_equals_cpu(cuda, setup, pipeline):
+    """'turbo' and 'half' (demo1, halved for 'half'), 8 frames with a
+    black one: the card's decisions and integer state equal the CPU's."""
+    from lane_tracker_tpu_torch.tracker.config import halve_config
+    from lane_tracker_tpu_torch.tracker.step import make_initial_state
+
+    _, _, frames = setup
+    cfg = PRESETS["demo1"]
+    if pipeline == "half":
+        cfg = halve_config(cfg)
+    frames = frames.clone()
+    frames[3] = 0
+    runs = []
+    for device in ("cpu", "cuda"):
+        p = _mode_params(pipeline, device=device)
+        runs.append(chunk_process(
+            make_initial_state(cfg, p.warped_size, device),
+            frames.to(device), p, cfg, second_attempt="two_phase"))
+    (cs, co), (gs, go) = runs
+    assert not bool(co.a1_valid[3])
+    for tree, gtree in ((co, go), (cs, gs)):
+        for name, x in zip(tree._fields, tree):
+            if x is not None and not x.is_floating_point():
+                _same(getattr(gtree, name).cpu(), x)

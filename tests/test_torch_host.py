@@ -137,6 +137,24 @@ def test_config_copy():
     assert fields(t_cfg.TrackerConfig()) == fields(j_cfg.TrackerConfig())
 
 
+def test_halve_config_copy():
+    """'half''s config scaling (config.py:128-180): the odd halving, each
+    preset and the default config halved, and SECOND_ATTEMPT_HALF."""
+    def fields(c):
+        return dataclasses.asdict(c)
+
+    for k in range(1, 130):
+        assert t_cfg._odd_half(k) == j_cfg._odd_half(k), k
+    for name in j_cfg.PRESETS:
+        assert (fields(t_cfg.halve_config(t_cfg.PRESETS[name]))
+                == fields(j_cfg.halve_config(j_cfg.PRESETS[name]))), name
+    assert (fields(t_cfg.halve_config(t_cfg.TrackerConfig()))
+            == fields(j_cfg.halve_config(j_cfg.TrackerConfig())))
+    assert (fields(t_cfg.SECOND_ATTEMPT_HALF)
+            == fields(j_cfg.SECOND_ATTEMPT_HALF))
+    assert t_cfg.SECOND_ATTEMPT_HALF.filter.open_k == 3
+
+
 def test_ellipse_runs_and_forward_grid_copies():
     for k in (1, 3, 5, 7, 15, 29, 35, 55, 65):
         assert t_runs(k) == j_runs(k)
@@ -188,8 +206,13 @@ def _assert_params_equal_jax(jp, tp):
                 getattr(tg, k).numpy(), np.asarray(getattr(jg, k)).reshape(-1))
     np.testing.assert_array_equal(tp.fwd_u.numpy(), np.asarray(jp.fwd_u))
     np.testing.assert_array_equal(tp.fwd_v.numpy(), np.asarray(jp.fwd_v))
+    assert (tp.warp_b_bias is None) == (jp.warp_b_bias is None)
+    if jp.warp_b_bias is not None:
+        assert tp.warp_b_bias.dtype == torch.float32
+        np.testing.assert_array_equal(
+            tp.warp_b_bias.numpy(), np.asarray(jp.warp_b_bias).reshape(-1))
     for f in ("img_size", "warped_size", "mppv", "mpph", "pipeline",
-              "raw_roi", "col_roi", "col_comp"):
+              "raw_roi", "col_roi", "col_comp", "res_scale"):
         assert getattr(tp, f) == getattr(jp, f), f
 
 
@@ -199,6 +222,8 @@ def _assert_params_equal_jax(jp, tp):
     ("corridor", (30, 70), "synthetic"),
     ("compat", None, "real"),
     ("compat", None, "synthetic"),
+    ("turbo", None, "synthetic"),
+    ("half", None, "synthetic"),
 ])
 def test_params_build_equals_jax(pipeline, col_roi, which):
     jp, tp = _build_both(pipeline, col_roi, which)
@@ -219,7 +244,9 @@ def test_params_build_equals_jax(pipeline, col_roi, which):
 @pytest.mark.parametrize("pipeline,which", [("corridor", "real"),
                                             ("fast", "real"),
                                             ("compat", "real"),
-                                            ("compat", "synthetic")])
+                                            ("compat", "synthetic"),
+                                            ("turbo", "real"),
+                                            ("half", "real")])
 def test_params_from_jax_equals_build(pipeline, which):
     jp, tp = _build_both(pipeline, which=which)
     leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jp)]
@@ -230,7 +257,7 @@ def test_params_from_jax_equals_build(pipeline, which):
         assert a[k].dtype == b[k].dtype, k
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)
     for f in ("img_size", "warped_size", "mppv", "mpph", "pipeline",
-              "raw_roi", "col_roi", "col_comp"):
+              "raw_roi", "col_roi", "col_comp", "res_scale"):
         assert getattr(fp, f) == getattr(tp, f), f
     for name in ("grid_und", "grid_warp", "unwarp_grid", "grid_und_roi",
                  "grid_warp_roi"):
@@ -243,12 +270,30 @@ def test_params_from_jax_equals_build(pipeline, which):
 
 @pytest.mark.parametrize("pipeline", ["turbo", "half"])
 def test_unported_pipelines_raise(pipeline):
+    """'turbo' and 'half' once raised here; both build now, at full size,
+    and their params (grids, fill bias, scaled geometry) equal JAX's."""
+    jp, tp = _build_both(pipeline)
+    _assert_params_equal_jax(jp, tp)
+    if pipeline == "half":
+        _, warp = j_load(ASSETS_DIR / "calibration.npz")
+        assert tp.res_scale == 2 and tp.warped_size == (540, 550)
+        assert (tp.mppv, tp.mpph) == (2 * warp.mppv, 2 * warp.mpph)
+        assert tp.grid_warp_roi.dst_shape == (550, 540)
+    else:
+        assert tp.warp_b_bias.shape == (1100 * 1080,)
+        assert float(tp.warp_b_bias.max()) == 128.0
+
+
+def test_unknown_pipeline_raises_as_jax():
     cam, warp = j_load(ASSETS_DIR / "calibration.npz")
-    with pytest.raises(NotImplementedError, match=pipeline):
-        t_step.TrackerParams.build(
-            cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+    args = (cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
             warp.image_width_height, warp.warped_width_height, warp.mppv,
-            warp.mpph, pipeline=pipeline, device="cpu")
+            warp.mpph)
+    with pytest.raises(ValueError, match="pipeline must be") as j_err:
+        j_step.TrackerParams.build(*args, pipeline="mxu")
+    with pytest.raises(ValueError, match="pipeline must be") as t_err:
+        t_step.TrackerParams.build(*args, pipeline="mxu", device="cpu")
+    assert str(t_err.value) == str(j_err.value)
 
 
 def test_state_from_numpy_equals_init_state():

@@ -129,7 +129,9 @@ def test_reach_of_the_presets():
     2 * 2; the second attempt: the k=35 box's 17 + 4."""
     assert filter_reach(CFG.filter) == 93
     assert filter_reach(SECOND_ATTEMPT.filter) == 21
-    assert front_halo(CFG, True) == front_halo(CFG, False) == 93
+    params = port_params("fast")
+    assert front_halo(CFG, True, params) == front_halo(CFG, False,
+                                                       params) == 93
     assert row_bounds(1100, 3) == [(0, 366), (366, 733), (733, 1100)]
 
 

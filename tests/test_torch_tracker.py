@@ -80,7 +80,9 @@ def frames():
                      for i in SCHEDULE])
 
 
-def make_tracker(cls, pipeline, **device):
+def make_tracker(cls, pipeline, **kw):
+    """A tracker of either package, demo1's validity; ``kw``: the port's
+    ``device``, ``latency_mode``."""
     cam, warp = j_load(ASSETS_DIR / "calibration.npz")
     validity = J_PRESETS["demo1"].validity
     if cls is TTracker:
@@ -88,7 +90,7 @@ def make_tracker(cls, pipeline, **device):
     return cls(warp.image_width_height, warp.warped_width_height,
                cam.cam_matrix, cam.dist_coeffs, (warp.M, warp.Minv),
                (warp.mppv, warp.mpph), validity=validity, pipeline=pipeline,
-               **device)
+               **kw)
 
 
 def host_output(out) -> dict:
@@ -235,14 +237,33 @@ def test_debug_pictures_match_jax(runs):
 
 @pytest.mark.parametrize("option", ["latency_mode", "half", "turbo"])
 def test_unported_options_raise(option):
+    """The three options once raised here.  Each builds now, and its
+    first frame (still 0, sliding-window search from a fresh state, with
+    diagnostics) equals JAX's: the decisions, the coefficients within
+    0.01 px, the transcript line for line and the annotated frame within
+    1 unit."""
     kw = (dict(latency_mode=True, pipeline="fast") if option == "latency_mode"
           else dict(pipeline=option))
-    cam, warp = lt.load_calibration_npz(ASSETS_DIR / "calibration.npz")
-    match = "rowmm" if option == "latency_mode" else option
-    with pytest.raises(NotImplementedError, match=match):
-        TTracker(warp.image_width_height, warp.warped_width_height,
-                 cam.cam_matrix, cam.dist_coeffs, (warp.M, warp.Minv),
-                 (warp.mppv, warp.mpph), device="cpu", **kw)
+    frame = frames()[0]
+    recs = []
+    for tracker in (make_tracker(JTracker, **kw),
+                    make_tracker(TTracker, device="cpu", **kw)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = np.asarray(tracker.process(frame, diagnostics=True,
+                                             **DEMO1_KW))
+        recs.append((res, host_output(tracker.last_output),
+                     buf.getvalue().splitlines(), tracker.params))
+    (ja, jo, jl, jp), (ta, to, tl, tp) = recs
+    if option == "latency_mode":
+        assert tp.mm_und is not None and tp.mm_warp is not None
+    assert tp.warped_size == jp.warped_size
+    assert bool(to["valid"]) and tl == jl and "Using sliding window search." in tl
+    for f in DECISIONS:
+        np.testing.assert_array_equal(to[f], jo[f], err_msg=f)
+    for f in ("left_coeffs", "right_coeffs"):
+        assert curve_rmse(to[f], jo[f], jp.warped_size[1]) <= 0.01, f
+    assert np.abs(ta.astype(int) - ja.astype(int)).max() <= 1
 
 
 def test_chunk_kwargs_checked_and_reset_forgets_state(runs):
