@@ -175,6 +175,24 @@ Phases (each raises at the first failure; nothing is skipped):
    ``lt.warp_lab`` range's work), and peak device memory.  Each path's
    launches go to the kernels line's ``path_launches``.  The phase then
    releases its memory, and ``LaneTracker.process`` is timed after it.
+16. Bench (runs after phase 15, before phase 10): the measuring entry
+   points as a user runs them, each in a process of its own that reuses
+   the kernels built in phase 2, every line it writes printed.
+   ``python bench_torch.py`` with no BENCH_ variable set (T=512, 'corridor'
+   with its fallback to 'fast', two_phase, overlay on), then with
+   BENCH_FAIL_EVERY=16 and with BENCH_MOTION=1 (each with BENCH_CHUNKS=2,
+   also at T=512): each must exit 0 with a
+   last line that parses, names this card and its power limit, has
+   ``chunk_size`` 512, ``certified_exact`` true or the recorded 'fast'
+   fallback, ``rmse_px_max`` within 0.5 px (motion 0.7672) over all 512
+   frames, ``valid_fraction`` the oracle's (1.0 on the stills), a time and
+   no TPU ratio; its launch line must show the attempt-1 kernels in the
+   first chunk and in the timed ones, and the fallback's exactly on fail16
+   and motion.  ``scripts/torch_latency_bench.py 1 64`` must give the
+   rows ('corridor', then 'fast') x (1, 64) with their keys, and
+   ``FLEET_LOADS=fail16 scripts/torch_fleet_bench.py 8 32`` one row per
+   schedule with their keys, 'auto''s resolved schedule and one valid
+   fraction.  The phase prints its seconds.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    ``LaneTracker.process`` ms a frame (median over 16 frames after a
@@ -203,8 +221,9 @@ operations it does over the card's rate for their type (``bound``); the
 last line is ``{"ok": true, "device": {...}}``.  Each kernel's entry
 also carries ``path_launches``: its launches on phase 12's paths
 (``process`` over 8 frames, 'compat' on 64, 'neighborhood' + mask_noise)
-and phase 15's ('turbo' and 'half' on each chunk, the latency mode's
-two trackers over 8 frames each),
+phase 15's ('turbo' and 'half' on each chunk, the latency mode's two
+trackers over 8 frames each) and phase 16's (each bench variant's first
+chunk, as its launch line gives them),
 and ``fleet_launches``: its wrapper's calls in each schedule's first
 phase 13 step on each load, ``fleet_kernel_launches``: the kernels those
 calls launched by the library's own count, and ``fleet_max_abs_err``: its
@@ -218,6 +237,7 @@ import functools
 import importlib
 import io
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -264,6 +284,24 @@ MODE_RMSE_LIMIT_PX = 0.01
 LATENCY_PIPELINES = ("fast", "turbo")
 TIMED_PIPELINES = ("fast", "turbo", "half")
 MODE_TIMED_CHUNKS = 3
+# Phase 16, the measuring entry points, each in a process of its own:
+# bench_torch.py's three variants at its default T=512 (the stills with no
+# variable set; fail16 and motion, whose chunks take 2.2-2.5x as long,
+# timing 2 chunks instead of 5, so that the phase stays near 4 minutes),
+# the latency sweep at two chunk sizes, the fleet bench on one load.
+BENCH_VARIANTS = (("stills", {}, RMSE_LIMIT_PX),
+                  ("fail16", {"BENCH_FAIL_EVERY": "16", "BENCH_CHUNKS": "2"},
+                   RMSE_LIMIT_PX),
+                  ("motion", {"BENCH_MOTION": "1", "BENCH_CHUNKS": "2"},
+                   MOTION_RMSE_LIMIT_PX))
+LATENCY_ARGS = ("1", "64")
+FLEET_BENCH = (("8", "32"), {"FLEET_LOADS": "fail16"})
+ENTRY_TIMEOUT_S = 600
+ENTRY_ENV = ("BENCH_", "LATENCY_", "FLEET_")
+LATENCY_KEYS = ("pipeline", "chunk", "fps", "ms_per_frame",
+                "chunk_compute_ms", "peak_mem_gib", "device")
+FLEET_KEYS = ("streams", "chunk", "schedule", "load", "aggregate_fps",
+              "valid_fraction", "peak_mem_gib", "device")
 FLEET_S = 8
 FLEET_T = 32
 FLEET_PIPELINE = "fast"
@@ -1604,6 +1642,95 @@ def modes_phase(stills, oracles, build_params, new_tracker, cfg, card,
           f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB ({card})")
 
 
+def run_entry(tag, argv, env):
+    """``python <argv>`` from the repository's root with ``env`` over the
+    environment (no other BENCH_, LATENCY_ or FLEET_ variable); prints
+    every line it wrote, and returns its stdout's lines parsed as JSON."""
+    full = {k: v for k, v in os.environ.items()
+            if not k.startswith(ENTRY_ENV)}
+    full.update(env)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv], cwd=REPO, env=full,
+                         capture_output=True, text=True,
+                         timeout=ENTRY_TIMEOUT_S)
+    print(f"[bench] {tag}: {' '.join(f'{k}={v}' for k, v in env.items())} "
+          f"python {' '.join(argv)}: exit {res.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in res.stderr.splitlines():
+        print(f"[bench] {tag} (stderr) {line}")
+    for line in res.stdout.splitlines():
+        print(f"[bench] {tag} {line}")
+    check(res.returncode == 0, f"{tag} exited {res.returncode}")
+    return [json.loads(line) for line in res.stdout.splitlines()]
+
+
+def bench_phase(kind, card, oracles, path_launches):
+    """Phase 16: bench_torch.py's three variants, the latency sweep and
+    the fleet bench, each run as a user runs it, in a process of its own
+    that reuses the kernels built in build/.  Adds each bench variant's
+    first-chunk launches to ``path_launches``."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    with np.load(REPO / "assets" / "bench_oracle_motion.npz") as z:
+        valid = {"stills": oracles["bench_oracle"]["valid"],
+                 "fail16": oracles[f"bench_oracle_fail{FAIL_EVERY}"]["valid"],
+                 "motion": z["valid"]}
+    for tag, env, limit in BENCH_VARIANTS:
+        *_, launches, line = run_entry(tag, ["bench_torch.py"], env)
+        where = f"bench_torch.py {tag}"
+        check(line["device"]["name"] == kind and line["device"]["power_limit"],
+              f"{where}: the line does not name the card and its limit")
+        check(line["chunk_size"] == T_BENCH and line["bench_variant"] == tag,
+              f"{where}: chunk_size or bench_variant")
+        check(line["certified_exact"] or line["pipeline"] == "fast",
+              f"{where}: neither certified nor the recorded 'fast' fallback")
+        check(line["rmse_gate_frames"] == T_BENCH
+              and line["rmse_px_max"] <= limit,
+              f"{where}: rmse_px_max {line['rmse_px_max']} over "
+              f"{line['rmse_gate_frames']} frames (limit {limit})")
+        check(line["valid_fraction"] == float(valid[tag][:T_BENCH].mean()),
+              f"{where}: valid_fraction differs from the oracle's")
+        check(line["value"] > 0 and line["timed_chunks"] > 0
+              and "vs_baseline" not in line
+              and "vs_target_2000fps" not in line,
+              f"{where}: no timing, or a TPU ratio")
+        fallback = tag != "stills"
+        for part, got in launches["launches"].items():
+            check(all(got.get(name) for name in ATTEMPT1)
+                  and all(bool(got.get(name)) == fallback
+                          for name in SECOND_ATTEMPT_LAUNCHES),
+                  f"{where}: {part} launched {got}")
+        path_launches[f"bench {tag}"] = launches["launches"]["first_chunk"]
+        print(f"[bench] {where}: {line['value']:.3f} frames/s, chunk ms "
+              f"median {line['chunk_ms_median']:.3f} (min "
+              f"{line['chunk_ms_min']:.3f}, max {line['chunk_ms_max']:.3f}; "
+              f"wall median {line['wall_ms_median']:.3f}) over "
+              f"{line['timed_chunks']} chunks; rmse_px_max "
+              f"{line['rmse_px_max']}; peak {line['peak_mem_gib']} GiB "
+              f"({card})")
+    rows = run_entry("latency", ["scripts/torch_latency_bench.py",
+                                 *LATENCY_ARGS], {})
+    check([(r["pipeline"], r["chunk"]) for r in rows]
+          == [(p, int(t)) for p in ("corridor", "fast") for t in LATENCY_ARGS]
+          and all(all(k in r for k in LATENCY_KEYS) and r["fps"] > 0
+                  and r["device"]["name"] == kind for r in rows),
+          "the latency sweep's rows")
+    argv, env = FLEET_BENCH
+    rows = run_entry("fleet", ["scripts/torch_fleet_bench.py", *argv], env)
+    check([(r["schedule"], r["load"]) for r in rows]
+          == [(s, env["FLEET_LOADS"]) for s in FLEET_SCHEDULES]
+          and all(all(k in r for k in FLEET_KEYS) and r["aggregate_fps"] > 0
+                  and r["device"]["name"] == kind
+                  and (r["streams"], r["chunk"]) == tuple(map(int, argv))
+                  for r in rows)
+          and "resolved_schedule" in rows[-1]
+          and len({r["valid_fraction"] for r in rows}) == 1
+          and 0 < rows[0]["valid_fraction"] < 1, "the fleet bench's rows")
+    print(f"[bench] phase 16 took {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
 def main(argv):
     import argparse
 
@@ -2237,6 +2364,10 @@ def main(argv):
     modes_phase(stills, oracles, build_params, new_tracker, cfg, card,
                 path_launches)
     time_process("after phase 15")
+
+    # ---- 16. The measuring entry points (before the timing phase) ----
+    torch.cuda.empty_cache()
+    bench_phase(kind, card, oracles, path_launches)
 
     # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):
