@@ -11,6 +11,7 @@ host synchronisation.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -112,8 +113,16 @@ class PolyPoints(NamedTuple):
 
 
 def ploty_grid(warped_size, partial: float, device=None) -> torch.Tensor:
-    """np.linspace(H*(1-partial), H-1, int(H*partial)) as float32."""
-    H = int(warped_size[1])
+    """np.linspace(H*(1-partial), H-1, int(H*partial)) as float32, one
+    shared read-only tensor per (H, partial, device): the back half asks
+    for it every frame, and a copy from host memory to the card would
+    wait for the card each time."""
+    return _ploty(int(warped_size[1]), float(partial),
+                  None if device is None else torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _ploty(H: int, partial: float, device) -> torch.Tensor:
     num = int(H * partial)
     grid = np.linspace(H * (1.0 - partial), H - 1.0, num).astype(np.float32)
     return torch.as_tensor(grid, device=device)

@@ -25,10 +25,13 @@ devices (parallel/rows.py) and gives the same artifacts bit for bit.
 the reference's jit-compiled one, that ``LaneTracker.process_chunk`` and
 the CLI call.
 
-Each stage runs inside a ``torch.profiler.record_function`` range named
-``lt.<stage>`` (warp_lab, filter, embed_search, second_attempt, back_half,
-overlay); two_phase's ranges are siblings, one ``lt.back_half`` per scan.
-scripts/torch_chunk_breakdown.py reads them from a profile.
+Each stage runs inside a ``utils.profiling.span`` named ``lt.<stage>``
+(warp_lab, filter, embed_search, second_attempt, back_half, overlay) under
+the chunk's root span ``lt.chunk``; two_phase's ranges are siblings, one
+``lt.back_half`` per scan, and the back half's parts are its
+``lt.back_half.*`` spans.  benchmark/trace.py reads the ranges from a
+profile and benchmark/program.py the spans and counters from a recording;
+PERF.md §3 lists them all.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ import dataclasses
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
 from lane_tracker_tpu_torch.tracker.config import TrackerConfig
@@ -51,6 +53,12 @@ from lane_tracker_tpu_torch.tracker.step import (
     has_second_attempt,
     render_frame,
     second_attempt_artifacts_batch,
+)
+from lane_tracker_tpu_torch.utils.profiling import (
+    count,
+    host_read,
+    span,
+    unit,
 )
 
 MODES = ("cond", "hoist", "two_phase")
@@ -67,13 +75,16 @@ def scan_back_half(state: TrackerState, arts: FrontArtifacts,
                    params: TrackerParams, config: TrackerConfig):
     """The back half over the chunk's frames in order.  Returns
     (state, (StepOutput stack, RenderMeta stack)) with a leading T axis."""
+    T = arts.pref.packed.shape[0]
+    count("lt.back_half.frames", T)
     outs, metas = [], []
-    for t in range(arts.pref.packed.shape[0]):
+    for t in range(T):
         state, out, meta = back_half(state, frame_artifacts(arts, t), params,
                                      config)
         outs.append(out)
         metas.append(meta)
-    return state, (_stack(outs), _stack(metas))
+    with span("lt.back_half.stack"):
+        return state, (_stack(outs), _stack(metas))
 
 
 def two_phase_scan(state: TrackerState, arts: FrontArtifacts,
@@ -83,15 +94,16 @@ def two_phase_scan(state: TrackerState, arts: FrontArtifacts,
     second-attempt front on the chunk's channels, then a rescan from the
     ORIGINAL state with the full config and the hoisted artifacts."""
     cfg1 = dataclasses.replace(config, n_tries=1)
-    with record_function("lt.back_half"):
+    with span("lt.back_half"):
         st1, (outs1, metas1) = scan_back_half(state, arts, params, cfg1)
-        all_valid = bool(outs1.valid.all())
+        all_valid = bool(host_read(outs1.valid.all()))
     if all_valid:
         return st1, (outs1, metas1)
-    with record_function("lt.second_attempt"):
+    count("lt.rescans")
+    with span("lt.second_attempt"):
         pref2, iv2 = second_attempt_artifacts_batch(arts.r_chan, arts.b_chan,
                                                     params)
-    with record_function("lt.back_half"):
+    with span("lt.back_half"):
         return scan_back_half(state, arts._replace(pref2=pref2, iv_sws2=iv2),
                               params, config)
 
@@ -117,23 +129,25 @@ def chunk_process(state: TrackerState, frames: torch.Tensor,
     if mode not in MODES:
         raise ValueError(f"unknown second_attempt mode {mode!r}")
     hoist = mode == "hoist"
-    if row_devices is None:
-        arts = front_artifacts_batch(frames, params, config,
-                                     hoist_second_attempt=hoist)
-    else:
-        arts = front_artifacts_rows(frames, params, config, row_devices,
-                                    hoist_second_attempt=hoist)
-        frames = frames.to(row_devices[0])
-    if mode == "two_phase" and has_second_attempt(config):
-        state, (outs, metas) = two_phase_scan(state, arts, params, config)
-    else:
-        with record_function("lt.back_half"):
-            state, (outs, metas) = scan_back_half(state, arts, params,
+    with unit("lt.chunk", frames.shape[0]):
+        if row_devices is None:
+            arts = front_artifacts_batch(frames, params, config,
+                                         hoist_second_attempt=hoist)
+        else:
+            arts = front_artifacts_rows(frames, params, config, row_devices,
+                                        hoist_second_attempt=hoist)
+            frames = frames.to(row_devices[0])
+        if mode == "two_phase" and has_second_attempt(config):
+            state, (outs, metas) = two_phase_scan(state, arts, params,
                                                   config)
-    if with_overlay:
-        with record_function("lt.overlay"):
-            outs = outs._replace(overlay=render_frame(frames, metas, params,
-                                                      config))
+        else:
+            with span("lt.back_half"):
+                state, (outs, metas) = scan_back_half(state, arts, params,
+                                                      config)
+        if with_overlay:
+            with span("lt.overlay"):
+                outs = outs._replace(overlay=render_frame(
+                    frames, metas, params, config))
     return state, outs
 
 

@@ -37,7 +37,6 @@ import dataclasses
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from lane_tracker_tpu_torch.parallel.mesh import (
     map_tensors,
@@ -59,6 +58,12 @@ from lane_tracker_tpu_torch.tracker.step import (
     make_initial_state,
     render_frame,
     second_attempt_artifacts_batch,
+)
+from lane_tracker_tpu_torch.utils.profiling import (
+    count,
+    host_read,
+    span,
+    unit,
 )
 
 SCHEDULES = ("two_phase", "hoist")
@@ -94,20 +99,23 @@ def scan_streams(states: TrackerState, arts: FrontArtifacts,
     # No attempt-2 artifacts under two_phase's first scan: in_dims None.
     step = torch.func.vmap(one, in_dims=(0, FrontArtifacts(
         *(None if x is None else 0 for x in arts))))
+    S, T = arts.pref.packed.shape[:2]
+    count("lt.back_half.frames", S * T)
     outs, metas = [], []
-    for t in range(arts.pref.packed.shape[1]):
+    for t in range(T):
         states, out, meta = step(states,
                                  map_tensors(lambda x: x[:, t], arts))
         outs.append(StepOutput(None, *out))
         metas.append(meta)
-    return states, (_stack(outs, 1), _stack(metas, 1))
+    with span("lt.back_half.stack"):
+        return states, (_stack(outs, 1), _stack(metas, 1))
 
 
 def _local_metrics(outs: StepOutput) -> dict:
     i32 = torch.int32
     return {
-        "frames": torch.tensor(outs.valid.numel(), dtype=i32,
-                               device=outs.valid.device),
+        "frames": torch.full((), outs.valid.numel(), dtype=i32,
+                             device=outs.valid.device),
         "valid_frames": outs.valid.sum().to(i32),
         "detected_frames": outs.detected.sum().to(i32),
         "second_attempts": (outs.n_attempts > 1).sum().to(i32),
@@ -163,12 +171,14 @@ def build_fleet_processor(config: TrackerConfig, mesh,
             raise ValueError(f"{len(states)} state shards and {len(params)} "
                              f"params for {len(mesh)} devices")
         shards = []
-        for st, fr, p in zip(states, shard_streams(frames, mesh), params):
+        with span("lt.upload"):
+            pieces = shard_streams(frames, mesh)
+        for st, fr, p in zip(states, pieces, params):
             S, T = fr.shape[:2]
             flat = fr.reshape((S * T,) + fr.shape[2:])
             sh = _Shard(st, flat, front_artifacts_batch(
                 flat, p, config, hoist_second_attempt=hoist))
-            with record_function("lt.back_half"):
+            with span("lt.back_half"):
                 sh.states_out, (sh.outs, sh.metas) = scan_streams(
                     st, _split(sh.arts, S, T), p,
                     cfg1 if two_phase else config)
@@ -178,20 +188,21 @@ def build_fleet_processor(config: TrackerConfig, mesh,
             # queued, so no read holds back a later shard's queueing; the
             # fallback's work is queued shard after shard, as above.
             for sh, p in zip(shards, params):
-                if bool(sh.outs.valid.all()):
+                if bool(host_read(sh.outs.valid.all())):
                     continue
+                count("lt.rescans")
                 S, T = sh.outs.valid.shape
-                with record_function("lt.second_attempt"):
+                with span("lt.second_attempt"):
                     pref2, iv2 = second_attempt_artifacts_batch(
                         sh.arts.r_chan, sh.arts.b_chan, p)
                 full = _split(sh.arts._replace(pref2=pref2, iv_sws2=iv2),
                               S, T)
-                with record_function("lt.back_half"):
+                with span("lt.back_half"):
                     sh.states_out, (sh.outs, sh.metas) = scan_streams(
                         sh.states, full, p, config)
         if with_overlay:
             for sh, p in zip(shards, params):
-                with record_function("lt.overlay"):
+                with span("lt.overlay"):
                     ov = render_frame(sh.flat, _merge(sh.metas), p, config)
                 sh.outs = sh.outs._replace(
                     overlay=ov.reshape(sh.outs.valid.shape + ov.shape[1:]))
@@ -275,10 +286,13 @@ class StreamFleet:
         if frames.shape[0] != self.n_streams:
             raise ValueError(f"frames for {frames.shape[0]} streams, the "
                              f"fleet has {self.n_streams}")
-        self.states, outs, metrics = self._fn(
-            self.states, frames, self.params_device)
-        if self._mode == "auto":
-            self._auto_update(outs)
+        with unit("lt.fleet_step", frames.shape[0] * frames.shape[1]):
+            if self.schedule == "hoist":
+                count("lt.fleet.hoist_steps")
+            self.states, outs, metrics = self._fn(
+                self.states, frames, self.params_device)
+            if self._mode == "auto":
+                self._auto_update(outs)
         return outs, metrics
 
     def _auto_update(self, outs):
@@ -286,7 +300,8 @@ class StreamFleet:
         the crossover (see __init__).  a1_valid is the attempt-1 outcome
         under BOTH schedules, so the observation is schedule-independent;
         the read is one of S*T bools per step."""
-        poisoned = float(not bool(torch.as_tensor(outs.a1_valid).all()))
+        poisoned = float(not bool(host_read(
+            torch.as_tensor(outs.a1_valid).all())))
         self.poison_ema += self._auto_alpha * (poisoned - self.poison_ema)
         want = self.schedule
         if (self.schedule == "two_phase"
@@ -297,6 +312,7 @@ class StreamFleet:
               < self._auto_crossover - self._auto_hysteresis):
             want = "two_phase"
         if want != self.schedule:
+            count("lt.fleet.schedule_flips")
             self.schedule = want
             self._fn = build_fleet_processor(
                 self.config, self.mesh, self.with_overlay,

@@ -46,7 +46,6 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from lane_tracker_tpu_torch.calib.homography import perspective_grid
 from lane_tracker_tpu_torch.calib.undistort import undistort_grid
@@ -93,6 +92,12 @@ from lane_tracker_tpu_torch.tracker.config import (
     TrackerConfig,
 )
 from lane_tracker_tpu_torch.tracker.state import TrackerState, init_state
+from lane_tracker_tpu_torch.utils.profiling import (
+    count,
+    host_read,
+    span,
+    unit,
+)
 
 PIPELINES = ("fast", "compat", "turbo", "corridor", "half")
 # The corridor's compute margin, the JAX package's (step.py:265), which it
@@ -612,13 +617,13 @@ def front_rows(frames: torch.Tensor, chain: WarpChain, config: TrackerConfig,
     the warp + LAB through ``chain`` (``warp_rows``), the attempt-1 filter
     and, where ``second`` (the hoisted attempt 2's filter) is given, that
     filter."""
-    with record_function("lt.warp_lab"):
+    with span("lt.warp_lab"):
         r_chan, b_chan = warp_rows(frames, chain)
-    with record_function("lt.filter"):
+    with span("lt.filter"):
         binary, pref = filter_stage(r_chan, b_chan, config.filter)
     rows = FrontRows(r_chan, b_chan, binary, pref.packed)
     if second is not None:
-        with record_function("lt.second_attempt"):
+        with span("lt.second_attempt"):
             binary2, pref2 = filter_stage(r_chan, b_chan, second)
         rows = rows._replace(binary2=binary2, packed2=pref2.packed)
     return rows
@@ -629,12 +634,12 @@ def front_search(rows: FrontRows, params: TrackerParams,
     """The front half's stages over whole frames: each attempt's corridor
     embedding and blind sliding-window intervals (the search sums columns
     over many rows, so it is not row-local)."""
-    with record_function("lt.embed_search"):
+    with span("lt.embed_search"):
         pref, iv_sws = _embed_search(rows.binary, RowPrefixes(rows.packed),
                                      params, config.search)
     pref2 = iv2 = None
     if rows.binary2 is not None:
-        with record_function("lt.second_attempt"):
+        with span("lt.second_attempt"):
             pref2, iv2 = _embed_search(rows.binary2,
                                        RowPrefixes(rows.packed2), params,
                                        _sa_config(params).search)
@@ -690,50 +695,55 @@ def _run_attempt(state: TrackerState, cfg: TrackerConfig, scfg, params,
                  ploty_validity, pref: RowPrefixes,
                  iv_sws: SearchIntervals) -> AttemptResult:
     """One search + fit + validate attempt on one frame's O(H) data."""
-    W, H = params.warped_size
-    use_band = state.last_detection <= cfg.n_reset
-    iv_band = band_intervals(state.last_left, state.last_right, scfg, H, W)
-    iv = SearchIntervals(*(torch.where(use_band, b, s)
-                           for b, s in zip(iv_band, iv_sws)))
-    ln, lsx = interval_moments(pref, iv.left_lo, iv.left_hi, iv.left_valid)
-    rn, rsx = interval_moments(pref, iv.right_lo, iv.right_hi, iv.right_valid)
-    detected = (ln.sum() > 0) & (rn.sum() > 0)
-    coeffs = fit_poly_rows(torch.stack([ln, rn]), torch.stack([lsx, rsx]), W)
-    meta = poly_points_meta(coeffs, ploty_validity, params.warped_size)
-    lc, rc = coeffs[0], coeffs[1]
-    validity = check_validity(lc, rc, meta.n[0], meta.n[1],
-                              params.warped_size, cfg.validity)
-    if params.col_roi is None:
-        roi_ok = torch.ones((), dtype=torch.bool, device=lc.device)
-    else:
-        # Exactness certificate: every binary column this attempt read
-        # lies in the corridor (per-level conv reads, then the selected
-        # row intervals), so its decisions equal full-width 'fast'.
-        x0, x1 = params.col_roi
+    with span("lt.back_half.attempt"):
+        W, H = params.warped_size
+        use_band = state.last_detection <= cfg.n_reset
+        iv_band = band_intervals(state.last_left, state.last_right, scfg, H, W)
+        iv = SearchIntervals(*(torch.where(use_band, b, s)
+                               for b, s in zip(iv_band, iv_sws)))
+        ln, lsx = interval_moments(pref, iv.left_lo, iv.left_hi,
+                                   iv.left_valid)
+        rn, rsx = interval_moments(pref, iv.right_lo, iv.right_hi,
+                                   iv.right_valid)
+        detected = (ln.sum() > 0) & (rn.sum() > 0)
+        coeffs = fit_poly_rows(torch.stack([ln, rn]),
+                               torch.stack([lsx, rsx]), W)
+        meta = poly_points_meta(coeffs, ploty_validity, params.warped_size)
+        lc, rc = coeffs[0], coeffs[1]
+        validity = check_validity(lc, rc, meta.n[0], meta.n[1],
+                                  params.warped_size, cfg.validity)
+        if params.col_roi is None:
+            roi_ok = torch.ones((), dtype=torch.bool, device=lc.device)
+        else:
+            # Exactness certificate: every binary column this attempt read
+            # lies in the corridor (per-level conv reads, then the selected
+            # row intervals), so its decisions equal full-width 'fast'.
+            x0, x1 = params.col_roi
 
-        def rng_ok(lo, hi, nonempty):
-            return torch.where(nonempty, (lo >= x0) & (hi <= x1), True).all()
+            def rng_ok(lo, hi, nonempty):
+                return torch.where(nonempty, (lo >= x0) & (hi <= x1),
+                                   True).all()
 
-        roi_ok = (
-            rng_ok(iv.left_read_lo, iv.left_read_hi,
-                   iv.left_read_lo < iv.left_read_hi)
-            & rng_ok(iv.right_read_lo, iv.right_read_hi,
-                     iv.right_read_lo < iv.right_read_hi)
-            & rng_ok(iv.left_lo, iv.left_hi,
-                     iv.left_valid & (iv.left_lo < iv.left_hi))
-            & rng_ok(iv.right_lo, iv.right_hi,
-                     iv.right_valid & (iv.right_lo < iv.right_hi))
+            roi_ok = (
+                rng_ok(iv.left_read_lo, iv.left_read_hi,
+                       iv.left_read_lo < iv.left_read_hi)
+                & rng_ok(iv.right_read_lo, iv.right_read_hi,
+                         iv.right_read_lo < iv.right_read_hi)
+                & rng_ok(iv.left_lo, iv.left_hi,
+                         iv.left_valid & (iv.left_lo < iv.left_hi))
+                & rng_ok(iv.right_lo, iv.right_hi,
+                         iv.right_valid & (iv.right_lo < iv.right_hi))
+            )
+        return AttemptResult(
+            detected=detected,
+            valid=detected & validity,
+            lc=lc,
+            rc=rc,
+            search_mode=use_band.to(torch.int32),
+            n_left=meta.n[0],
+            n_right=meta.n[1],
+            roi_ok=roi_ok,
         )
-    return AttemptResult(
-        detected=detected,
-        valid=detected & validity,
-        lc=lc,
-        rc=rc,
-        search_mode=use_band.to(torch.int32),
-        n_left=meta.n[0],
-        n_right=meta.n[1],
-        roi_ok=roi_ok,
-    )
 
 
 def back_half(state: TrackerState, art: FrontArtifacts,
@@ -747,10 +757,8 @@ def back_half(state: TrackerState, art: FrontArtifacts,
     field is selected by attempt 1's validity; without it ('cond') one host
     read of that validity decides, and only a failing frame runs the
     'neighborhood' filter on its own (1, H, W) channels."""
-    W, H = params.warped_size
     dev = state.last_left.device
     ploty_validity = ploty_grid(params.warped_size, 1.0, dev)
-    ploty_render = ploty_grid(params.warped_size, config.search.partial, dev)
 
     a1 = _run_attempt(state, config, config.search, params, ploty_validity,
                       art.pref, art.iv_sws)
@@ -761,10 +769,10 @@ def back_half(state: TrackerState, art: FrontArtifacts,
                               ploty_validity, art.pref2, art.iv_sws2)
             a = AttemptResult(*(torch.where(a1.valid, x, y)
                                 for x, y in zip(a1, a2)))
-        elif bool(a1.valid):
+        elif bool(host_read(a1.valid)):
             a = a1
         else:
-            with record_function("lt.second_attempt"):
+            with span("lt.second_attempt"):
                 pref2, iv2 = second_attempt_artifacts_batch(
                     art.r_chan[None], art.b_chan[None], params)
             a = _run_attempt(state, config, sa.search, params,
@@ -774,6 +782,20 @@ def back_half(state: TrackerState, art: FrontArtifacts,
     else:
         a = a1
         n_attempts = torch.ones((), dtype=torch.int32, device=dev)
+    with span("lt.back_half.update"):
+        return _update(state, a, a1, n_attempts, params, config)
+
+
+def _update(state: TrackerState, a: AttemptResult, a1: AttemptResult,
+            n_attempts: torch.Tensor, params: TrackerParams,
+            config: TrackerConfig):
+    """The back half's update of one frame from its selected attempt
+    ``a`` (``a1`` attempt 1's): the rolling history, the smoothed fit, the
+    render geometry, the radius and the eccentricity.  Returns
+    (new_state, StepOutput without the overlay, RenderMeta)."""
+    H = params.warped_size[1]
+    ploty_render = ploty_grid(params.warped_size, config.search.partial,
+                              state.last_left.device)
     valid = a.valid
 
     # ---- Rolling history (push on both paths; sentinel = invalid) ----
@@ -932,13 +954,16 @@ def tracker_step(state: TrackerState, frame: torch.Tensor,
     'neighborhood' filter), the overlay.  Returns (new_state, StepOutput)
     without a T axis."""
     frames = frame[None]
-    arts = front_artifacts_batch(frames, params, config)
-    with record_function("lt.back_half"):
-        new_state, out, meta = back_half(state, frame_artifacts(arts, 0),
-                                         params, config)
-    with record_function("lt.overlay"):
-        overlay = render_frame(frames, RenderMeta(*(x[None] for x in meta)),
-                               params, config)
+    with unit("lt.frame", 1):
+        arts = front_artifacts_batch(frames, params, config)
+        with span("lt.back_half"):
+            count("lt.back_half.frames")
+            new_state, out, meta = back_half(state, frame_artifacts(arts, 0),
+                                             params, config)
+        with span("lt.overlay"):
+            overlay = render_frame(frames,
+                                   RenderMeta(*(x[None] for x in meta)),
+                                   params, config)
     return new_state, out._replace(overlay=overlay[0])
 
 

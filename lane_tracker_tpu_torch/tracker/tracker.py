@@ -50,6 +50,7 @@ from lane_tracker_tpu_torch.tracker.step import (
     half_geometry,
     make_initial_state,
 )
+from lane_tracker_tpu_torch.utils.profiling import host_read, span, unit
 
 # process()'s per-frame debug flags, which have no chunked equivalent.
 _DEBUG_FLAGS = ("visualize_search", "split_view", "diagnostics")
@@ -437,15 +438,17 @@ class LaneTracker:
         sig.update(kwargs)
         config = self._config_from_kwargs(**sig)
         self._ensure_state(config)
-        frames = torch.tensor(np.asarray(frames, dtype=np.uint8),
-                              device=self.device)
-        if frames.dim() != 4:
+        frames = np.asarray(frames, dtype=np.uint8)
+        if frames.ndim != 4:
             raise ValueError("process_chunk expects a (T, H, W, 3) batch")
         self._prev_state = self._state
         step = build_chunk_processor(config, with_overlay=bool(with_overlay),
                                      second_attempt=str(second_attempt))
-        self._state, outs = step(self._state, frames, self.params)
-        valid = _host(outs.valid)
+        with unit("lt.chunk", frames.shape[0]):
+            with span("lt.upload"):
+                frames = torch.tensor(frames, device=self.device)
+            self._state, outs = step(self._state, frames, self.params)
+            valid = _host(host_read(outs.valid))
         self.counter += int(valid.shape[0])
         self.success += int(valid.sum())
         self.last_output = type(outs)(

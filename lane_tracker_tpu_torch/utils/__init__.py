@@ -1,7 +1,7 @@
 from lane_tracker_tpu_torch.utils.profiling import (
     FpsMeter,
     maybe_profile,
-    trace_annotation,
+    span,
 )
 
-__all__ = ["FpsMeter", "maybe_profile", "trace_annotation"]
+__all__ = ["FpsMeter", "maybe_profile", "span"]

@@ -62,6 +62,7 @@ SUBPACKAGES = ("", "calib", "io", "kernels", "ops", "parallel", "render",
 # JAX names whose port has another name: (port module, port name).
 RENAMED = {
     "kernels.filter_stage_v2": ("ops.filters", "filter_stage"),
+    "utils.trace_annotation": ("utils.profiling", "span"),
 }
 # JAX names the port does not carry, with the reason (none at present:
 # every exported name has its counterpart).

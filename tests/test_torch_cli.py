@@ -148,16 +148,13 @@ def test_profile_dir_writes_a_trace(tmp_path):
     written as Chrome trace JSON, with the region's ranges in it."""
     import torch
 
-    from lane_tracker_tpu_torch.utils.profiling import (
-        maybe_profile,
-        trace_annotation,
-    )
+    from lane_tracker_tpu_torch.utils.profiling import maybe_profile, span
 
     with maybe_profile(None):
         pass
     assert not any(tmp_path.iterdir())
     with maybe_profile(tmp_path / "trace"):
-        with trace_annotation("lt.test_region"):
+        with span("lt.test_region"):
             torch.ones(64).cumsum(0)
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert any(e.get("name") == "lt.test_region"

@@ -1,0 +1,331 @@
+"""The port's own spans and counters (``utils/profiling.py``).
+
+On the CPU at the tiny geometry (the port's synthetic 128x96 calibration,
+``tiny_config``, 'fast', T=4; the fleet on ``CPU2``, two shards of two
+streams): with tracing off ``span`` is one shared no-op that enters no
+``record_function`` and counters stay still; inside ``recording()`` a
+two_phase chunk counts its scans, rescans and host reads exactly, its
+spans nest inside their parents, and a fleet step counts S x T frames a
+scan, with the back half's sub-spans opened under ``torch.func.vmap``;
+under ``torch.profiler`` every ``lt.back_half.*`` range lies inside an
+``lt.back_half`` range.
+
+Two tests are marked ``cuda`` and skip without a card: on the card, under
+``torch.cuda.set_sync_debug_mode("warn")``, every synchronising call of
+``LaneTracker.process_chunk`` and ``StreamFleet.step`` is a counted
+``lt.host_read`` or the ``lt.upload`` copy; under ``torch.profiler`` the
+``lt.back_half.*`` ranges lie inside ``lt.back_half`` ranges and each
+``lt.upload`` range holds the frames' host-to-card copy.  This file
+imports no jax; run those tests on the card with
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \\
+        tests/test_torch_telemetry.py -q
+"""
+
+import json
+import pathlib
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from lane_tracker_tpu_torch import LaneTracker
+from lane_tracker_tpu_torch.calib import synthetic as syn
+from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
+from lane_tracker_tpu_torch.parallel.streams import StreamFleet
+from lane_tracker_tpu_torch.tracker import step as t_step
+from lane_tracker_tpu_torch.utils import profiling
+
+ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
+CPU2 = ("cpu", "cpu")
+T = 4
+PERMISSIVE = dict(min_dist_y1=0, max_dist_y1=10_000, min_dist_y2=0,
+                  max_dist_y2=10_000, min_dist_y3=0, max_dist_y3=10_000,
+                  tangent_thresh=1e9)
+PARTS = ("lt.back_half.attempt", "lt.back_half.update", "lt.back_half.stack")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The back half's many small operators: one intra-op thread under
+    the suite's workers, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _lane_frames(n, H=96, W=128, seed=0):
+    """Two bright lane stripes converging toward the horizon over dark
+    noise (tests/test_torch_fleet.py's frames)."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(20, 60, (n, H, W, 3), dtype=np.uint8)
+    for t in range(n):
+        for xfrac in (0.40, 0.60):
+            for y in range(H // 2, H):
+                depth = (y - H // 2) / (H / 2)
+                x = int(W / 2 + (xfrac - 0.5) * W * depth)
+                frames[t, y, max(x - 1, 0):min(x + 2, W), :] = 230
+    return frames
+
+
+def _calib_args():
+    cam, warp = syn.make_synthetic_calibration()
+    return (cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+            warp.image_width_height, warp.warped_width_height, warp.mppv,
+            warp.mpph)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(params, permissive config, a state one chunk in): from it, a chunk
+    of lane frames passes attempt 1 on every frame, and a black frame
+    fails it."""
+    params = t_step.TrackerParams.build(*_calib_args(), pipeline="fast",
+                                        device="cpu")
+    cfg = syn.tiny_config()
+    cfg = cfg.replace(validity=type(cfg.validity)(**PERMISSIVE))
+    state, _ = chunk_process(
+        t_step.make_initial_state(cfg, params.warped_size, "cpu"),
+        torch.from_numpy(_lane_frames(T)), params, cfg,
+        second_attempt="two_phase")
+    return params, cfg, state
+
+
+def _chunk(tiny, failing: bool):
+    params, cfg, state = tiny
+    frames = _lane_frames(T, seed=1)
+    if failing:
+        frames[2] = 0
+    _, outs = chunk_process(state, torch.from_numpy(frames), params, cfg,
+                            second_attempt="two_phase")
+    assert bool(outs.a1_valid.all()) != failing
+    return outs
+
+
+def test_span_with_tracing_off_is_the_shared_noop(tiny, monkeypatch):
+    def entered(name):
+        raise AssertionError(f"record_function({name!r}) with tracing off")
+
+    monkeypatch.setattr(profiling, "record_function", entered)
+    assert not torch.autograd._profiler_enabled()
+    assert profiling.span("lt.a") is profiling.span("lt.b")
+    assert profiling.unit("lt.chunk", T) is profiling.span("lt.a")
+    with profiling.recording():
+        pass
+    before = profiling.summary()
+    _chunk(tiny, failing=True)
+    profiling.count("lt.frames", 5)
+    assert profiling.summary() == before == {"spans": {}, "counters": {},
+                                             "units": 0}
+
+
+@pytest.mark.parametrize("failing", [False, True])
+def test_two_phase_chunk_counts_scans_rescans_and_reads(tiny, failing):
+    with profiling.recording():
+        _chunk(tiny, failing)
+    s = profiling.summary()
+    assert s["units"] == 1
+    assert s["counters"] == {
+        "lt.frames": T, "lt.back_half.frames": 2 * T if failing else T,
+        "lt.host_reads": 1, **({"lt.rescans": 1} if failing else {})}
+    assert s["spans"]["lt.chunk"]["n"] == 1
+    assert s["spans"]["lt.back_half"]["n"] == (2 if failing else 1)
+    assert s["spans"]["lt.host_read"]["n"] == 1
+    assert s["spans"]["lt.back_half.update"]["n"] == s["counters"][
+        "lt.back_half.frames"]
+
+
+def test_spans_nest_inside_their_parents(tiny):
+    """A failing chunk: attempt spans T under the first scan, then 2T
+    under the rescan (both attempts a frame); each child inside its
+    parent in time and unit, every self time at least 0."""
+    with profiling.recording():
+        _chunk(tiny, failing=True)
+    spans = profiling.spans()
+    scans = [i for i, s in enumerate(spans) if s["name"] == "lt.back_half"]
+    attempts = [sum(s["name"] == "lt.back_half.attempt"
+                    and s["parent"] == i for s in spans) for i in scans]
+    assert attempts == [T, 2 * T]
+    for s in spans:
+        assert s["end_ns"] >= s["start_ns"] > 0
+        if s["parent"] < 0:
+            assert s["name"] == "lt.chunk" and s["unit"] == 0
+            continue
+        p = spans[s["parent"]]
+        assert p["start_ns"] <= s["start_ns"] <= s["end_ns"] <= p["end_ns"]
+        assert p["unit"] == s["unit"]
+        if s["name"] in PARTS:
+            assert p["name"] == "lt.back_half"
+    for name, row in profiling.summary()["spans"].items():
+        assert 0 <= row["self_ns"] <= row["total_ns"], name
+
+
+def test_fleet_steps_count_streams_times_frames_a_scan(tiny):
+    """'auto' on CPU2 (4 streams, T frames): the first step fails on every
+    frame (``tiny_config``'s validity), so each shard rescans and the
+    schedule flips to hoist; the second step runs hoisted, one scan.  The
+    back half's sub-spans open under vmap, once a time step a shard."""
+    params = tiny[0]
+    fleet = StreamFleet(params, syn.tiny_config(), 4, mesh=CPU2,
+                        second_attempt="auto", auto_alpha=1.0)
+    frames = np.stack([_lane_frames(T, seed=s) for s in range(4)])
+    with profiling.recording():
+        fleet.step(frames)
+    s = profiling.summary()
+    assert fleet.schedule == "hoist"
+    assert s["units"] == 1 and s["spans"]["lt.fleet_step"]["n"] == 1
+    assert s["counters"] == {"lt.frames": 4 * T,
+                             "lt.back_half.frames": 2 * 4 * T,
+                             "lt.rescans": 2, "lt.host_reads": 2 + 1,
+                             "lt.fleet.schedule_flips": 1}
+    spans = s["spans"]
+    assert spans["lt.upload"]["n"] == 1
+    assert spans["lt.back_half.attempt"]["n"] == 2 * T + 2 * 2 * T
+    assert spans["lt.back_half.update"]["n"] == 2 * T + 2 * T
+    assert spans["lt.back_half.stack"]["n"] == 4
+    with profiling.recording():
+        fleet.step(frames)
+    s = profiling.summary()
+    assert s["counters"] == {"lt.frames": 4 * T,
+                             "lt.back_half.frames": 4 * T,
+                             "lt.host_reads": 1, "lt.fleet.hoist_steps": 1}
+    assert s["spans"]["lt.back_half.attempt"]["n"] == 2 * 2 * T
+
+
+def test_process_chunk_is_one_unit_with_its_upload(tiny):
+    """``LaneTracker.process_chunk``: the root ``lt.chunk`` holds the
+    upload and ``chunk_process``, which opens no root of its own; two
+    host reads (two_phase's and the valid flags for the success count)."""
+    a = _calib_args()
+    tracker = LaneTracker(a[4], a[5], a[0], a[1], a[2:4], a[6:],
+                          device="cpu")
+    frames = _lane_frames(T)
+    with profiling.recording():
+        tracker.process_chunk(frames, with_overlay=False)
+    s = profiling.summary()
+    assert s["units"] == 1
+    assert s["spans"]["lt.chunk"]["n"] == 1
+    assert s["spans"]["lt.upload"]["n"] == 1
+    assert s["counters"]["lt.frames"] == T
+    assert s["counters"]["lt.host_reads"] == 2
+    roots = [x for x in profiling.spans() if x["parent"] < 0]
+    assert [x["name"] for x in roots] == ["lt.chunk"]
+
+
+def test_profiler_ranges_nest_inside_the_back_half(tiny, tmp_path):
+    """Under a CPU ``torch.profiler`` the spans are ``record_function``
+    ranges: every ``lt.back_half.*`` range lies inside an
+    ``lt.back_half`` range, the fleet's under vmap too."""
+    params = tiny[0]
+    fleet = StreamFleet(params, syn.tiny_config(), 4, mesh=CPU2)
+    frames = np.stack([_lane_frames(T, seed=s) for s in range(4)])
+    with profiling.maybe_profile(tmp_path):
+        _chunk(tiny, failing=True)
+        fleet.step(frames)
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"] if e.get("cat") == "user_annotation"]
+    names = {e["name"] for e in events}
+    assert {"lt.chunk", "lt.fleet_step", "lt.upload", "lt.host_read",
+            *PARTS} <= names
+    halves = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e["name"] == "lt.back_half"]
+    parts = [e for e in events if e["name"] in PARTS]
+    assert len(parts) >= 2 * T
+    for e in parts:
+        assert any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                   for a, b in halves), e
+
+
+@pytest.fixture(scope="module")
+def card_calls():
+    """On the card: ``process_chunk`` and an 'auto' fleet step (two
+    streams of four) on the stills with a black frame, so two_phase
+    rescans and 'auto' reads its observation; each called once to warm
+    up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from lane_tracker_tpu_torch import load_calibration_npz
+    from lane_tracker_tpu_torch.kernels.build import build
+    from lane_tracker_tpu_torch.tracker.config import PRESETS
+
+    build()
+    cam, warp = load_calibration_npz(ASSETS / "calibration.npz")
+    args = (cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+            warp.image_width_height, warp.warped_width_height, warp.mppv,
+            warp.mpph)
+    with np.load(ASSETS / "stills_720p.npz") as z:
+        stills = z["frames"][np.arange(8) % 4]
+    stills[5] = 0
+    tracker = LaneTracker(args[4], args[5], args[0], args[1], args[2:4],
+                          args[6:])
+    params = t_step.TrackerParams.build(*args, pipeline="fast")
+    fleet = StreamFleet(params, PRESETS["demo1"], 2,
+                        mesh=["cuda"], with_overlay=True,
+                        second_attempt="auto")
+    fleet_frames = stills.reshape((2, 4) + stills.shape[1:])
+    calls = {"process_chunk": lambda: tracker.process_chunk(stills),
+             "StreamFleet.step": lambda: fleet.step(fleet_frames)}
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    return calls
+
+
+@pytest.mark.cuda
+def test_every_sync_on_the_card_is_a_counted_read_or_the_upload(card_calls):
+    """Counted under the sync debug mode."""
+    for name, call in card_calls.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with profiling.recording():
+                    call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [str(w.message) for w in caught if str(w.message)
+                 .startswith("called a synchronizing CUDA operation")]
+        s = profiling.summary()
+        reads = s["counters"].get("lt.host_reads", 0)
+        uploads = s["spans"]["lt.upload"]["n"]
+        print(f"{name}: {len(syncs)} synchronising calls, {reads} host "
+              f"reads, {uploads} upload")
+        assert reads >= 1 and uploads == 1, name
+        assert len(syncs) == reads + uploads, (name, syncs)
+
+
+@pytest.mark.cuda
+def test_profiled_ranges_on_the_card(card_calls, tmp_path):
+    """Under ``torch.profiler`` on the card, in the device trace's clock:
+    every ``lt.back_half.*`` range lies inside an ``lt.back_half`` range,
+    and each ``lt.upload`` range holds the launch of a host-to-card copy
+    of the frames (the chunk's, the fleet step's)."""
+    with profiling.maybe_profile(tmp_path):
+        for call in card_calls.values():
+            call()
+        torch.cuda.synchronize()
+    events = json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    halves = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
+              if e["name"] == "lt.back_half"]
+    parts = [e for e in ranges if e["name"] in PARTS]
+    assert len(parts) >= 8
+    for e in parts:
+        assert any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                   for a, b in halves), e
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    copies = [launched_at.get(e.get("args", {}).get("correlation"))
+              for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    uploads = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
+               if e["name"] == "lt.upload"]
+    print(f"{len(uploads)} lt.upload ranges, {len(copies)} frame copies")
+    assert len(uploads) == 2
+    for a, b in uploads:
+        assert any(ts is not None and a <= ts <= b for ts in copies)
