@@ -28,7 +28,11 @@ SOURCES = ("filter_stage.cu", "tophat_staged.cu", "dual_tophat.cu",
            "adaptive_mean.cu", "channel_stage.cu", "resample_mxu2.cu",
            "shift_chain.cu", "shift_chain_8bit.cu", "shift_chain_i16.cu",
            "shift_chain_i32.cu", "shift_chain_bf16.cu", "sweep_dots.cu",
-           "tile_gather.cu")
+           "tile_gather.cu", "back_half.cu")
+# Flags of one source beside NVCC_FLAGS: the back half's scan takes the
+# plain path's float32 arithmetic operation by operation, so no multiply
+# and add of it may contract into a fused multiply-add.
+SOURCE_FLAGS = {"back_half.cu": ("-fmad=false",)}
 HEADERS = ("common.cuh", "tophat.cuh", "shift_chain.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -65,9 +69,12 @@ SIGNATURES = {
                       _I, _P),
     "lt_tile_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lt_filter_stage_launches": (),
+    "lt_back_half": (_P, _I, _P, _I, _P, _I, _P),
+    "lt_back_half_launches": (),
 }
 # Entries that return something else than an int error code.
-RESTYPES = {"lt_filter_stage_launches": ctypes.c_longlong}
+RESTYPES = {"lt_filter_stage_launches": ctypes.c_longlong,
+            "lt_back_half_launches": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:
@@ -85,6 +92,7 @@ def find_nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"liblt_filter_stage_{h.hexdigest()[:16]}.so"
@@ -110,7 +118,8 @@ def build() -> tuple:
     def compile_one(src, obj):
         t = time.perf_counter()
         res = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), "-c", "-o",
+             str(obj), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         return res, time.perf_counter() - t
 

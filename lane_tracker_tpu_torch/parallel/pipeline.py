@@ -2,9 +2,11 @@
 
 Port of lane_tracker_tpu/parallel/pipeline.py:42-134.  A chunk of T frames
 runs the stateless front half (warp, LAB, the three filter kernels,
-sliding-window precompute) once on the whole batch, then the back half as
-a Python loop over frames carrying the tracker state, then the overlays
-for all T frames at once.
+sliding-window precompute) once on the whole batch, then the back half
+over the frames in order, carrying the tracker state (``scan_back_half``:
+on the card one launch of the back-half kernel, kernels/back_half.py,
+where no frame needs a host decision; else the per-frame loop), then the
+overlays for all T frames at once.
 
 ``second_attempt`` schedules the fallback attempt's 'neighborhood' filter
 (two adaptive-mean kernels and one merge-open kernel) as the reference
@@ -28,10 +30,11 @@ the CLI call.
 Each stage runs inside a ``utils.profiling.span`` named ``lt.<stage>``
 (warp_lab, filter, embed_search, second_attempt, back_half, overlay) under
 the chunk's root span ``lt.chunk``; two_phase's ranges are siblings, one
-``lt.back_half`` per scan, and the back half's parts are its
-``lt.back_half.*`` spans.  benchmark/trace.py reads the ranges from a
-profile and benchmark/program.py the spans and counters from a recording;
-PERF.md §3 lists them all.
+``lt.back_half`` per scan, and the per-frame loop's parts are its
+``lt.back_half.*`` spans (the kernel's launch opens none).
+benchmark/trace.py reads the ranges from a profile and
+benchmark/program.py the spans and counters from a recording; PERF.md §3
+lists them all.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import functools
 
 import torch
 
+from lane_tracker_tpu_torch.kernels import back_half as back_half_kernel
+from lane_tracker_tpu_torch.parallel.mesh import map_tensors
 from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
 from lane_tracker_tpu_torch.tracker.config import TrackerConfig
 from lane_tracker_tpu_torch.tracker.state import TrackerState
@@ -74,9 +79,28 @@ def _stack(items: list, dim: int = 0):
 def scan_back_half(state: TrackerState, arts: FrontArtifacts,
                    params: TrackerParams, config: TrackerConfig):
     """The back half over the chunk's frames in order.  Returns
-    (state, (StepOutput stack, RenderMeta stack)) with a leading T axis."""
+    (state, (StepOutput stack, RenderMeta stack)) with a leading T axis.
+
+    On the card, where no frame needs a host decision (``kernels.
+    back_half.takes_kernel``), one launch of the back-half kernel scans
+    the chunk; else the plain twin, ``scan_back_half_plain``."""
     T = arts.pref.packed.shape[0]
     count("lt.back_half.frames", T)
+    if back_half_kernel.takes_kernel(arts, config):
+        # The kernel scans S streams: this one as S = 1, by views.
+        states, (out, meta) = back_half_kernel.scan(
+            map_tensors(lambda x: x[None], state),
+            map_tensors(lambda x: x[None], arts), params, config)
+        first = functools.partial(map_tensors, lambda x: x[0])
+        return first(states), (first(out), first(meta))
+    return scan_back_half_plain(state, arts, params, config)
+
+
+def scan_back_half_plain(state: TrackerState, arts: FrontArtifacts,
+                         params: TrackerParams, config: TrackerConfig):
+    """The plain twin of the back-half kernel: ``back_half`` one frame at
+    a time (the 'cond' schedule's per-frame host read included)."""
+    T = arts.pref.packed.shape[0]
     outs, metas = [], []
     for t in range(T):
         state, out, meta = back_half(state, frame_artifacts(arts, t), params,
@@ -116,8 +140,9 @@ def chunk_process(state: TrackerState, frames: torch.Tensor,
 
     ``second_attempt`` is 'cond', 'hoist' or 'two_phase' (module
     docstring); None means 'cond'.  'cond' reads attempt 1's validity on
-    the host once per frame; 'hoist' and 'two_phase' never wait on the
-    device inside the per-frame loop (two_phase waits once per chunk).
+    the host once per frame, so it keeps the per-frame loop; 'hoist' and
+    'two_phase' never wait on the device inside a scan (two_phase waits
+    once per chunk), and on the card each scan is one kernel launch.
     ``row_devices`` (one row of ``mesh.stream_row_mesh``) splits the front
     half's warped rows over those devices; the rest runs on
     ``row_devices[0]``, which holds ``state`` and ``params``.

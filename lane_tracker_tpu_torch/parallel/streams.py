@@ -12,14 +12,13 @@ For each device's shard, a fleet step flattens the local (S_local, T)
 frames into ONE (S_local * T) batch for the stateless front half, so the
 filter's hand kernels launch once a step on all of them, as in
 single-stream serving; only the O(H)-per-frame back half runs per stream,
-and it runs batched over the streams (``scan_streams``: at each time step
-one ``torch.func.vmap`` of ``back_half``, so a step's kernel launches do
-not grow with the streams, as the reference ``vmap``s each stream's
-``lax.scan``).  Streams are independent; the only cross-device step is
-summing the metrics.  One host thread queues every shard's work, shard
-after shard: the back half's per-time-step loop is host-bound, so a
-shard's work starts only once the shard before it is queued, and more
-devices do not shorten a host-bound step.
+and it runs batched over the streams (``scan_streams``: on the card one
+launch of the back-half kernel, a thread block a stream, scans every
+stream's T frames; on the CPU, at each time step one ``torch.func.vmap``
+of ``back_half``, as the reference ``vmap``s each stream's ``lax.scan``).
+Streams are independent; the only cross-device step is summing the
+metrics.  One host thread queues every shard's work, shard after shard,
+so a shard's work starts only once the shard before it is queued.
 
 The second attempt's schedules are the reference's two: 'two_phase' scans
 attempt 1 over all local streams, reads once per shard and step whether
@@ -38,6 +37,7 @@ import functools
 
 import torch
 
+from lane_tracker_tpu_torch.kernels import back_half as back_half_kernel
 from lane_tracker_tpu_torch.parallel.mesh import (
     map_tensors,
     replicate,
@@ -84,13 +84,28 @@ def scan_streams(states: TrackerState, arts: FrontArtifacts,
     """Each stream's back half over its T frames, the streams batched.
 
     ``states`` holds S streams' states (a leading (S,) axis), ``arts``
-    their (S, T, ...) front artifacts.  At each time step one
-    ``torch.func.vmap`` of ``back_half`` runs all S streams, so the step's
-    kernel launches are one back half's whatever S is.  ``back_half``
-    reads nothing on the host given hoisted attempt-2 artifacts or a
-    config with one attempt, the only ways the fleet calls it.  Returns
-    (states, (StepOutput without the overlay, RenderMeta)) with leading
-    (S, T) axes."""
+    their (S, T, ...) front artifacts.  The fleet calls it with hoisted
+    attempt-2 artifacts or a config with one attempt, so no frame needs a
+    host decision: on the card one launch of the back-half kernel scans
+    every stream (``kernels.back_half``, a thread block a stream), on the
+    CPU the plain twin ``scan_streams_plain``.  Returns (states,
+    (StepOutput without the overlay, RenderMeta)) with leading (S, T)
+    axes."""
+    S, T = arts.pref.packed.shape[:2]
+    count("lt.back_half.frames", S * T)
+    if back_half_kernel.takes_kernel(arts, config):
+        return back_half_kernel.scan(states, arts, params, config)
+    return scan_streams_plain(states, arts, params, config)
+
+
+def scan_streams_plain(states: TrackerState, arts: FrontArtifacts,
+                       params: TrackerParams, config: TrackerConfig):
+    """The plain twin of the back-half kernel over S streams: at each
+    time step one ``torch.func.vmap`` of ``back_half`` runs all S
+    streams, so the step's kernel launches are one back half's whatever
+    S is.  ``back_half`` reads nothing on the host given hoisted
+    attempt-2 artifacts or a config with one attempt, the only ways the
+    fleet calls it."""
 
     def one(st, art):
         st, out, meta = back_half(st, art, params, config)
@@ -99,8 +114,7 @@ def scan_streams(states: TrackerState, arts: FrontArtifacts,
     # No attempt-2 artifacts under two_phase's first scan: in_dims None.
     step = torch.func.vmap(one, in_dims=(0, FrontArtifacts(
         *(None if x is None else 0 for x in arts))))
-    S, T = arts.pref.packed.shape[:2]
-    count("lt.back_half.frames", S * T)
+    T = arts.pref.packed.shape[1]
     outs, metas = [], []
     for t in range(T):
         states, out, meta = step(states,

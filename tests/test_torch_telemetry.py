@@ -14,8 +14,9 @@ Two tests are marked ``cuda`` and skip without a card: on the card, under
 ``torch.cuda.set_sync_debug_mode("warn")``, every synchronising call of
 ``LaneTracker.process_chunk`` and ``StreamFleet.step`` is a counted
 ``lt.host_read`` or the ``lt.upload`` copy; under ``torch.profiler`` the
-``lt.back_half.*`` ranges lie inside ``lt.back_half`` ranges and each
-``lt.upload`` range holds the frames' host-to-card copy.  This file
+``lt.back_half.*`` ranges of a 'cond' chunk's per-frame loop and the
+launches of the back-half kernel lie inside ``lt.back_half`` ranges, and
+each ``lt.upload`` range holds the frames' host-to-card copy.  This file
 imports no jax; run those tests on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -239,16 +240,13 @@ def test_profiler_ranges_nest_inside_the_back_half(tiny, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def card_calls():
-    """On the card: ``process_chunk`` and an 'auto' fleet step (two
-    streams of four) on the stills with a black frame, so two_phase
-    rescans and 'auto' reads its observation; each called once to warm
-    up."""
+def card_inputs():
+    """On the card: demo1's params ('fast') and the eight stills with a
+    black frame (frame 5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from lane_tracker_tpu_torch import load_calibration_npz
     from lane_tracker_tpu_torch.kernels.build import build
-    from lane_tracker_tpu_torch.tracker.config import PRESETS
 
     build()
     cam, warp = load_calibration_npz(ASSETS / "calibration.npz")
@@ -258,6 +256,18 @@ def card_calls():
     with np.load(ASSETS / "stills_720p.npz") as z:
         stills = z["frames"][np.arange(8) % 4]
     stills[5] = 0
+    return args, stills
+
+
+@pytest.fixture(scope="module")
+def card_calls(card_inputs):
+    """On the card: ``process_chunk`` and an 'auto' fleet step (two
+    streams of four) on the stills with a black frame, so two_phase
+    rescans and 'auto' reads its observation; each called once to warm
+    up."""
+    from lane_tracker_tpu_torch.tracker.config import PRESETS
+
+    args, stills = card_inputs
     tracker = LaneTracker(args[4], args[5], args[0], args[1], args[2:4],
                           args[6:])
     params = t_step.TrackerParams.build(*args, pipeline="fast")
@@ -271,6 +281,30 @@ def card_calls():
         call()
     torch.cuda.synchronize()
     return calls
+
+
+@pytest.fixture(scope="module")
+def twin_call(card_inputs):
+    """On the card: a 'cond' ``chunk_process`` (demo1, 'fast', the frames
+    already on the card) on the same stills.  'cond' reads attempt 1's
+    validity on the host every frame, so it keeps the per-frame loop,
+    whose parts open the ``lt.back_half.*`` ranges; called once to warm
+    up."""
+    from lane_tracker_tpu_torch.tracker.config import PRESETS
+
+    args, stills = card_inputs
+    cfg = PRESETS["demo1"]
+    params = t_step.TrackerParams.build(*args, pipeline="fast")
+    frames = torch.from_numpy(stills).cuda()
+
+    def call():
+        state = t_step.make_initial_state(cfg, params.warped_size, "cuda")
+        return chunk_process(state, frames, params, cfg,
+                             second_attempt="cond")
+
+    call()
+    torch.cuda.synchronize()
+    return call
 
 
 @pytest.mark.cuda
@@ -298,14 +332,18 @@ def test_every_sync_on_the_card_is_a_counted_read_or_the_upload(card_calls):
 
 
 @pytest.mark.cuda
-def test_profiled_ranges_on_the_card(card_calls, tmp_path):
+def test_profiled_ranges_on_the_card(card_calls, twin_call, tmp_path):
     """Under ``torch.profiler`` on the card, in the device trace's clock:
-    every ``lt.back_half.*`` range lies inside an ``lt.back_half`` range,
-    and each ``lt.upload`` range holds the launch of a host-to-card copy
-    of the frames (the chunk's, the fleet step's)."""
+    every ``lt.back_half.*`` range lies inside an ``lt.back_half`` range
+    (the 'cond' chunk's per-frame loop opens them; the two calls that
+    scan by the back-half kernel open none), every launch of the
+    back-half kernel lies inside one, and each ``lt.upload`` range holds
+    the launch of a host-to-card copy of the frames (the chunk's, the
+    fleet step's)."""
     with profiling.maybe_profile(tmp_path):
         for call in card_calls.values():
             call()
+        twin_call()
         torch.cuda.synchronize()
     events = json.loads((tmp_path / "trace.json").read_text())[
         "traceEvents"]
@@ -320,6 +358,14 @@ def test_profiled_ranges_on_the_card(card_calls, tmp_path):
     launched_at = {e["args"]["correlation"]: e["ts"] for e in events
                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
                    and "correlation" in e.get("args", {})}
+    scans = [launched_at.get(e.get("args", {}).get("correlation"))
+             for e in events if e.get("cat") == "kernel"
+             and "back_half_scan_kernel" in e.get("name", "")]
+    # process_chunk's two scans (the black frame makes two_phase rescan)
+    # and the fleet step's one or two.
+    assert len(scans) >= 3
+    for ts in scans:
+        assert ts is not None and any(a <= ts <= b for a, b in halves)
     copies = [launched_at.get(e.get("args", {}).get("correlation"))
               for e in events if e.get("cat") == "gpu_memcpy"
               and "HtoD" in e.get("name", "")]
