@@ -580,11 +580,15 @@ def has_second_attempt(config: TrackerConfig) -> bool:
 def _embed_search(binary: torch.Tensor, pref: RowPrefixes,
                   params: TrackerParams, scfg):
     """Corridor-embedded prefixes and blind sliding-window intervals of a
-    (T, H, W) compute-window binary and its prefixes."""
+    (T, H, W) compute-window binary and its prefixes.  'corridor''s
+    embedding onto the full width runs in an ``lt.corridor.embed`` span."""
     W, H = params.warped_size
-    binary = _embed_cols(binary, params)
+    if params.col_roi is not None:
+        with span("lt.corridor.embed"):
+            binary = _embed_cols(binary, params)
+            pref = _embed_prefixes(pref, params)
     iv = sliding_window_intervals(sws_precompute(binary, scfg), scfg, H, W)
-    return _embed_prefixes(pref, params), iv
+    return pref, iv
 
 
 def second_attempt_artifacts_batch(r_chan: torch.Tensor, b_chan: torch.Tensor,

@@ -50,7 +50,12 @@ from lane_tracker_tpu_torch.tracker.step import (
     half_geometry,
     make_initial_state,
 )
-from lane_tracker_tpu_torch.utils.profiling import host_read, span, unit
+from lane_tracker_tpu_torch.utils.profiling import (
+    count,
+    host_read,
+    span,
+    unit,
+)
 
 # process()'s per-frame debug flags, which have no chunked equivalent.
 _DEBUG_FLAGS = ("visualize_search", "split_view", "diagnostics")
@@ -448,7 +453,14 @@ class LaneTracker:
             with span("lt.upload"):
                 frames = torch.tensor(frames, device=self.device)
             self._state, outs = step(self._state, frames, self.params)
-            valid = _host(host_read(outs.valid))
+            if self.params.col_roi is None:
+                valid = _host(host_read(outs.valid))
+            else:
+                # 'corridor': the certificate rides the same read.
+                valid, certified = _host(host_read(
+                    torch.stack([outs.valid, outs.corridor_ok])))
+                count("lt.corridor.frames", valid.shape[0])
+                count("lt.corridor.uncertified", int((~certified).sum()))
         self.counter += int(valid.shape[0])
         self.success += int(valid.sum())
         self.last_output = type(outs)(

@@ -8,15 +8,20 @@ two_phase chunk counts its scans, rescans and host reads exactly, its
 spans nest inside their parents, and a fleet step counts S x T frames a
 scan, with the back half's sub-spans opened under ``torch.func.vmap``;
 under ``torch.profiler`` every ``lt.back_half.*`` range lies inside an
-``lt.back_half`` range.
+``lt.back_half`` range.  On 'corridor' (``TINY_CORRIDOR``) each attempt's
+embedding opens ``lt.corridor.embed`` under its stage and
+``process_chunk`` counts the corridor's frames on its one flags read;
+'fast' opens and counts none of it.
 
-Two tests are marked ``cuda`` and skip without a card: on the card, under
-``torch.cuda.set_sync_debug_mode("warn")``, every synchronising call of
-``LaneTracker.process_chunk`` and ``StreamFleet.step`` is a counted
-``lt.host_read`` or the ``lt.upload`` copy; under ``torch.profiler`` the
-``lt.back_half.*`` ranges of a 'cond' chunk's per-frame loop and the
-launches of the back-half kernel lie inside ``lt.back_half`` ranges, and
-each ``lt.upload`` range holds the frames' host-to-card copy.  This file
+Three tests are marked ``cuda`` and skip without a card: on the card,
+under ``torch.cuda.set_sync_debug_mode("warn")``, every synchronising
+call of ``LaneTracker.process_chunk`` ('fast' and 'corridor') and
+``StreamFleet.step`` is a counted ``lt.host_read`` or the ``lt.upload``
+copy, and 'corridor''s certified frames decide as full-width 'fast''s
+do; under ``torch.profiler`` the ``lt.back_half.*`` ranges of a 'cond'
+chunk's per-frame loop and the launches of the back-half kernel lie
+inside ``lt.back_half`` ranges, and each ``lt.upload`` range holds the
+frames' host-to-card copy.  This file
 imports no jax; run those tests on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -45,6 +50,10 @@ PERMISSIVE = dict(min_dist_y1=0, max_dist_y1=10_000, min_dist_y2=0,
                   max_dist_y2=10_000, min_dist_y3=0, max_dist_y3=10_000,
                   tangent_thresh=1e9)
 PARTS = ("lt.back_half.attempt", "lt.back_half.update", "lt.back_half.stack")
+# 'corridor' at the tiny geometry (96 warped columns): the middle half,
+# computed with the margin over the whole width.
+TINY_CORRIDOR = (24, 72)
+CORRIDOR_COUNTERS = ("lt.corridor.frames", "lt.corridor.uncertified")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -78,13 +87,11 @@ def _calib_args():
             warp.mpph)
 
 
-@pytest.fixture(scope="module")
-def tiny():
-    """(params, permissive config, a state one chunk in): from it, a chunk
-    of lane frames passes attempt 1 on every frame, and a black frame
-    fails it."""
-    params = t_step.TrackerParams.build(*_calib_args(), pipeline="fast",
-                                        device="cpu")
+def _tiny(pipeline):
+    """``tiny``'s (params, config, state) on ``pipeline``."""
+    kw = {"col_roi": TINY_CORRIDOR} if pipeline == "corridor" else {}
+    params = t_step.TrackerParams.build(*_calib_args(), pipeline=pipeline,
+                                        device="cpu", **kw)
     cfg = syn.tiny_config()
     cfg = cfg.replace(validity=type(cfg.validity)(**PERMISSIVE))
     state, _ = chunk_process(
@@ -92,6 +99,20 @@ def tiny():
         torch.from_numpy(_lane_frames(T)), params, cfg,
         second_attempt="two_phase")
     return params, cfg, state
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(params, permissive config, a state one chunk in): from it, a chunk
+    of lane frames passes attempt 1 on every frame, and a black frame
+    fails it."""
+    return _tiny("fast")
+
+
+@pytest.fixture(scope="module")
+def tinies(tiny):
+    """``tiny`` by pipeline: 'fast' and 'corridor' (``TINY_CORRIDOR``)."""
+    return {"fast": tiny, "corridor": _tiny("corridor")}
 
 
 def _chunk(tiny, failing: bool):
@@ -239,6 +260,62 @@ def test_profiler_ranges_nest_inside_the_back_half(tiny, tmp_path):
                    for a, b in halves), e
 
 
+@pytest.mark.parametrize("failing", [False, True])
+@pytest.mark.parametrize("pipeline", ["fast", "corridor"])
+def test_corridor_embed_spans_nest_in_each_attempts_stage(tinies, pipeline,
+                                                          failing):
+    """On 'corridor' each attempt's embedding opens one
+    ``lt.corridor.embed`` span, under ``lt.embed_search`` (attempt 1) or
+    ``lt.second_attempt`` (two_phase's rescan), inside it in time;
+    'fast' opens none.  ``chunk_process`` alone counts no corridor frames
+    (``process_chunk`` does)."""
+    with profiling.recording():
+        _chunk(tinies[pipeline], failing)
+    spans = profiling.spans()
+    embeds = [x for x in spans if x["name"] == "lt.corridor.embed"]
+    parents = [spans[x["parent"]] for x in embeds]
+    want = ["lt.embed_search"] + (["lt.second_attempt"] if failing else [])
+    assert [p["name"] for p in parents] == (
+        want if pipeline == "corridor" else [])
+    for x, p in zip(embeds, parents):
+        assert p["start_ns"] <= x["start_ns"] <= x["end_ns"] <= p["end_ns"]
+    assert not set(CORRIDOR_COUNTERS) & set(profiling.summary()["counters"])
+
+
+@pytest.mark.parametrize("pipeline", ["fast", "corridor"])
+def test_process_chunk_counts_the_corridor_on_its_one_read(tinies, pipeline):
+    """``process_chunk`` on a chunk with a black frame: two host reads, as
+    on 'fast' (two_phase's and the flags'); on 'corridor' the flags' read
+    carries the certificate, counted as the chunk's frames and those it
+    does not certify (``process``'s search settings read outside
+    ``TINY_CORRIDOR``); 'fast' counts neither and opens no embed span."""
+    a = _calib_args()
+    tracker = LaneTracker(a[4], a[5], a[0], a[1], a[2:4], a[6:],
+                          device="cpu")
+    # LaneTracker's own corridor, (320, 832), lies outside the tiny
+    # geometry's 96 warped columns.
+    tracker.params = tinies[pipeline][0]
+    frames = _lane_frames(T, seed=1)
+    frames[2] = 0
+    with profiling.recording():
+        outs = tracker.process_chunk(frames, with_overlay=False)
+    s = profiling.summary()
+    assert s["counters"]["lt.host_reads"] == 2
+    assert s["counters"]["lt.rescans"] == 1
+    assert s["spans"]["lt.host_read"]["n"] == 2
+    counted = {k: v for k, v in s["counters"].items()
+               if k in CORRIDOR_COUNTERS}
+    assert tracker.success == int(outs.valid.sum())
+    if pipeline == "fast":
+        assert counted == {} and "lt.corridor.embed" not in s["spans"]
+        return
+    uncertified = int((~outs.corridor_ok).sum())
+    assert uncertified > 0
+    assert counted == {"lt.corridor.frames": T,
+                       "lt.corridor.uncertified": uncertified}
+    assert s["spans"]["lt.corridor.embed"]["n"] == 2
+
+
 @pytest.fixture(scope="module")
 def card_inputs():
     """On the card: demo1's params ('fast') and the eight stills with a
@@ -329,6 +406,65 @@ def test_every_sync_on_the_card_is_a_counted_read_or_the_upload(card_calls):
               f"reads, {uploads} upload")
         assert reads >= 1 and uploads == 1, name
         assert len(syncs) == reads + uploads, (name, syncs)
+
+
+@pytest.mark.cuda
+def test_corridor_on_the_card(card_inputs):
+    """'corridor''s ``process_chunk`` on the card, under the sync debug
+    mode: every synchronising call is a counted read or the upload, two
+    reads as on 'fast', the corridor's frames counted.  And the
+    certificate's promise: from the same fresh state on the same frames,
+    up to the first frame it does not certify, every decision equals
+    full-width 'fast''s."""
+    from lane_tracker_tpu_torch.tracker.config import PRESETS
+
+    args, stills = card_inputs
+    tracker = LaneTracker(args[4], args[5], args[0], args[1], args[2:4],
+                          args[6:], pipeline="corridor")
+    tracker.process_chunk(stills)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profiling.recording():
+                outs = tracker.process_chunk(stills)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught if str(w.message)
+             .startswith("called a synchronizing CUDA operation")]
+    s = profiling.summary()
+    print(f"corridor: {len(syncs)} synchronising calls, counters "
+          f"{s['counters']}")
+    assert s["counters"]["lt.host_reads"] == 2
+    assert s["spans"]["lt.upload"]["n"] == 1
+    assert len(syncs) == 2 + 1, syncs
+    assert s["counters"]["lt.corridor.frames"] == len(stills)
+    assert s["counters"]["lt.corridor.uncertified"] == int(
+        (~outs.corridor_ok).sum())
+    assert s["spans"]["lt.corridor.embed"]["n"] == 2
+
+    cfg = PRESETS["demo1"]
+    frames = torch.from_numpy(stills).cuda()
+    decided = {}
+    for pipeline in ("fast", "corridor"):
+        params = t_step.TrackerParams.build(*args, pipeline=pipeline)
+        state = t_step.make_initial_state(cfg, params.warped_size, "cuda")
+        _, o = chunk_process(state, frames, params, cfg,
+                             second_attempt="two_phase")
+        decided[pipeline] = {k: v.cpu().numpy()
+                             for k, v in o._asdict().items()
+                             if v is not None}
+    ok = decided["corridor"]["corridor_ok"]
+    upto = len(ok) if ok.all() else int(np.argmin(ok))
+    print(f"corridor_ok {ok.tolist()}: decisions compared on frames "
+          f"[0, {upto})")
+    assert upto >= 1
+    for k in ("valid", "detected", "a1_valid", "a1_detected", "n_attempts",
+              "search_mode", "render_mode"):
+        assert np.array_equal(decided["fast"][k][:upto],
+                              decided["corridor"][k][:upto]), k
 
 
 @pytest.mark.cuda
