@@ -59,6 +59,7 @@ from lane_tracker_tpu_torch.tracker.step import (
     render_frame,
     second_attempt_artifacts_batch,
 )
+from lane_tracker_tpu_torch.tracker.upload import StreamedChunk
 from lane_tracker_tpu_torch.utils.profiling import (
     count,
     host_read,
@@ -132,11 +133,14 @@ def two_phase_scan(state: TrackerState, arts: FrontArtifacts,
                               params, config)
 
 
-def chunk_process(state: TrackerState, frames: torch.Tensor,
+def chunk_process(state: TrackerState, frames: torch.Tensor | StreamedChunk,
                   params: TrackerParams, config: TrackerConfig,
                   with_overlay: bool = True,
                   second_attempt: str | None = None, row_devices=None):
     """Process a (T, Hc, Wc, 3) uint8 chunk on ``frames.device``.
+    ``frames`` may also be a ``tracker.upload.StreamedChunk`` of host
+    frames (``LaneTracker.process_chunk``'s), without ``row_devices``:
+    its warp runs a slice at a time as each slice lands on the device.
 
     ``second_attempt`` is 'cond', 'hoist' or 'two_phase' (module
     docstring); None means 'cond'.  'cond' reads attempt 1's validity on
@@ -158,6 +162,8 @@ def chunk_process(state: TrackerState, frames: torch.Tensor,
         if row_devices is None:
             arts = front_artifacts_batch(frames, params, config,
                                          hoist_second_attempt=hoist)
+            if isinstance(frames, StreamedChunk):
+                frames = frames.frames
         else:
             arts = front_artifacts_rows(frames, params, config, row_devices,
                                         hoist_second_attempt=hoist)

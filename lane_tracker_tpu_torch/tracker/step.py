@@ -615,14 +615,35 @@ class FrontRows(NamedTuple):
     packed2: torch.Tensor | None = None
 
 
-def front_rows(frames: torch.Tensor, chain: WarpChain, config: TrackerConfig,
+def _warp_slices(chunk, chain: WarpChain):
+    """``warp_rows`` of a ``tracker.upload.StreamedChunk``, a slice at a
+    time as each slice lands, into (T, ...) planes: the same planes bit
+    for bit, since ``warp_rows`` is frame-local."""
+    planes = None
+    for lo, part in chunk.slices():
+        with span("lt.warp_lab"):
+            parts = warp_rows(part, chain)
+            if planes is None:
+                planes = tuple(x.new_empty((chunk.shape[0],) + x.shape[1:])
+                               for x in parts)
+            for plane, x in zip(planes, parts):
+                plane[lo:lo + x.shape[0]] = x
+    return planes
+
+
+def front_rows(frames, chain: WarpChain, config: TrackerConfig,
                second: FilterConfig | None) -> FrontRows:
     """The front half's row-local stages of a (T, Hc, Wc, 3) uint8 chunk:
     the warp + LAB through ``chain`` (``warp_rows``), the attempt-1 filter
     and, where ``second`` (the hoisted attempt 2's filter) is given, that
-    filter."""
-    with span("lt.warp_lab"):
-        r_chan, b_chan = warp_rows(frames, chain)
+    filter.  ``frames`` is a device tensor, warped whole, or a
+    ``tracker.upload.StreamedChunk`` of host frames, warped a slice at a
+    time as each slice lands (``_warp_slices``)."""
+    if isinstance(frames, torch.Tensor):
+        with span("lt.warp_lab"):
+            r_chan, b_chan = warp_rows(frames, chain)
+    else:
+        r_chan, b_chan = _warp_slices(frames, chain)
     with span("lt.filter"):
         binary, pref = filter_stage(r_chan, b_chan, config.filter)
     rows = FrontRows(r_chan, b_chan, binary, pref.packed)

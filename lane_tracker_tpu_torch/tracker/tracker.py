@@ -50,10 +50,10 @@ from lane_tracker_tpu_torch.tracker.step import (
     half_geometry,
     make_initial_state,
 )
+from lane_tracker_tpu_torch.tracker.upload import Staging, StreamedChunk
 from lane_tracker_tpu_torch.utils.profiling import (
     count,
     host_read,
-    span,
     unit,
 )
 
@@ -134,6 +134,8 @@ class LaneTracker:
         if latency_mode:
             self.params = self.params.with_rowmm()
         self._split_grid = None
+        # process_chunk's pinned slice buffers and copy stream (the card).
+        self._staging: Staging | None = None
         self._state: TrackerState | None = None
         self._prev_state: TrackerState | None = None
         self.counter = 0
@@ -423,6 +425,10 @@ class LaneTracker:
         ``second_attempt`` selects the fallback schedule ('two_phase',
         'cond' or 'hoist'; all three give identical outputs).
 
+        On the card the frames reach the device in pinned slices on a
+        copy stream, and each slice's warp waits only for its own copy
+        (``tracker.upload``); on the CPU they are copied whole.
+
         Returns the chunk's ``StepOutput`` as tensors on the tracker's
         device with a leading T axis (``overlay`` is None when
         ``with_overlay=False``).  Text annotations are NOT burned in;
@@ -449,9 +455,10 @@ class LaneTracker:
         self._prev_state = self._state
         step = build_chunk_processor(config, with_overlay=bool(with_overlay),
                                      second_attempt=str(second_attempt))
+        if self.device.type == "cuda" and self._staging is None:
+            self._staging = Staging(self.device)
         with unit("lt.chunk", frames.shape[0]):
-            with span("lt.upload"):
-                frames = torch.tensor(frames, device=self.device)
+            frames = StreamedChunk(frames, self.device, self._staging)
             self._state, outs = step(self._state, frames, self.params)
             if self.params.col_roi is None:
                 valid = _host(host_read(outs.valid))

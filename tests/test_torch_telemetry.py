@@ -13,21 +13,27 @@ embedding opens ``lt.corridor.embed`` under its stage and
 ``process_chunk`` counts the corridor's frames on its one flags read;
 'fast' opens and counts none of it.
 
-Three tests are marked ``cuda`` and skip without a card: on the card,
+Four tests are marked ``cuda`` and skip without a card: on the card,
 under ``torch.cuda.set_sync_debug_mode("warn")``, every synchronising
-call of ``LaneTracker.process_chunk`` ('fast' and 'corridor') and
-``StreamFleet.step`` is a counted ``lt.host_read`` or the ``lt.upload``
-copy, and 'corridor''s certified frames decide as full-width 'fast''s
-do; under ``torch.profiler`` the ``lt.back_half.*`` ranges of a 'cond'
-chunk's per-frame loop and the launches of the back-half kernel lie
-inside ``lt.back_half`` ranges, and each ``lt.upload`` range holds the
-frames' host-to-card copy.  This file
+call of ``LaneTracker.process_chunk`` ('fast' and 'corridor') is a
+counted ``lt.host_read`` (its frames stream up in pinned slices, one
+``lt.upload`` range a slice, with no synchronising call) and every one
+of ``StreamFleet.step`` a counted read or its one ``lt.upload`` copy, and
+'corridor''s certified frames decide as full-width 'fast''s do; under
+``torch.profiler`` the ``lt.back_half.*`` ranges of a 'cond' chunk's
+per-frame loop and the launches of the back-half kernel lie inside
+``lt.back_half`` ranges, and each ``lt.upload`` range holds the launch
+of one host-to-card copy of frames; on a motion chunk with a dropout the
+streamed chunk equals the whole-tensor path bit for bit, its frame
+copies are pinned, on a stream of their own, overlap the warp, and a
+second chunk allocates no pinned memory.  This file
 imports no jax; run those tests on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_telemetry.py -q
 """
 
+import contextlib
 import json
 import pathlib
 import warnings
@@ -41,6 +47,8 @@ from lane_tracker_tpu_torch.calib import synthetic as syn
 from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
 from lane_tracker_tpu_torch.parallel.streams import StreamFleet
 from lane_tracker_tpu_torch.tracker import step as t_step
+from lane_tracker_tpu_torch.tracker import tracker as t_tracker
+from lane_tracker_tpu_torch.tracker import upload
 from lane_tracker_tpu_torch.utils import profiling
 
 ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
@@ -54,6 +62,9 @@ PARTS = ("lt.back_half.attempt", "lt.back_half.update", "lt.back_half.stack")
 # computed with the margin over the whole width.
 TINY_CORRIDOR = (24, 72)
 CORRIDOR_COUNTERS = ("lt.corridor.frames", "lt.corridor.uncertified")
+# The card tests' chunk of eight stills streams up in slices of three
+# frames: three slices, the last short.
+CARD_SLICE = 3
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -218,8 +229,9 @@ def test_fleet_steps_count_streams_times_frames_a_scan(tiny):
 
 def test_process_chunk_is_one_unit_with_its_upload(tiny):
     """``LaneTracker.process_chunk``: the root ``lt.chunk`` holds the
-    upload and ``chunk_process``, which opens no root of its own; two
-    host reads (two_phase's and the valid flags for the success count)."""
+    upload (on the CPU one plain copy, one ``lt.upload`` range) and
+    ``chunk_process``, which opens no root of its own; two host reads
+    (two_phase's and the valid flags for the success count)."""
     a = _calib_args()
     tracker = LaneTracker(a[4], a[5], a[0], a[1], a[2:4], a[6:],
                           device="cpu")
@@ -336,6 +348,18 @@ def card_inputs():
     return args, stills
 
 
+@contextlib.contextmanager
+def _slices_of(frames: int, frame: np.ndarray):
+    """``upload.SLICE_BYTES`` at ``frames`` frames like ``frame`` inside
+    the block."""
+    keep = upload.SLICE_BYTES
+    upload.SLICE_BYTES = frames * frame.nbytes
+    try:
+        yield
+    finally:
+        upload.SLICE_BYTES = keep
+
+
 @pytest.fixture(scope="module")
 def card_calls(card_inputs):
     """On the card: ``process_chunk`` and an 'auto' fleet step (two
@@ -352,7 +376,12 @@ def card_calls(card_inputs):
                         mesh=["cuda"], with_overlay=True,
                         second_attempt="auto")
     fleet_frames = stills.reshape((2, 4) + stills.shape[1:])
-    calls = {"process_chunk": lambda: tracker.process_chunk(stills),
+
+    def chunk():
+        with _slices_of(CARD_SLICE, stills[0]):
+            return tracker.process_chunk(stills)
+
+    calls = {"process_chunk": chunk,
              "StreamFleet.step": lambda: fleet.step(fleet_frames)}
     for call in calls.values():
         call()
@@ -386,7 +415,10 @@ def twin_call(card_inputs):
 
 @pytest.mark.cuda
 def test_every_sync_on_the_card_is_a_counted_read_or_the_upload(card_calls):
-    """Counted under the sync debug mode."""
+    """Counted under the sync debug mode.  ``process_chunk``'s frames
+    stream up in pinned slices, one ``lt.upload`` range a slice, with no
+    synchronising call, so its every sync is a counted read; the fleet
+    step's one upload is a synchronising copy."""
     for name, call in card_calls.items():
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -402,17 +434,25 @@ def test_every_sync_on_the_card_is_a_counted_read_or_the_upload(card_calls):
         s = profiling.summary()
         reads = s["counters"].get("lt.host_reads", 0)
         uploads = s["spans"]["lt.upload"]["n"]
+        streamed = s["counters"].get("lt.upload.streamed_frames", 0)
         print(f"{name}: {len(syncs)} synchronising calls, {reads} host "
-              f"reads, {uploads} upload")
-        assert reads >= 1 and uploads == 1, name
-        assert len(syncs) == reads + uploads, (name, syncs)
+              f"reads, {uploads} upload ranges, {streamed} frames "
+              f"streamed")
+        assert reads >= 1, name
+        if name == "process_chunk":
+            assert uploads == -(-8 // CARD_SLICE) and streamed == 8
+            assert len(syncs) == reads, (name, syncs)
+        else:
+            assert uploads == 1 and streamed == 0, name
+            assert len(syncs) == reads + uploads, (name, syncs)
 
 
 @pytest.mark.cuda
 def test_corridor_on_the_card(card_inputs):
     """'corridor''s ``process_chunk`` on the card, under the sync debug
-    mode: every synchronising call is a counted read or the upload, two
-    reads as on 'fast', the corridor's frames counted.  And the
+    mode: every synchronising call is a counted read, two reads as on
+    'fast' (the frames stream up in pinned slices with none), the
+    corridor's frames counted.  And the
     certificate's promise: from the same fresh state on the same frames,
     up to the first frame it does not certify, every decision equals
     full-width 'fast''s."""
@@ -421,16 +461,17 @@ def test_corridor_on_the_card(card_inputs):
     args, stills = card_inputs
     tracker = LaneTracker(args[4], args[5], args[0], args[1], args[2:4],
                           args[6:], pipeline="corridor")
-    tracker.process_chunk(stills)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with profiling.recording():
-                outs = tracker.process_chunk(stills)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    with _slices_of(CARD_SLICE, stills[0]):
+        tracker.process_chunk(stills)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with profiling.recording():
+                    outs = tracker.process_chunk(stills)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     syncs = [str(w.message) for w in caught if str(w.message)
              .startswith("called a synchronizing CUDA operation")]
@@ -438,8 +479,9 @@ def test_corridor_on_the_card(card_inputs):
     print(f"corridor: {len(syncs)} synchronising calls, counters "
           f"{s['counters']}")
     assert s["counters"]["lt.host_reads"] == 2
-    assert s["spans"]["lt.upload"]["n"] == 1
-    assert len(syncs) == 2 + 1, syncs
+    assert s["spans"]["lt.upload"]["n"] == -(-len(stills) // CARD_SLICE)
+    assert s["counters"]["lt.upload.streamed_frames"] == len(stills)
+    assert len(syncs) == 2, syncs
     assert s["counters"]["lt.corridor.frames"] == len(stills)
     assert s["counters"]["lt.corridor.uncertified"] == int(
         (~outs.corridor_ok).sum())
@@ -474,8 +516,8 @@ def test_profiled_ranges_on_the_card(card_calls, twin_call, tmp_path):
     (the 'cond' chunk's per-frame loop opens them; the two calls that
     scan by the back-half kernel open none), every launch of the
     back-half kernel lies inside one, and each ``lt.upload`` range holds
-    the launch of a host-to-card copy of the frames (the chunk's, the
-    fleet step's)."""
+    the launch of one host-to-card copy of frames (a slice of the
+    chunk's, three slices; the fleet step's whole)."""
     with profiling.maybe_profile(tmp_path):
         for call in card_calls.values():
             call()
@@ -508,6 +550,100 @@ def test_profiled_ranges_on_the_card(card_calls, twin_call, tmp_path):
     uploads = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
                if e["name"] == "lt.upload"]
     print(f"{len(uploads)} lt.upload ranges, {len(copies)} frame copies")
-    assert len(uploads) == 2
+    assert len(uploads) == -(-8 // CARD_SLICE) + 1
     for a, b in uploads:
-        assert any(ts is not None and a <= ts <= b for ts in copies)
+        assert sum(ts is not None and a <= ts <= b for ts in copies) == 1
+
+
+@pytest.mark.cuda
+def test_streamed_chunk_on_the_card(card_inputs, tmp_path, monkeypatch):
+    """``process_chunk`` on host frames of the motion sequence, 384-511
+    (black at 450-455, so two_phase rescans), at the module's slice size:
+    from the same start state it equals ``chunk_process`` given the frames
+    as one tensor on the card, bit for bit, every field and the end
+    state.  Under ``torch.profiler``, on the second chunk: every
+    host-to-card copy of frames is pinned and on a stream that runs no
+    warp kernel, they carry the chunk's bytes, one copy an ``lt.upload``
+    range, at least one overlaps a warp kernel, no pageable host-to-card
+    copy runs, and no pinned memory is allocated."""
+    from lane_tracker_tpu_torch.io.motion import load_scenes, motion_frame
+
+    args, _ = card_inputs
+    scenes = load_scenes("cuda")
+    frames = torch.stack([motion_frame(t, scenes)
+                          for t in range(384, 512)]).cpu().numpy()
+    del scenes
+    bounds = upload.slice_frames(frames[0].nbytes)
+    n_slices = -(-len(frames) // bounds)
+    assert n_slices >= 3
+    built = []
+    build = t_tracker.build_chunk_processor
+
+    def spy(config, **kw):
+        built.append((config, kw))
+        return build(config, **kw)
+
+    monkeypatch.setattr(t_tracker, "build_chunk_processor", spy)
+    tracker = LaneTracker(args[4], args[5], args[0], args[1], args[2:4],
+                          args[6:])
+    tracker.process_chunk(frames)
+    pinned = [b.data_ptr() for b in tracker._staging.buffers]
+    torch.cuda.synchronize()
+    with profiling.maybe_profile(tmp_path), profiling.recording():
+        outs = tracker.process_chunk(frames)
+        torch.cuda.synchronize()
+    s = profiling.summary()
+    assert s["counters"]["lt.upload.streamed_frames"] == len(frames)
+    assert s["counters"]["lt.rescans"] == 1
+    assert s["spans"]["lt.upload"]["n"] == n_slices
+    assert s["spans"]["lt.warp_lab"]["n"] == n_slices
+    assert [b.data_ptr() for b in tracker._staging.buffers] == pinned
+
+    config, kw = built[-1]
+    state, want = chunk_process(tracker._prev_state,
+                                torch.from_numpy(frames).cuda(),
+                                tracker.params, config, **kw)
+    for f in want._fields:
+        w, g = getattr(want, f), getattr(outs, f)
+        assert (w is None) == (g is None), f
+        if w is not None:
+            assert torch.equal(g, w), f
+    for f in state._fields:
+        assert torch.equal(getattr(tracker._state, f), getattr(state, f)), f
+
+    events = json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+
+    def inside(name):
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
+                 if e["name"] == name]
+
+        def test(ev):
+            launch = launches.get(ev.get("args", {}).get("correlation"))
+            return launch is not None and any(
+                a <= launch["ts"] <= b for a, b in spans)
+        return test
+
+    in_warp, in_upload = inside("lt.warp_lab"), inside("lt.upload")
+    warps = [e for e in events if e.get("cat") == "kernel" and in_warp(e)]
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e["name"]]
+    copies = [e for e in h2d if in_upload(e)]
+    print(f"{len(warps)} warp kernels, {len(copies)} frame copies: "
+          f"{sorted({e['name'] for e in h2d})}")
+    assert warps and len(copies) == n_slices
+    assert sum(e["args"]["bytes"] for e in copies) == frames.nbytes
+    assert all("Pinned" in e["name"] for e in copies)
+    assert not [e for e in h2d if "Pageable" in e["name"]]
+    warp_streams = {e["args"]["stream"] for e in warps}
+    assert not warp_streams & {e["args"]["stream"] for e in copies}
+    assert any(c["ts"] < w["ts"] + w["dur"] and w["ts"] < c["ts"] + c["dur"]
+               for c in copies for w in warps)
+    assert not [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                      "cuda_driver")
+                and ("HostAlloc" in e.get("name", "")
+                     or "HostRegister" in e.get("name", ""))]

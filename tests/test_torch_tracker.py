@@ -25,6 +25,10 @@ Tolerances:
   other's ``load_state`` continues to the same next frame;
 * the port's ``process_chunk`` over the frames equals its ``process``,
   exactly, every field;
+* ``process_chunk`` on host frames, warped in slices of 3 frames (T=7,
+  the last slice short), equals ``chunk_process`` on the same frames as
+  one tensor, the whole-batch path, exactly: every output field and the
+  end state ('fast' and 'corridor', two_phase with its rescan);
 * ``visualize_search`` and ``split_view``: the search picture equals
   JAX's exactly, and the split view's warped pane (the raw frame through
   the full-frame warp grid) within 1 unit on at most
@@ -52,7 +56,11 @@ from lane_tracker_tpu.tracker.config import PRESETS as J_PRESETS
 from lane_tracker_tpu.tracker.tracker import LaneTracker as JTracker
 
 import lane_tracker_tpu_torch as lt
+from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
+from lane_tracker_tpu_torch.tracker import tracker as t_tracker
+from lane_tracker_tpu_torch.tracker import upload
 from lane_tracker_tpu_torch.tracker.tracker import LaneTracker as TTracker
+from lane_tracker_tpu_torch.utils import profiling
 
 DEMO1_KW = dict(
     ksize_r=15, C_r=8, ksize_b=35, C_b=5, filter_type="bilateral",
@@ -279,3 +287,45 @@ def test_chunk_kwargs_checked_and_reset_forgets_state(runs):
     assert tracker.counter == SNAPSHOT_AT + 1
     tracker.reset()
     assert (tracker.counter, tracker.success, tracker._state) == (0, 0, None)
+
+
+@pytest.mark.parametrize("pipeline", ["fast", "corridor"])
+def test_sliced_process_chunk_equals_the_whole_batch(pipeline, monkeypatch):
+    """Host frames through ``process_chunk`` with ``upload.SLICE_BYTES``
+    at 3 frames: T=7 warps in slices of 3, 3 and 1 (three ``lt.warp_lab``
+    spans), and every output field and the end state equal
+    ``chunk_process`` given the same frames as one tensor from the same
+    start state.  The black frame makes two_phase rescan.  Off the card
+    the frames are copied whole and none counts as streamed."""
+    fs = np.concatenate([frames(), frames()[1:2]])
+    assert len(fs) == 7
+    monkeypatch.setattr(upload, "SLICE_BYTES", 3 * fs[0].nbytes)
+    built = []
+
+    def spy(config, **kw):
+        built.append((config, kw))
+        return build(config, **kw)
+
+    build = t_tracker.build_chunk_processor
+    monkeypatch.setattr(t_tracker, "build_chunk_processor", spy)
+    tracker = make_tracker(TTracker, pipeline, device="cpu")
+    with profiling.recording():
+        outs = tracker.process_chunk(fs, **DEMO1_KW)
+    s = profiling.summary()
+    assert s["spans"]["lt.warp_lab"]["n"] == 3
+    assert s["spans"]["lt.upload"]["n"] == 1
+    assert s["counters"]["lt.rescans"] == 1
+    assert "lt.upload.streamed_frames" not in s["counters"]
+    [(config, kw)] = built
+    state, want = chunk_process(tracker._prev_state, torch.from_numpy(fs),
+                                tracker.params, config,
+                                with_overlay=kw["with_overlay"],
+                                second_attempt=kw["second_attempt"])
+    assert not bool(want.valid[4]) and bool(want.valid[5])
+    for f in want._fields:
+        w, g = getattr(want, f), getattr(outs, f)
+        assert (w is None) == (g is None), f
+        if w is not None:
+            assert torch.equal(g, w), f
+    for f in state._fields:
+        assert torch.equal(getattr(tracker._state, f), getattr(state, f)), f
