@@ -148,14 +148,7 @@ Phases (each raises at the first failure; nothing is skipped):
    frame or else a rerun in 'fast' that says so and is gated; the
    attempt-1 kernels launched, the fallback's exactly when some attempt 1
    failed; printed: ms a chunk (one run, not a timing claim) and the peak
-   device memory.  ``stream_row_mesh(1, 2)`` and ``(1, 4)`` over
-   ``cuda:0`` repeated: the row-sharded front half (parallel/rows.py)
-   equal to ``front_artifacts_batch`` in every field on the 64 stills
-   (attempt 1) and on the fail16 chunk (``hoist``); each band's five
-   filter wrappers equal to their plain twins at the band's shape
-   (``filter_parity``); ``chunk_process(..., row_devices=...)`` equal to
-   the unsharded call in every output and state field on both chunks.
-   The phase then releases its memory and prints its wall time, and
+   device memory.  The phase then releases its memory and prints its wall time, and
    ``LaneTracker.process`` is timed right before and right after it.
 15. Opt-in modes (runs after phase 14, before phase 10): (a) 'turbo' and
    (b) 'half' (demo1, halved by ``halve_config`` for 'half') through
@@ -298,7 +291,6 @@ T_BENCH = 512  # bench.py's chunk, and the oracles' length
 # the port's fit contract, 0.01 px.
 MOTION_RMSE_LIMIT_PX = 0.7672
 MOTION_SAMPLED = (0, 8, 37, 150, 300, 451, 511)
-ROW_BANDS = (2, 4)
 # Phase 15, the opt-in modes: 'turbo' and 'half' against the JAX package's
 # results (assets/mode_oracle.npz, scripts/torch_mode_oracle.py) within the
 # fit contract; the latency mode on 'fast' and 'turbo'; the times.
@@ -1282,23 +1274,10 @@ def fleet_profile(stills, build_params, cfg, card):
                  1, card)
 
 
-def art_leaves(arts):
-    """(name, tensor or None) of every field of a FrontArtifacts, the
-    nested NamedTuples' fields flattened in order."""
-    out = []
-    for name, x in zip(arts._fields, arts):
-        if x is None or hasattr(x, "shape"):
-            out.append((name, x))
-        else:
-            out += [(f"{name}.{n}", v) for n, v in zip(x._fields, x)]
-    return out
-
-
 def gaps_phase(stills, oracles, build_params, cfg, card):
     """Phase 14: the motion frames made on the card, the main path at the
     bench's T_BENCH frames on the stills, fail16 and motion chunks against
-    every frame of their oracles, and the row-sharded front half over
-    ROW_BANDS bands of this card.  Releases its memory at the end."""
+    every frame of their oracles.  Releases its memory at the end."""
     import gc
 
     import numpy as np
@@ -1306,18 +1285,8 @@ def gaps_phase(stills, oracles, build_params, cfg, card):
 
     from lane_tracker_tpu_torch.io import motion
     from lane_tracker_tpu_torch.kernels import filter_stage as fs
-    from lane_tracker_tpu_torch.parallel import chunk_process, stream_row_mesh
-    from lane_tracker_tpu_torch.parallel.rows import (
-        front_artifacts_rows,
-        front_halo,
-        row_plan,
-    )
-    from lane_tracker_tpu_torch.tracker.config import SECOND_ATTEMPT
-    from lane_tracker_tpu_torch.tracker.step import (
-        front_artifacts_batch,
-        make_initial_state,
-        warp_rows,
-    )
+    from lane_tracker_tpu_torch.parallel import chunk_process
+    from lane_tracker_tpu_torch.tracker.step import make_initial_state
 
     t_phase = time.perf_counter()
     gp = build_params("corridor")
@@ -1394,55 +1363,9 @@ def gaps_phase(stills, oracles, build_params, cfg, card):
               f"({card})")
         del out
 
-    # The row-sharded front half over ROW_BANDS bands of this card.
-    chunk64, fail64 = gstills[:T_SLICE], gfail[:T_SLICE]
-    for n in ROW_BANDS:
-        row_devices = stream_row_mesh(1, n, devices=["cuda:0"] * n)[0]
-        check(row_devices == (torch.device("cuda", 0),) * n,
-              f"stream_row_mesh(1, {n}) over cuda:0: {row_devices}")
-        for tag, frames, hoist in (("stills", chunk64, False),
-                                   (f"fail{FAIL_EVERY}", fail64, True)):
-            want = art_leaves(front_artifacts_batch(frames, gp, cfg, hoist))
-            got = art_leaves(front_artifacts_rows(frames, gp, cfg,
-                                                  row_devices, hoist))
-            diff = [a for (a, x), (_, y) in zip(got, want)
-                    if not (x is None and y is None or torch_equal(x, y))]
-            print(f"[rows] {n} bands, {tag} T={T_SLICE}, hoist {hoist}: "
-                  f"{len(want)} fields, differing from front_artifacts_batch "
-                  f"{diff}")
-            check(not diff, f"rows: {n} bands differ from the unsharded "
-                  f"front half in {diff}")
-        bands = row_plan(gp, row_devices, front_halo(cfg, True, gp))
-        for band in bands:
-            r_ext, b_ext = warp_rows(chunk64[:, band.raw[0]:band.raw[1]],
-                                     band.chain)
-            errs, _ = filter_parity(r_ext, b_ext, cfg.filter,
-                                    SECOND_ATTEMPT.filter)
-            report_parity(f"rows {n} bands, band {band.rows}", errs,
-                          r_ext.shape)
-            del r_ext, b_ext, errs
-        for tag, frames in (("stills", chunk64),
-                            (f"fail{FAIL_EVERY}", fail64)):
-            st_a, out_a = chunk_process(fresh(), frames, gp, cfg,
-                                        second_attempt="two_phase")
-            st_b, out_b = chunk_process(fresh(), frames, gp, cfg,
-                                        second_attempt="two_phase",
-                                        row_devices=row_devices)
-            diff = [name for name in out_a._fields + st_a._fields
-                    if not torch_equal(
-                        getattr(out_a if name in out_a._fields else st_a,
-                                name),
-                        getattr(out_b if name in out_b._fields else st_b,
-                                name))]
-            print(f"[rows] chunk_process(row_devices={n} bands) on {tag} "
-                  f"T={T_SLICE}: output and state fields differing from the "
-                  f"unsharded call {diff}")
-            check(not diff, f"rows: chunk_process over {n} bands differs in "
-                  f"{diff}")
     # Release the phase's memory, as phase 13 does.
-    del gmotion, gstills, gfail, chunk64, fail64, runs, frames, gp
-    del st_a, out_a, st_b, out_b, want, got, bands, band, row_devices
-    del params, fresh  # they hold gp, and gp its bands' grids
+    del gmotion, gstills, gfail, runs, frames, gp
+    del params, fresh  # they hold gp
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[gaps] phase 14 took {time.perf_counter() - t_phase:.1f} s; "

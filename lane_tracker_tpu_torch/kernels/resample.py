@@ -98,29 +98,6 @@ class ResampleGrid(nn.Module):
             name: buf.to(device, copy=True)
             for name, buf in self.named_buffers(recurse=False)})
 
-    def band(self, y0: int, y1: int) -> tuple["ResampleGrid", tuple]:
-        """Destination rows [y0, y1) of this grid, re-based onto the source
-        rows they read: (the band's grid, (s0, s1)), the band reading
-        source rows [s0, s1).  Resampling those source rows through it
-        gives exactly rows [y0, y1) of resampling the whole source: every
-        pixel keeps its taps, weights and ``rounded`` flag.  One host read
-        of the band's tap rows."""
-        H, W = self.dst_shape
-        Ws, Hs = self.src_size
-        if not 0 <= y0 < y1 <= H:
-            raise ValueError(f"rows [{y0}, {y1}) outside 0..{H}")
-        lo, hi = y0 * W, y1 * W
-        base = self.base[lo:hi]
-        rows = (base // Ws).aminmax()
-        s0 = int(rows.min)
-        s1 = min(int(rows.max) + 2, Hs)  # +1 lower tap, +1 exclusive
-        r = self.rounded
-        bufs = {"base": base - s0 * Ws,
-                **{k: getattr(self, k)[lo:hi]
-                   for k in ("w00", "w01", "w10", "w11")},
-                "rounded": r[(r >= lo) & (r < hi)] - lo}
-        return self._with((y1 - y0, W), (Ws, s1 - s0), bufs), (s0, s1)
-
     @classmethod
     def _with(cls, dst_shape, src_size, buffers: dict) -> "ResampleGrid":
         new = cls.__new__(cls)

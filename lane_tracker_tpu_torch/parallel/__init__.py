@@ -7,9 +7,9 @@ it, ``streams.build_fleet_processor``) steps S streams in lockstep chunks,
 sharded over a device list (``mesh.stream_mesh``, ``mesh.shard_streams``),
 each device's front half on all its streams' frames in one batch and the
 back half batched over its streams.  ``pipeline.build_chunk_processor`` is
-the chunk processor cached per config; ``mesh.stream_row_mesh`` adds a
-frame's warped rows as a second axis (``chunk_process(...,
-row_devices=...)``, parallel/rows.py).
+the chunk processor cached per config.  ``mesh.stream_row_mesh``, the
+reference's streams x rows mesh, is exported as the reference exports
+it; no program consumes it.
 """
 
 from lane_tracker_tpu_torch.parallel.mesh import (

@@ -6,10 +6,10 @@ Port of lane_tracker_tpu/parallel/mesh.py.  The reference's 1-D
 and stream shard i lives on device i.  There is no gradient or weight
 traffic; the only cross-device step is summing the fleet's metrics.
 
-``stream_row_mesh`` adds the second axis, a frame's warped rows split
-within a stream: n_stream tuples of n_rows devices, each tuple a
-``row_devices`` for ``pipeline.chunk_process`` (parallel/rows.py, where
-each band recomputes its halo instead of the exchanges XLA SPMD inserts).
+``stream_row_mesh`` is the reference's streams x image-rows mesh as
+n_stream tuples of n_rows devices, kept because the reference exports
+it; nothing in the port splits a frame's rows (one card holds a whole
+chunk's front half), so no program consumes it.
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ def stream_row_mesh(n_stream: int, n_rows: int,
                     devices=None) -> tuple[tuple[torch.device, ...], ...]:
     """``n_stream`` tuples of ``n_rows`` devices (streams x image rows):
     the first ``n_stream * n_rows`` of ``devices`` (which may repeat a
-    device, several bands on one card), else of the CUDA devices.  Without
-    CUDA the default raises."""
+    device), else of the CUDA devices.  Without CUDA the default
+    raises."""
     n = int(n_stream) * int(n_rows)
     if n < 1:
         raise ValueError(f"a {n_stream} x {n_rows} mesh has no devices")

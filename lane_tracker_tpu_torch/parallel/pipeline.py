@@ -20,9 +20,6 @@ does; all three modes give identical outputs:
   filter runs once on the whole chunk and the chunk is rescanned from the
   original state with both attempts.
 
-With ``row_devices`` the front half splits the warped rows over those
-devices (parallel/rows.py) and gives the same artifacts bit for bit.
-
 ``build_chunk_processor`` is the processor cached per static config, as
 the reference's jit-compiled one, that ``LaneTracker.process_chunk`` and
 the CLI call.
@@ -46,7 +43,6 @@ import torch
 
 from lane_tracker_tpu_torch.kernels import back_half as back_half_kernel
 from lane_tracker_tpu_torch.parallel.mesh import map_tensors
-from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
 from lane_tracker_tpu_torch.tracker.config import TrackerConfig
 from lane_tracker_tpu_torch.tracker.state import TrackerState
 from lane_tracker_tpu_torch.tracker.step import (
@@ -136,20 +132,17 @@ def two_phase_scan(state: TrackerState, arts: FrontArtifacts,
 def chunk_process(state: TrackerState, frames: torch.Tensor | StreamedChunk,
                   params: TrackerParams, config: TrackerConfig,
                   with_overlay: bool = True,
-                  second_attempt: str | None = None, row_devices=None):
+                  second_attempt: str | None = None):
     """Process a (T, Hc, Wc, 3) uint8 chunk on ``frames.device``.
     ``frames`` may also be a ``tracker.upload.StreamedChunk`` of host
-    frames (``LaneTracker.process_chunk``'s), without ``row_devices``:
-    its warp runs a slice at a time as each slice lands on the device.
+    frames (``LaneTracker.process_chunk``'s): its warp runs a slice at a
+    time as each slice lands on the device.
 
     ``second_attempt`` is 'cond', 'hoist' or 'two_phase' (module
     docstring); None means 'cond'.  'cond' reads attempt 1's validity on
     the host once per frame, so it keeps the per-frame loop; 'hoist' and
     'two_phase' never wait on the device inside a scan (two_phase waits
     once per chunk), and on the card each scan is one kernel launch.
-    ``row_devices`` (one row of ``mesh.stream_row_mesh``) splits the front
-    half's warped rows over those devices; the rest runs on
-    ``row_devices[0]``, which holds ``state`` and ``params``.
 
     Returns (state, outputs): a StepOutput with a leading T axis;
     ``overlay`` is (T, Hc, Wc, 3) when ``with_overlay`` else None.
@@ -159,15 +152,10 @@ def chunk_process(state: TrackerState, frames: torch.Tensor | StreamedChunk,
         raise ValueError(f"unknown second_attempt mode {mode!r}")
     hoist = mode == "hoist"
     with unit("lt.chunk", frames.shape[0]):
-        if row_devices is None:
-            arts = front_artifacts_batch(frames, params, config,
-                                         hoist_second_attempt=hoist)
-            if isinstance(frames, StreamedChunk):
-                frames = frames.frames
-        else:
-            arts = front_artifacts_rows(frames, params, config, row_devices,
-                                        hoist_second_attempt=hoist)
-            frames = frames.to(row_devices[0])
+        arts = front_artifacts_batch(frames, params, config,
+                                     hoist_second_attempt=hoist)
+        if isinstance(frames, StreamedChunk):
+            frames = frames.frames
         if mode == "two_phase" and has_second_attempt(config):
             state, (outs, metas) = two_phase_scan(state, arts, params,
                                                   config)

@@ -18,11 +18,10 @@ Port of lane_tracker_tpu/tracker/step.py for every pipeline ('fast',
   'turbo' takes LAB-B on the undistorted band and warps R and LAB-B as
   one pair with the fill bias; with the rowmm structures either stage
   runs as slab reads and one-hot contractions (bit for bit the gather).
-* ``front_artifacts_batch`` (step.py:781-814): its row-local stages
-  (``front_rows``: warp + LAB, the filters), which parallel/rows.py runs
-  per band of rows, then its stages over whole frames (``front_search``);
-  its one-frame forms ``front_half`` (step.py:636) and
-  ``front_artifacts`` (step.py:817), and
+* ``front_artifacts_batch`` (step.py:781-814): warp + LAB, of the whole
+  chunk or a slice at a time as a streamed chunk lands, each attempt's
+  filter, then each attempt's embedding and search; its one-frame forms
+  ``front_half`` (step.py:636) and ``front_artifacts`` (step.py:817), and
   ``second_attempt_artifacts_batch`` (step.py:761-778), ``_embed_cols`` /
   ``_embed_prefixes`` (step.py:471-520), ``_run_attempt``
   (step.py:563-633) with the corridor certificate, ``back_half``
@@ -88,10 +87,10 @@ from lane_tracker_tpu_torch.render.lane import (
 from lane_tracker_tpu_torch.tracker.config import (
     SECOND_ATTEMPT,
     SECOND_ATTEMPT_HALF,
-    FilterConfig,
     TrackerConfig,
 )
 from lane_tracker_tpu_torch.tracker.state import TrackerState, init_state
+from lane_tracker_tpu_torch.tracker.upload import StreamedChunk
 from lane_tracker_tpu_torch.utils.profiling import (
     count,
     host_read,
@@ -101,10 +100,11 @@ from lane_tracker_tpu_torch.utils.profiling import (
 
 PIPELINES = ("fast", "compat", "turbo", "corridor", "half")
 # The corridor's compute margin, the JAX package's (step.py:265), which it
-# sizes by a filter reach of 75.  By ``parallel.rows.filter_reach`` the
-# reach is 93 (the cross threshold's arms are ksize pixels long), so a
-# crafted input can change the kept edge columns
-# (tests/test_torch_rows.py); kept at 80 so that 'corridor' equals JAX's.
+# sizes by a filter reach of 75.  By ``filter_reach`` in
+# tests/test_torch_filter_reach.py the reach is 93 (the cross threshold's
+# arms are ksize pixels long), so a crafted input can change the kept edge
+# columns (that file's corridor-margin test); kept at 80 so that
+# 'corridor' equals JAX's.
 CORRIDOR_MARGIN = 80
 
 
@@ -458,14 +458,13 @@ class RenderMeta(NamedTuple):
 
 class WarpChain(NamedTuple):
     """The two-stage resample of a pipeline, as ``warp_rows`` runs it:
-    the undistort grid reading raw rows from ``raw0``, the warp grid, the
-    LAB-B function, and 'turbo''s order with its fill bias (one value a
-    warped pixel of ``g_warp``), and the latency mode's tile structures
-    (None: the per-pixel gather)."""
+    the undistort grid (reading the raw rows ``params.raw_roi``), the warp
+    grid, the LAB-B function, and 'turbo''s order with its fill bias (one
+    value a warped pixel of ``g_warp``), and the latency mode's tile
+    structures (None: the per-pixel gather)."""
 
     g_und: ResampleGrid
     g_warp: ResampleGrid
-    raw0: int
     lab: Callable
     turbo: bool = False
     bias: torch.Tensor | None = None
@@ -479,10 +478,9 @@ def warp_chain(params: TrackerParams) -> WarpChain:
     the float path; 'compat' undistorts the whole frame and takes LAB-B by
     the LUT chain."""
     if params.pipeline == "compat":
-        return WarpChain(params.grid_und, params.grid_warp, 0, rgb2lab_b_u8)
+        return WarpChain(params.grid_und, params.grid_warp, rgb2lab_b_u8)
     return WarpChain(params.grid_und_roi, params.grid_warp_roi,
-                     params.raw_roi[0], rgb2lab_b_fast,
-                     turbo=params.pipeline == "turbo",
+                     rgb2lab_b_fast, turbo=params.pipeline == "turbo",
                      bias=params.warp_b_bias, mm_und=params.mm_und,
                      mm_warp=params.mm_warp)
 
@@ -495,13 +493,12 @@ def _gather(img: torch.Tensor, grid: ResampleGrid, mm: RowMMGrid | None):
     return bilinear_gather_rowmm(img, grid, mm)
 
 
-def warp_rows(frames: torch.Tensor, chain: WarpChain):
-    """Warped R and LAB-B of a (T, Hc, Wc, 3) uint8 chunk through
-    ``chain``, in the reference's order of operations (step.py:417-468):
-    the undistort, then for 'turbo' LAB-B of the undistorted band and one
-    pair resample of (R, LAB-B) with the fill bias, else the warp of the
-    RGB and LAB-B of the warped frame."""
-    raw = frames[:, chain.raw0:chain.raw0 + chain.g_und.src_size[1]]
+def warp_rows(raw: torch.Tensor, chain: WarpChain):
+    """Warped R and LAB-B of (T, rows, Wc, 3) uint8 raw rows, the rows
+    ``chain``'s undistort grid reads, in the reference's order of
+    operations (step.py:417-468): the undistort, then for 'turbo' LAB-B of
+    the undistorted band and one pair resample of (R, LAB-B) with the fill
+    bias, else the warp of the RGB and LAB-B of the warped frame."""
     und = _gather(raw, chain.g_und, chain.mm_und)
     if chain.turbo:
         # 'turbo' (step.py:433-455): interpolate(LAB(x)) instead of
@@ -524,7 +521,8 @@ def warp_channels(frames: torch.Tensor, params: TrackerParams):
     corridor's compute columns), then LAB-B of the warped RGB.  'compat'
     undistorts the whole frame and takes LAB-B by the LUT chain; 'turbo'
     warps LAB-B of the undistorted band (``warp_rows``)."""
-    return warp_rows(frames, warp_chain(params))
+    r0, r1 = params.raw_roi
+    return warp_rows(frames[:, r0:r1], warp_chain(params))
 
 
 def _embed_cols(binary: torch.Tensor, params: TrackerParams) -> torch.Tensor:
@@ -601,28 +599,14 @@ def second_attempt_artifacts_batch(r_chan: torch.Tensor, b_chan: torch.Tensor,
     return _embed_search(binary2, pref2, params, sa.search)
 
 
-class FrontRows(NamedTuple):
-    """The row-local products of the front half, every field (T, rows,
-    ...), so that rows of a chunk are a slice of each: the warped
-    channels, the attempt-1 binary and its packed row prefixes, and the
-    hoisted attempt-2's (else None)."""
-
-    r_chan: torch.Tensor
-    b_chan: torch.Tensor
-    binary: torch.Tensor
-    packed: torch.Tensor
-    binary2: torch.Tensor | None = None
-    packed2: torch.Tensor | None = None
-
-
-def _warp_slices(chunk, chain: WarpChain):
-    """``warp_rows`` of a ``tracker.upload.StreamedChunk``, a slice at a
-    time as each slice lands, into (T, ...) planes: the same planes bit
-    for bit, since ``warp_rows`` is frame-local."""
+def _warp_slices(chunk, params: TrackerParams):
+    """``warp_channels`` of a ``tracker.upload.StreamedChunk``, a slice at
+    a time as each slice lands, into (T, ...) planes: the same planes bit
+    for bit, since the warp is frame-local."""
     planes = None
     for lo, part in chunk.slices():
         with span("lt.warp_lab"):
-            parts = warp_rows(part, chain)
+            parts = warp_channels(part, params)
             if planes is None:
                 planes = tuple(x.new_empty((chunk.shape[0],) + x.shape[1:])
                                for x in parts)
@@ -631,69 +615,38 @@ def _warp_slices(chunk, chain: WarpChain):
     return planes
 
 
-def front_rows(frames, chain: WarpChain, config: TrackerConfig,
-               second: FilterConfig | None) -> FrontRows:
-    """The front half's row-local stages of a (T, Hc, Wc, 3) uint8 chunk:
-    the warp + LAB through ``chain`` (``warp_rows``), the attempt-1 filter
-    and, where ``second`` (the hoisted attempt 2's filter) is given, that
-    filter.  ``frames`` is a device tensor, warped whole, or a
-    ``tracker.upload.StreamedChunk`` of host frames, warped a slice at a
-    time as each slice lands (``_warp_slices``)."""
-    if isinstance(frames, torch.Tensor):
-        with span("lt.warp_lab"):
-            r_chan, b_chan = warp_rows(frames, chain)
-    else:
-        r_chan, b_chan = _warp_slices(frames, chain)
-    with span("lt.filter"):
-        binary, pref = filter_stage(r_chan, b_chan, config.filter)
-    rows = FrontRows(r_chan, b_chan, binary, pref.packed)
-    if second is not None:
-        with span("lt.second_attempt"):
-            binary2, pref2 = filter_stage(r_chan, b_chan, second)
-        rows = rows._replace(binary2=binary2, packed2=pref2.packed)
-    return rows
-
-
-def front_search(rows: FrontRows, params: TrackerParams,
-                 config: TrackerConfig) -> FrontArtifacts:
-    """The front half's stages over whole frames: each attempt's corridor
-    embedding and blind sliding-window intervals (the search sums columns
-    over many rows, so it is not row-local)."""
-    with span("lt.embed_search"):
-        pref, iv_sws = _embed_search(rows.binary, RowPrefixes(rows.packed),
-                                     params, config.search)
-    pref2 = iv2 = None
-    if rows.binary2 is not None:
-        with span("lt.second_attempt"):
-            pref2, iv2 = _embed_search(rows.binary2,
-                                       RowPrefixes(rows.packed2), params,
-                                       _sa_config(params).search)
-    return FrontArtifacts(r_chan=rows.r_chan, b_chan=rows.b_chan, pref=pref,
-                          iv_sws=iv_sws, pref2=pref2, iv_sws2=iv2)
-
-
-def hoisted_filter(params: TrackerParams, config: TrackerConfig,
-                   hoist_second_attempt: bool) -> FilterConfig | None:
-    """The attempt-2 filter the front half runs for every frame: the
-    second attempt's (``_sa_config``) with ``hoist_second_attempt`` and a
-    config that has a second attempt, else None."""
-    if hoist_second_attempt and has_second_attempt(config):
-        return _sa_config(params).filter
-    return None
-
-
-def front_artifacts_batch(frames: torch.Tensor, params: TrackerParams,
-                          config: TrackerConfig,
+def front_artifacts_batch(frames: torch.Tensor | StreamedChunk,
+                          params: TrackerParams, config: TrackerConfig,
                           hoist_second_attempt: bool = False
                           ) -> FrontArtifacts:
     """Stateless front half for a (T, Hc, Wc, 3) uint8 chunk: warp, LAB,
     the attempt-1 filter (three kernels), corridor embedding, and the
     blind sliding-window intervals, all batched over T.  With
     ``hoist_second_attempt`` (and a config that has a second attempt) the
-    attempt-2 products are computed too, for every frame."""
-    second = hoisted_filter(params, config, hoist_second_attempt)
-    return front_search(front_rows(frames, warp_chain(params), config,
-                                   second), params, config)
+    attempt-2 filter and search run too, for every frame.  ``frames`` is a
+    device tensor, warped whole, or a ``tracker.upload.StreamedChunk`` of
+    host frames, warped a slice at a time as each slice lands
+    (``_warp_slices``)."""
+    if isinstance(frames, torch.Tensor):
+        with span("lt.warp_lab"):
+            r_chan, b_chan = warp_channels(frames, params)
+    else:
+        r_chan, b_chan = _warp_slices(frames, params)
+    with span("lt.filter"):
+        binary, pref = filter_stage(r_chan, b_chan, config.filter)
+    sa = (_sa_config(params)
+          if hoist_second_attempt and has_second_attempt(config) else None)
+    if sa is not None:
+        with span("lt.second_attempt"):
+            binary2, pref2 = filter_stage(r_chan, b_chan, sa.filter)
+    with span("lt.embed_search"):
+        pref, iv_sws = _embed_search(binary, pref, params, config.search)
+    arts = FrontArtifacts(r_chan, b_chan, pref, iv_sws)
+    if sa is None:
+        return arts
+    with span("lt.second_attempt"):
+        pref2, iv2 = _embed_search(binary2, pref2, params, sa.search)
+    return arts._replace(pref2=pref2, iv_sws2=iv2)
 
 
 def front_half(frame: torch.Tensor, params: TrackerParams,

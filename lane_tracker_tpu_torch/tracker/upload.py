@@ -2,8 +2,8 @@
 
 ``LaneTracker.process_chunk`` hands ``parallel.pipeline.chunk_process`` a
 :class:`StreamedChunk` in place of a device tensor when its frames are
-on the host.  The front half (``tracker.step.front_rows``) walks
-:meth:`StreamedChunk.slices` and warps each slice as it lands;
+on the host.  The front half (``tracker.step.front_artifacts_batch``)
+walks :meth:`StreamedChunk.slices` and warps each slice as it lands;
 everything after the warp reads the whole device chunk,
 ``StreamedChunk.frames``.
 

@@ -7,8 +7,8 @@ the same numpy inputs (JAX on the CPU through XLA, the port on the CPU):
   black frame in place of still 2, so the second attempt runs), demo1,
   'corridor', in each second-attempt mode: decisions and the integer
   state identical, curves within 0.01 px RMSE, overlays within 1;
-* ``tracker.step.front_half`` and ``front_artifacts`` on one frame: every
-  field identical;
+* ``tracker.step.front_half`` and ``front_artifacts`` on one frame, and
+  'fast''s ``front_artifacts_batch`` on two frames: every field identical;
 * ``ops.polyfit.fit_poly_mask`` (curves within 0.01 px RMSE: the fit
   contract) and ``metric_coeffs`` (identical);
 * ``ops.filters.filter_lane_points``, ``ops.threshold.
@@ -152,6 +152,18 @@ def _arrays(tree):
     return out
 
 
+def assert_leaves_equal(got, want):
+    """Every leaf of two NamedTuple trees identical, None where None."""
+    a, b = _arrays(got), _arrays(want)
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if y is None:
+            assert x is None, i
+            continue
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        np.testing.assert_array_equal(x, y, err_msg=str(i))
+
+
 @pytest.mark.parametrize("hoist", [False, True])
 def test_front_half_and_front_artifacts_match_jax(corridor, hoist):
     jp, tp = corridor
@@ -163,14 +175,24 @@ def test_front_half_and_front_artifacts_match_jax(corridor, hoist):
     got = (t_step.front_half(t_frame, tp, port_config(CFG)),
            t_step.front_artifacts(t_frame, tp, port_config(CFG), hoist))
     for part_got, part_want in zip(got, want):
-        a, b = _arrays(part_got), _arrays(part_want)
-        assert len(a) == len(b)
-        for i, (x, y) in enumerate(zip(a, b)):
-            if y is None:
-                assert x is None, i
-                continue
-            assert x.dtype == y.dtype and x.shape == y.shape, i
-            np.testing.assert_array_equal(x, y, err_msg=str(i))
+        assert_leaves_equal(part_got, part_want)
+
+
+def test_fast_front_artifacts_batch_matches_jax():
+    """tests/test_parallel.py's frames (911, 971), 'fast', demo1: JAX's
+    per-frame ``front_artifacts`` (XLA) against the port's batched front
+    half, every field identical."""
+    with np.load(ASSETS_DIR / "stills_720p.npz") as z:
+        fr = z["frames"][:2]
+    args = _calib_args()
+    jp = j_step.TrackerParams.build(*args, pipeline="fast",
+                                    filter_backend="xla")
+    tp = t_step.TrackerParams.build(*args, pipeline="fast", device="cpu")
+    want = jax.jit(lambda f, p: jax.vmap(
+        lambda x: j_step.front_artifacts(x, p, CFG))(f))(fr, jp)
+    got = t_step.front_artifacts_batch(torch.from_numpy(fr), tp,
+                                       port_config(CFG))
+    assert_leaves_equal(got, want)
 
 
 def _random_masks(seed, n=6, H=120, W=160):

@@ -869,26 +869,6 @@ def test_gaps_api_names_on_the_card(cuda, setup):
         _same(g.cpu(), w)
 
 
-@pytest.mark.parametrize("n_bands", [2, 3])
-def test_gaps_row_sharded_front_half_on_the_card(cuda, setup, n_bands):
-    """The front half over bands of this card equals the unsharded one,
-    every field, with the second attempt hoisted."""
-    from lane_tracker_tpu_torch.parallel.mesh import stream_row_mesh
-    from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
-    from lane_tracker_tpu_torch.tracker.step import front_artifacts_batch
-
-    _, gparams, frames = setup
-    cfg = PRESETS["demo1"]
-    g = frames.to(cuda)
-    g[3] = 0
-    row_devices = stream_row_mesh(1, n_bands, devices=["cuda"] * n_bands)[0]
-    want = front_artifacts_batch(g, gparams, cfg, True)
-    got = front_artifacts_rows(g, gparams, cfg, row_devices, True)
-    for x, y in zip(got, want):
-        for a, b in (zip(x, y) if isinstance(x, tuple) else ((x, y),)):
-            _same(a, b)
-
-
 # ---- the opt-in modes on the card ('turbo', 'half', the latency mode) ----
 
 

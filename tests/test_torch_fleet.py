@@ -24,7 +24,8 @@ advance per stream and live on each device of the list; streams are
 independent; metrics equal per-stream ``chunk_process`` sums; 'auto'
 flips at the crossover and back under hysteresis, on an any-over-shards
 observable; an unknown schedule and streams that do not divide over the
-devices raise; the default device list needs CUDA.  The batched back half
+devices raise; the default device list needs CUDA; ``stream_row_mesh``'s
+shape and devices, and its default needs CUDA.  The batched back half
 (``scan_streams``) equals a per-stream loop of ``scan_back_half`` exactly
 on the CPU (the card may round a batched reduction differently in the
 last bit; chip_smoke.py holds it there), and its operators per time step
@@ -62,6 +63,7 @@ from lane_tracker_tpu_torch.parallel import (
     chunk_process,
     shard_streams,
     stream_mesh,
+    stream_row_mesh,
 )
 from lane_tracker_tpu_torch.parallel.mesh import map_tensors, replicate
 from lane_tracker_tpu_torch.parallel.pipeline import scan_back_half
@@ -394,6 +396,22 @@ def test_fleet_default_devices_need_cuda(port_tiny, monkeypatch):
         StreamFleet(tp, cfg, n_streams=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         stream_mesh()
+
+
+def test_stream_row_mesh_shape_and_devices():
+    mesh = stream_row_mesh(2, 3, devices=["cpu"] * 7)
+    assert len(mesh) == 2 and all(len(row) == 3 for row in mesh)
+    assert all(d == torch.device("cpu") for row in mesh for d in row)
+    assert stream_row_mesh(1, 2, devices=("cpu", "cpu")) == (
+        (torch.device("cpu"), torch.device("cpu")),)
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        stream_row_mesh(2, 2, devices=("cpu",) * 3)
+
+
+def test_stream_row_mesh_default_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        stream_row_mesh(1, 2)
 
 
 def _streams_arts(tp, cfg, S, T, hoist):

@@ -21,8 +21,8 @@ tolerances of tests/torch_modes.py):
   pass the halved structuring elements (15, 27, 3) its ``viz.py`` leaves
   at the reference's (29, 55, 5) and to take ``SECOND_ATTEMPT_HALF``;
   unpatched, 2.5% of its picture's values differ;
-* the row bands (their halo the halved filters' reach) and the fleet
-  equal the unsharded chunk.
+* the halved filters' reach (``filter_reach``), and a two-stream fleet
+  equal to the chunk on each stream.
 """
 
 import numpy as np
@@ -32,14 +32,13 @@ import torch
 import jax
 
 from tests import torch_modes as tm
+from tests.test_torch_filter_reach import filter_reach
 
 import lane_tracker_tpu.render.viz as j_viz
 from lane_tracker_tpu.tracker.config import SECOND_ATTEMPT_HALF as J_SA_HALF
 
 from lane_tracker_tpu_torch.parallel.pipeline import chunk_process
-from lane_tracker_tpu_torch.parallel.rows import filter_reach, front_halo
 from lane_tracker_tpu_torch.tracker import step as t_step
-from lane_tracker_tpu_torch.tracker.config import SECOND_ATTEMPT_HALF
 
 PIPELINE = "half"
 
@@ -146,13 +145,12 @@ def test_snapshot_continues_in_the_other_package(drives, direction):
 
 
 def test_rows_and_fleet_equal_unsharded(params):
+    """The halved filters' reach, and a two-stream fleet over two CPU
+    devices equal to ``chunk_process`` on each stream's frames."""
     _, tp = params
     _, tcfg = tm.configs(PIPELINE)
-    # The bands' halo is the halved filters' reach: 2 * 13 + 17 + 2 * 1.
-    assert front_halo(tcfg, False, tp) == filter_reach(tcfg.filter) == 45
-    assert front_halo(tcfg, True, tp) == max(
-        45, filter_reach(SECOND_ATTEMPT_HALF.filter))
+    # The halved filters reach 2 * 13 + 17 + 2 * 1 rows.
+    assert filter_reach(tcfg.filter) == 45
     frames = tm.chunk_frames()[1:5]  # frame 2 is black
-    tm.assert_rows_equal_unsharded(tp, tcfg, frames)
     tm.assert_fleet_equals_chunks(tp, tcfg, np.stack([frames[:2],
                                                       frames[2:]]))

@@ -708,7 +708,6 @@ for name in ("lane_tracker_tpu_torch.kernels.shift_chain",
              "lane_tracker_tpu_torch.__main__",
              "lane_tracker_tpu_torch.parallel.streams",
              "lane_tracker_tpu_torch.parallel.mesh",
-             "lane_tracker_tpu_torch.parallel.rows",
              "lane_tracker_tpu_torch.calibrate",
              "lane_tracker_tpu_torch.calib.camera",
              "lane_tracker_tpu_torch.calib.perspective",

@@ -15,8 +15,7 @@ Held at full size (assets/calibration.npz), every comparison exact:
 * ``params_from_jax`` of JAX's ``with_rowmm()`` params equals the port's
   ``with_rowmm()``; 'compat' returns itself;
 * ``warp_channels`` through the tile structures equals the gather's in
-  'fast', 'corridor', 'turbo' and 'half'; the row bands (each band grid
-  with its own structure) equal the unsharded front half;
+  'fast', 'corridor', 'turbo' and 'half';
 * ``LaneTracker(latency_mode=True)`` equals ``latency_mode=False`` in
   every output of ``process`` and ``process_chunk``.
 """
@@ -36,7 +35,6 @@ from lane_tracker_tpu.tracker import step as j_step
 
 from lane_tracker_tpu_torch.kernels import resample as t_resample
 from lane_tracker_tpu_torch.kernels import resample_rowmm as t_rowmm
-from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
 from lane_tracker_tpu_torch.tracker import step as t_step
 from lane_tracker_tpu_torch.tracker.tracker import LaneTracker as TTracker
 
@@ -160,16 +158,6 @@ def test_warp_channels_rowmm_equal_gather(pipeline):
     for got, want in zip(t_step.warp_channels(frames, pm),
                          t_step.warp_channels(frames, p)):
         assert torch.equal(got, want)
-
-
-def test_row_bands_with_rowmm_equal_unsharded():
-    pm = port_params("turbo").with_rowmm()
-    _, tcfg = tm.configs("turbo")
-    frames = torch.from_numpy(np.concatenate(
-        [tm.stills()[:1], np.zeros_like(tm.stills()[:1])]))
-    want = t_step.front_artifacts_batch(frames, pm, tcfg, True)
-    got = front_artifacts_rows(frames, pm, tcfg, tm.ROW_DEVICES, True)
-    assert not tm.arts_equal(got, want)
 
 
 def test_latency_mode_tracker_equals_gather_tracker():

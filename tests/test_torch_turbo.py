@@ -18,7 +18,7 @@ helpers and tolerances of tests/torch_modes.py):
 * ``LaneTracker.process`` over tests/test_torch_tracker.py's schedule: the
   decisions, the diagnostics transcript line for line, the search pictures
   exactly, snapshots continued across the packages both ways;
-* the row bands and the fleet equal the unsharded chunk;
+* a two-stream fleet equals the chunk on each stream;
 * ``python -m lane_tracker_tpu_torch --pipeline turbo`` (in process, on
   the CPU) logs JAX's CLI's frames line for line.
 """
@@ -162,10 +162,11 @@ def test_snapshot_continues_in_the_other_package(drives, direction):
 
 
 def test_rows_and_fleet_equal_unsharded(params):
+    """A two-stream fleet over two CPU devices equals ``chunk_process`` on
+    each stream's frames."""
     _, tp = params
     _, tcfg = tm.configs(PIPELINE)
     frames = tm.chunk_frames()[1:5]  # frame 2 is black
-    tm.assert_rows_equal_unsharded(tp, tcfg, frames)
     tm.assert_fleet_equals_chunks(tp, tcfg, np.stack([frames[:2],
                                                       frames[2:]]))
 

@@ -43,7 +43,6 @@ from lane_tracker_tpu.tracker.config import PRESETS, halve_config
 from lane_tracker_tpu.tracker.tracker import LaneTracker as JTracker
 
 from lane_tracker_tpu_torch.parallel.pipeline import chunk_process as t_chunk
-from lane_tracker_tpu_torch.parallel.rows import front_artifacts_rows
 from lane_tracker_tpu_torch.parallel.streams import StreamFleet
 from lane_tracker_tpu_torch.tracker import step as t_step
 from lane_tracker_tpu_torch.tracker.tracker import LaneTracker as TTracker
@@ -51,7 +50,7 @@ from lane_tracker_tpu_torch.tracker.tracker import LaneTracker as TTracker
 T_CHUNK = 8
 BLACK = 3  # the chunk's black frame: both attempts fail on it
 WARP_MAX_SHARE = 0.0005
-ROW_DEVICES = ("cpu", "cpu")
+CPU2 = ("cpu", "cpu")
 
 
 def calib_args():
@@ -147,48 +146,12 @@ def assert_chunks_match(j, t, H):
     assert d.max() <= 1
 
 
-def arts_equal(a, b) -> list:
-    """The FrontArtifacts fields (nested fields flattened) that differ."""
-    def flat(arts):
-        out = []
-        for name, x in zip(arts._fields, arts):
-            if x is None or isinstance(x, torch.Tensor):
-                out.append((name, x))
-            else:
-                out += [(f"{name}.{n}", v) for n, v in zip(x._fields, x)]
-        return out
-
-    return [n for (n, x), (_, y) in zip(flat(a), flat(b))
-            if not (x is None and y is None
-                    or x is not None and y is not None
-                    and torch.equal(x, y))]
-
-
-def assert_rows_equal_unsharded(tp, tcfg, frames):
-    """The front half over two row bands equals the unsharded one in every
-    field, the second attempt hoisted and not; ``chunk_process`` over the
-    bands equals the unsharded call in every output and state field."""
-    frames = torch.from_numpy(frames)
-    for hoist in (False, True):
-        want = t_step.front_artifacts_batch(frames, tp, tcfg, hoist)
-        got = front_artifacts_rows(frames, tp, tcfg, ROW_DEVICES, hoist)
-        assert not arts_equal(got, want), (hoist, arts_equal(got, want))
-    fresh = t_step.make_initial_state(tcfg, tp.warped_size, "cpu")
-    sa, oa = t_chunk(fresh, frames, tp, tcfg, second_attempt="two_phase")
-    sb, ob = t_chunk(fresh, frames, tp, tcfg, second_attempt="two_phase",
-                     row_devices=ROW_DEVICES)
-    for name in oa._fields:
-        assert torch.equal(getattr(oa, name), getattr(ob, name)), name
-    for name in sa._fields:
-        assert torch.equal(getattr(sa, name), getattr(sb, name)), name
-
-
 def assert_fleet_equals_chunks(tp, tcfg, frames):
     """A two-stream fleet over two CPU devices ('two_phase', overlay on):
     each stream equals ``chunk_process`` ('hoist', fresh state) on its
     frames, decisions identical, curves within 0.01 px, overlays within
     1 unit.  ``frames``: (2, T, Hc, Wc, 3)."""
-    fleet = StreamFleet(tp, tcfg, 2, mesh=ROW_DEVICES, with_overlay=True)
+    fleet = StreamFleet(tp, tcfg, 2, mesh=CPU2, with_overlay=True)
     outs, metrics = fleet.step(frames)
     H = tp.warped_size[1]
     assert int(metrics["frames"]) == frames.shape[0] * frames.shape[1]
