@@ -209,6 +209,25 @@ Phases (each raises at the first failure; nothing is skipped):
    (the scan's bytes at the HBM rate: it is latency-bound); the kernels
    line's ``back_half`` entry is the one-stream two-attempt scan, with
    every case in its ``cases``.
+18. Warp + LAB (runs after phase 17, before phase 10): the warp + LAB
+   kernels (kernels/warp_lab.py) against their plain twin
+   (``warp_rows_plain``) at the main path's shapes, on the T=512 motion
+   frames (black at 450-455), in 'fast' and 'corridor': the offline
+   chunk's slice (``tracker.upload.slice_frames``, 36 frames), the whole
+   chunk, and the fleet's batch of 16 streams of 32 as its step gathers
+   it.  Every R and LAB-B pixel must equal the twin's, and each call be
+   one call of the wrapper, two kernels by the library's own counter
+   (``lt_warp_lab_launches``) and its frames in
+   ``lt.warp_lab.kernel_frames``.  Then, each count set to 0 just
+   before, ``LaneTracker.process_chunk`` of the 512 frames from the host
+   must call the kernels once a slice and a 16 x 32 ``StreamFleet`` step
+   once.  Timed: the kernels queued behind a spin (``timing.queued_ms``)
+   and by CUDA events, the twin (32 frames a call) by CUDA events, in
+   turns; the bound is ``benchmark/roofline.warp_lab_s`` of the call's
+   shape (the raw rows read once, the two planes written once).  The
+   kernels line's ``warp_lab`` entry is 'fast''s slice, with every case
+   in its ``cases``, the process_chunk counts in ``path_launches`` and
+   the fleet step's in ``fleet_launches``.
 10. Timing (printed, not gated): frames/s of the stills and the fail16
    chunks in each second-attempt mode, in turns, with state carried;
    ``LaneTracker.process`` ms a frame (median over 16 frames after a
@@ -322,6 +341,15 @@ BACK_HALF_LAUNCHES = {"stills": 1, "two_phase": 2, "hoist": 1, "cond": 0}
 BACK_HALF_STREAMS = (16, 32)
 BACK_HALF_PX = 1e-2
 BACK_HALF_REPS = 5
+# Phase 18, the warp + LAB kernels against their twin at the main path's
+# shapes, in the pipelines of the benchmark's cells: the offline chunk's
+# slice, bench.py's T_BENCH chunk and the fleet's batch of 16 streams of
+# 32; the twin runs WARP_LAB_TWIN_T frames a call (its float64
+# intermediates grow with the call).
+WARP_LAB_PIPELINES = ("fast", "corridor")
+WARP_LAB_STREAMS = (16, 32)
+WARP_LAB_TWIN_T = 32
+WARP_LAB_REPS = 10
 ENTRY_ENV = ("BENCH_", "LATENCY_", "FLEET_")
 LATENCY_KEYS = ("pipeline", "chunk", "fps", "ms_per_frame",
                 "chunk_compute_ms", "peak_mem_gib", "device")
@@ -1881,6 +1909,141 @@ def back_half_phase(build_params, cfg, card):
     return cases, worst
 
 
+def warp_lab_phase(build_params, new_tracker, cfg, card):
+    """Phase 18: the warp + LAB kernels against their twin on the main
+    path's shapes, their times, and their launches on the main path's
+    entry points.  Returns the kernels line's row parts: (cases, launches
+    by path, launches by fleet step).  Releases its memory."""
+    import gc
+
+    import torch
+
+    from benchmark.roofline import warp_lab_s
+    from lane_tracker_tpu_torch.io.motion import motion_chunk
+    from lane_tracker_tpu_torch.kernels import warp_lab as wl
+    from lane_tracker_tpu_torch.parallel.streams import StreamFleet
+    from lane_tracker_tpu_torch.timing import cuda_ms, queued_ms
+    from lane_tracker_tpu_torch.tracker import upload
+    from lane_tracker_tpu_torch.tracker.step import (
+        warp_chain,
+        warp_channels,
+        warp_rows_plain,
+    )
+    from lane_tracker_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    frames = motion_chunk(T_BENCH, "cuda")
+    T_slice = upload.slice_frames(frames[0].numel())
+    S, T = WARP_LAB_STREAMS
+    # The fleet's batch as its step gathers it: stream s at frame s of the
+    # pool, T frames on (benchmark/entries/fleet.py), flattened.
+    fleet_idx = (torch.arange(S)[:, None] * 7 + torch.arange(T)) % T_BENCH
+    fleet_frames = frames[fleet_idx.to(frames.device)]
+    cases, path_launches, fleet_launches = [], {}, {}
+
+    def counted(fn):
+        """(calls, kernels launched, kernel frames) of ``fn``, the
+        wrapper's count set to 0 just before it."""
+        torch.cuda.synchronize()
+        wl.LAUNCHES["warp_lab"] = 0
+        k0 = wl.kernel_launches()
+        with profiling.recording():
+            fn()
+        torch.cuda.synchronize()
+        frames_n = profiling.summary()["counters"].get(
+            "lt.warp_lab.kernel_frames", 0)
+        return wl.LAUNCHES["warp_lab"], wl.kernel_launches() - k0, frames_n
+
+    for pipeline in WARP_LAB_PIPELINES:
+        params = build_params(pipeline)
+        chain = warp_chain(params)
+        r0, r1 = params.raw_roi
+        H, W = chain.g_warp.dst_shape
+        for tag, batch in ((f"offline slice T={T_slice}", frames[:T_slice]),
+                           (f"chunk T={T_BENCH}", frames),
+                           (f"fleet {S} streams x {T}",
+                            fleet_frames.reshape((S * T,)
+                                                 + frames.shape[1:]))):
+            n = batch.shape[0]
+            raw = batch[:, r0:r1]
+            check(wl.takes_kernel(raw, chain),
+                  f"warp + LAB {pipeline} {tag}: the chain does not take "
+                  "the kernels")
+            n_calls, n_kernels, n_frames = counted(
+                lambda: warp_channels(batch, params))
+            check((n_calls, n_kernels, n_frames) == (1, 2, n),
+                  f"warp + LAB {pipeline} {tag}: (calls, kernels, frames) "
+                  f"{(n_calls, n_kernels, n_frames)}, not (1, 2, {n})")
+            got = warp_channels(batch, params)
+
+            def twin():
+                return [warp_rows_plain(raw[k:k + WARP_LAB_TWIN_T], chain)
+                        for k in range(0, n, WARP_LAB_TWIN_T)]
+
+            want = [torch.cat(x) for x in zip(*twin())]
+            diff = [int((g != w).sum()) for g, w in zip(got, want)]
+            err = max(int((g.int() - w.int()).abs().max())
+                      for g, w in zip(got, want))
+            check(diff == [0, 0], f"warp + LAB {pipeline} {tag}: R, LAB-B "
+                  f"differ from the twin's in {diff} pixels")
+            del got, want
+
+            def call():
+                return warp_channels(batch, params)
+
+            # The twin, the kernels, the kernels, the twin.
+            p1 = cuda_ms(twin, 1)
+            ms = queued_ms(call, WARP_LAB_REPS)
+            events_ms = cuda_ms(call, WARP_LAB_REPS)
+            p2 = cuda_ms(twin, 1)
+            plain_ms = (p1 + p2) / 2
+            bound_ms = warp_lab_s(n, r1 - r0, raw.shape[2], H, W) * 1e3
+            row = {"case": f"{pipeline} {tag}", "ms": ms,
+                   "events_ms": events_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": "bytes",
+                   "ms_per_frame": ms / n, "plain_ms_per_frame": plain_ms / n,
+                   "max_abs_err": err, "H": H, "W": W}
+            cases.append(row)
+            print(f"[warp-lab] {pipeline} {tag}: kernels {ms:.4f} ms queued "
+                  f"({events_ms:.4f} by events; {1e3 * ms / n:.3f} us a "
+                  f"frame), plain twin {plain_ms:.2f} ms ({WARP_LAB_TWIN_T} "
+                  f"frames a call), bound {bound_ms:.5f} ms (bytes); R and "
+                  f"LAB-B equal to the twin's; (calls, kernels) (1, 2) "
+                  f"({card})")
+        del params, chain
+
+        # The main path's entry points, each count set to 0 just before:
+        # the offline chunk of host frames a call a slice, one fleet step
+        # a call.
+        host = frames.cpu().numpy()
+        tracker = new_tracker(pipeline=pipeline)
+        slices = -(-T_BENCH // T_slice)
+        got = counted(lambda: tracker.process_chunk(
+            host, with_overlay=True, second_attempt="two_phase"))
+        check(got == (slices, 2 * slices, T_BENCH),
+              f"warp + LAB {pipeline} process_chunk T={T_BENCH}: (calls, "
+              f"kernels, frames) {got}, not {(slices, 2 * slices, T_BENCH)}")
+        path_launches[f"process_chunk {pipeline} T={T_BENCH}"] = {
+            "warp_lab": got[0]}
+        fleet = StreamFleet(build_params(pipeline), cfg, S, mesh=["cuda"],
+                            with_overlay=True, second_attempt="two_phase")
+        got = counted(lambda: fleet.step(fleet_frames))
+        check(got == (1, 2, S * T), f"warp + LAB {pipeline} fleet step: "
+              f"(calls, kernels, frames) {got}, not (1, 2, {S * T})")
+        fleet_launches[f"two_phase {pipeline} {S}x{T}"] = {
+            "warp_lab": got[:2]}
+        print(f"[warp-lab] {pipeline}: process_chunk of {T_BENCH} host "
+              f"frames {slices} calls ({2 * slices} kernels, {T_BENCH} "
+              f"kernel frames); fleet step of {S}x{T} 1 call (2 kernels, "
+              f"{S * T} kernel frames)")
+        del tracker, fleet, host
+    del frames, fleet_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[warp-lab] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return cases, path_launches, fleet_launches
+
+
 def main(argv):
     import argparse
 
@@ -1907,6 +2070,7 @@ def main(argv):
     from lane_tracker_tpu_torch.kernels import shift_chain as sc
     from lane_tracker_tpu_torch.kernels import sweep_dots as sd
     from lane_tracker_tpu_torch.kernels import tile_gather as tg
+    from lane_tracker_tpu_torch.kernels import warp_lab as wl
     from lane_tracker_tpu_torch.kernels.build import build
     from lane_tracker_tpu_torch.kernels.resample import bilinear_gather
     from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast
@@ -2547,6 +2711,14 @@ def main(argv):
     back_half_cases, max_err["back_half"] = back_half_phase(
         build_params, cfg, card)
 
+    # ---- 18. The warp + LAB kernels (before the timing phase) ----
+    warp_lab_cases, warp_paths, warp_fleet = warp_lab_phase(
+        build_params, new_tracker, cfg, card)
+    max_err["warp_lab"] = max(c["max_abs_err"] for c in warp_lab_cases)
+    launches["warp_lab"] = next(iter(warp_paths.values()))["warp_lab"]
+    path_launches.update(warp_paths)
+    fleet_launches.update(warp_fleet)
+
     # ---- 10. Timing (not gated) ----
     def chunk_ms(frames_t, mode):
         """ms per chunk over N_TIMED_CHUNKS, state carried, after one
@@ -2651,7 +2823,7 @@ def main(argv):
                          + warped.numel(),
                          (warped.numel() * PASS2_FLOPS, "float32")),
     }
-    mods = (fs, cf, rm, sc, sd, tg, bhk)
+    mods = (fs, cf, rm, sc, sd, tg, bhk, wl)
     sources = {k: v for m in mods for k, v in m.SOURCE.items()}
     replaces = {k: v for m in mods for k, v in m.REPLACES.items()}
     kernels = []
@@ -2703,6 +2875,12 @@ def main(argv):
     row = back_half_cases[1]
     add_kernel("back_half", row["ms"], row["plain_ms"], row["bound_ms"],
                row["bound_by"], cases=back_half_cases)
+    # Phase 18's warp + LAB kernels: the row is 'fast''s call on the offline
+    # chunk's slice, the main path's call; ``cases`` holds each pipeline
+    # and shape.
+    row = warp_lab_cases[0]
+    add_kernel("warp_lab", row["ms"], row["plain_ms"], row["bound_ms"],
+               row["bound_by"], cases=warp_lab_cases)
 
     # Rows 1-3 and 5 launch by launch, each entry called alone on the main
     # path's input, with its own bound; the rows' kernels entries list them

@@ -28,7 +28,7 @@ SOURCES = ("filter_stage.cu", "tophat_staged.cu", "dual_tophat.cu",
            "adaptive_mean.cu", "channel_stage.cu", "resample_mxu2.cu",
            "shift_chain.cu", "shift_chain_8bit.cu", "shift_chain_i16.cu",
            "shift_chain_i32.cu", "shift_chain_bf16.cu", "sweep_dots.cu",
-           "tile_gather.cu", "back_half.cu")
+           "tile_gather.cu", "back_half.cu", "warp_lab.cu")
 # Flags of one source beside NVCC_FLAGS: the back half's scan takes the
 # plain path's float32 arithmetic operation by operation, so no multiply
 # and add of it may contract into a fused multiply-add.
@@ -71,10 +71,15 @@ SIGNATURES = {
     "lt_filter_stage_launches": (),
     "lt_back_half": (_P, _I, _P, _I, _P, _I, _P),
     "lt_back_half_launches": (),
+    "lt_warp_lab": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                    _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                    _P),
+    "lt_warp_lab_launches": (),
 }
 # Entries that return something else than an int error code.
 RESTYPES = {"lt_filter_stage_launches": ctypes.c_longlong,
-            "lt_back_half_launches": ctypes.c_longlong}
+            "lt_back_half_launches": ctypes.c_longlong,
+            "lt_warp_lab_launches": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:

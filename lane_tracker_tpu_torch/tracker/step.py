@@ -61,6 +61,7 @@ from lane_tracker_tpu_torch.kernels.resample_rowmm import (
     bilinear_gather_rowmm,
     build_rowmm,
 )
+from lane_tracker_tpu_torch.kernels.warp_lab import takes_kernel, warp_lab
 from lane_tracker_tpu_torch.ops.color import rgb2lab_b_fast, rgb2lab_b_u8
 from lane_tracker_tpu_torch.ops.filters import filter_stage
 from lane_tracker_tpu_torch.ops.integrals import RowPrefixes, interval_moments
@@ -493,9 +494,25 @@ def _gather(img: torch.Tensor, grid: ResampleGrid, mm: RowMMGrid | None):
     return bilinear_gather_rowmm(img, grid, mm)
 
 
-def warp_rows(raw: torch.Tensor, chain: WarpChain):
+def warp_rows(raw: torch.Tensor, chain: WarpChain, out=None):
     """Warped R and LAB-B of (T, rows, Wc, 3) uint8 raw rows, the rows
-    ``chain``'s undistort grid reads, in the reference's order of
+    ``chain``'s undistort grid reads: on the card, where the chain
+    qualifies (``kernels.warp_lab.takes_kernel``), one call of the warp +
+    LAB kernels, else ``warp_rows_plain``, bit for bit the same.  With
+    ``out``, two contiguous uint8 (T, H, W) planes, the planes are written
+    there (by the kernels themselves) and returned."""
+    if takes_kernel(raw, chain):
+        return warp_lab(raw, chain.g_und, chain.g_warp, out)
+    planes = warp_rows_plain(raw, chain)
+    if out is None:
+        return planes
+    for plane, x in zip(out, planes):
+        plane.copy_(x)
+    return out
+
+
+def warp_rows_plain(raw: torch.Tensor, chain: WarpChain):
+    """``warp_rows`` in PyTorch operators, in the reference's order of
     operations (step.py:417-468): the undistort, then for 'turbo' LAB-B of
     the undistorted band and one pair resample of (R, LAB-B) with the fill
     bias, else the warp of the RGB and LAB-B of the warped frame."""
@@ -513,8 +530,9 @@ def warp_rows(raw: torch.Tensor, chain: WarpChain):
     return warped[..., 0].contiguous(), chain.lab(warped)
 
 
-def warp_channels(frames: torch.Tensor, params: TrackerParams):
-    """Warped R and LAB-B channels of a (T, Hc, Wc, 3) uint8 chunk.
+def warp_channels(frames: torch.Tensor, params: TrackerParams, out=None):
+    """Warped R and LAB-B channels of a (T, Hc, Wc, 3) uint8 chunk, into
+    ``out`` where given (``warp_rows``).
 
     The reference's exact two-stage chain: fixed-point undistort of the raw
     rows the warp samples, then the float bird's-eye warp (cropped to the
@@ -522,7 +540,7 @@ def warp_channels(frames: torch.Tensor, params: TrackerParams):
     undistorts the whole frame and takes LAB-B by the LUT chain; 'turbo'
     warps LAB-B of the undistorted band (``warp_rows``)."""
     r0, r1 = params.raw_roi
-    return warp_rows(frames[:, r0:r1], warp_chain(params))
+    return warp_rows(frames[:, r0:r1], warp_chain(params), out)
 
 
 def _embed_cols(binary: torch.Tensor, params: TrackerParams) -> torch.Tensor:
@@ -601,17 +619,16 @@ def second_attempt_artifacts_batch(r_chan: torch.Tensor, b_chan: torch.Tensor,
 
 def _warp_slices(chunk, params: TrackerParams):
     """``warp_channels`` of a ``tracker.upload.StreamedChunk``, a slice at
-    a time as each slice lands, into (T, ...) planes: the same planes bit
-    for bit, since the warp is frame-local."""
-    planes = None
+    a time as each slice lands, each slice into its frames of the chunk's
+    (T, H, W) planes: the same planes bit for bit, since the warp is
+    frame-local."""
+    shape = (chunk.shape[0],) + warp_chain(params).g_warp.dst_shape
+    planes = tuple(torch.empty(shape, dtype=torch.uint8,
+                               device=chunk.frames.device) for _ in range(2))
     for lo, part in chunk.slices():
         with span("lt.warp_lab"):
-            parts = warp_channels(part, params)
-            if planes is None:
-                planes = tuple(x.new_empty((chunk.shape[0],) + x.shape[1:])
-                               for x in parts)
-            for plane, x in zip(planes, parts):
-                plane[lo:lo + x.shape[0]] = x
+            warp_channels(part, params, tuple(p[lo:lo + part.shape[0]]
+                                              for p in planes))
     return planes
 
 

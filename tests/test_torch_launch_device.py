@@ -26,6 +26,7 @@ from lane_tracker_tpu_torch.kernels import filter_stage as fs
 from lane_tracker_tpu_torch.kernels import resample_mxu2 as rm
 from lane_tracker_tpu_torch.kernels import sweep_dots as sd
 from lane_tracker_tpu_torch.kernels import tile_gather as tg
+from lane_tracker_tpu_torch.kernels import warp_lab as wl
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent / (
     "lane_tracker_tpu_torch")
@@ -80,6 +81,23 @@ def _u8(device, shape=(1, 8, 8)):
     return torch.zeros(shape, dtype=torch.uint8, device=device)
 
 
+def _warp_lab(raw_device, grids_device):
+    """The warp + LAB kernels' wrapper on raw rows on one device and the
+    grids (the synthetic calibration's 'fast') on another."""
+    from lane_tracker_tpu_torch.calib import synthetic as syn
+    from lane_tracker_tpu_torch.tracker import step as t_step
+
+    cam, warp = syn.make_synthetic_calibration()
+    params = t_step.TrackerParams.build(
+        cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
+        warp.image_width_height, warp.warped_width_height, warp.mppv,
+        warp.mpph, device="cpu")
+    width, rows = params.grid_und_roi.src_size
+    return wl.warp_lab(_u8(raw_device, (1, rows, width, 3)),
+                       params.grid_und_roi.copy_to(grids_device),
+                       params.grid_warp_roi.copy_to(grids_device))
+
+
 TWO_DEVICE_CALLS = {
     "tophat_riders": lambda a, b: fs.tophat_riders(a, 29, [(b, 15, 8, -1)]),
     "thr_merge_open": lambda a, b: fs.thr_merge_open(a, b, 35, 5),
@@ -94,6 +112,7 @@ TWO_DEVICE_CALLS = {
         *(x.to(d) for x, d in zip(tg.make_inputs(),
                                   (a.device, b.device, a.device))),
         "B0_plain_add", 1),
+    "warp_lab": lambda a, b: _warp_lab(a.device, b.device),
     "banded_pass2": lambda a, b: rm.pass2(
         torch.zeros((1, 1, 2, 8), device=a.device),
         torch.zeros((2, 1, 4, rm.LANE), device=b.device), 4),
@@ -106,6 +125,7 @@ def test_wrappers_reject_inputs_on_two_devices(monkeypatch, name):
         raise AssertionError("launched or computed")
 
     monkeypatch.setattr(fs, "_call", never)
+    monkeypatch.setattr(wl, "_call", never)
     for mod in (fs, sd, tg, rm):
         for twin in [n for n in dir(mod) if n.endswith("_plain")]:
             monkeypatch.setattr(mod, twin, never)

@@ -25,8 +25,9 @@ per-frame loop and the launches of the back-half kernel lie inside
 ``lt.back_half`` ranges, and each ``lt.upload`` range holds the launch
 of one host-to-card copy of frames; on a motion chunk with a dropout the
 streamed chunk equals the whole-tensor path bit for bit, its frame
-copies are pinned, on a stream of their own, overlap the warp, and a
-second chunk allocates no pinned memory.  This file
+copies are pinned, on a stream of their own, each slice's warp waits
+for its own copy and for no later one, and a second chunk allocates no
+pinned memory.  This file
 imports no jax; run those tests on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -564,8 +565,10 @@ def test_streamed_chunk_on_the_card(card_inputs, tmp_path, monkeypatch):
     state.  Under ``torch.profiler``, on the second chunk: every
     host-to-card copy of frames is pinned and on a stream that runs no
     warp kernel, they carry the chunk's bytes, one copy an ``lt.upload``
-    range, at least one overlaps a warp kernel, no pageable host-to-card
-    copy runs, and no pinned memory is allocated."""
+    range, each slice's warp kernels start after its own copy has ended
+    and before the next slice's copy has (the warp waits on the card for
+    its slice alone), no pageable host-to-card copy runs, and no pinned
+    memory is allocated."""
     from lane_tracker_tpu_torch.io.motion import load_scenes, motion_frame
 
     args, _ = card_inputs
@@ -641,8 +644,19 @@ def test_streamed_chunk_on_the_card(card_inputs, tmp_path, monkeypatch):
     assert not [e for e in h2d if "Pageable" in e["name"]]
     warp_streams = {e["args"]["stream"] for e in warps}
     assert not warp_streams & {e["args"]["stream"] for e in copies}
-    assert any(c["ts"] < w["ts"] + w["dur"] and w["ts"] < c["ts"] + c["dur"]
-               for c in copies for w in warps)
+    # The copies run in slice order on their one stream; the warp of a
+    # slice, launched in its ``lt.warp_lab`` range, waits on the card for
+    # that slice's copy and no later one.
+    slices = sorted((e["ts"], e["ts"] + e["dur"]) for e in ranges
+                    if e["name"] == "lt.warp_lab")
+    copies = sorted(copies, key=lambda e: e["ts"])
+    assert len(slices) == len(copies) == n_slices
+    for s, (a, b) in enumerate(slices):
+        start = min(w["ts"] for w in warps
+                    if a <= launches[w["args"]["correlation"]]["ts"] <= b)
+        assert start >= copies[s]["ts"] + copies[s]["dur"], s
+        if s + 1 < n_slices:
+            assert start < copies[s + 1]["ts"] + copies[s + 1]["dur"], s
     assert not [e for e in events if e.get("cat") in ("cuda_runtime",
                                                       "cuda_driver")
                 and ("HostAlloc" in e.get("name", "")
